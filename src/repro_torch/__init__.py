@@ -1,0 +1,11 @@
+"""repro_torch: the PyTorch/CUDA port of :mod:`repro` (MELISO+ analog
+in-memory computing with integrated error correction) for NVIDIA Hopper.
+
+Mirrors the JAX package's layout (``core``, ``kernels``, ``engine``,
+``solvers``); every kernel that the JAX package wrote in Pallas is a
+hand-written CUDA kernel here, beside its plain PyTorch version.  Imports
+``torch`` only -- never ``jax`` and nothing of ``repro``.
+"""
+__version__ = "0.1.0"
+
+from repro_torch.engine import AnalogEngine, AnalogMatrix  # noqa: E402,F401
