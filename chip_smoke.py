@@ -7,7 +7,7 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); exits
 non-zero, printing no result, without them or without the repository's
 ``src/repro_torch`` beside it.  Phases, each of which raises on failure:
 
-  1. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. program a 32,768 x 32,768 matrix (taox-hfox, EC on, default 8 x 8 MCAs
      of 512 x 512) and hold each kernel to its plain PyTorch version at the
      main path's shapes, timing kernel, plain version and library call;
@@ -15,14 +15,23 @@ non-zero, printing no result, without them or without the repository's
      ``backend="cuda"``, against the digital ``a @ x``, the ``reference``
      backend on the same image, and -- with the input DAC off, where both
      are deterministic -- the reference pipeline to 1e-5;
+  3t. the same for ``A.T @ y`` on the same image, and, DAC off, an engine
+     with the exact Thomas tier-2 (lam = 1e-2) in both directions against
+     the reference pipeline to 1e-5;
   4. solve an SPD system (epiram, EC on) with CG and Richardson through
-     ``backend="cuda"`` to x error <= 1e-3.
+     ``backend="cuda"`` to x error <= 1e-3;
+  5. solve a consistent 32,768 x 16,384 least-squares problem with LSQR and
+     LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
+     feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
+     the two images first holds ec_matmul, ec_rmatmul (batch 1) and
+     stencil_denoise (on its 16,384-row panel) to their plain versions.
 
-Launch counts are zeroed just before phases 3 and 4 and read just after:
-every kernel must have run on that path.  The last three lines of output
-are the kernel table as JSON, the card's name and power limit, and the
-result line.  Peak rates are the published H100 SXM figures (3.35 TB/s of
-HBM, 67 TFLOP/s float32 outside the tensor cores).
+Launch counts are zeroed just before each solve of phases 4 and 5, and
+before phases 3 and 3t, and read just after: every kernel must have run on
+the path that uses it.  The last three
+lines of output are the kernel table as JSON, the card's name and power
+limit, and the result line.  Peak rates are the published H100 SXM figures
+(3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
 """
 from __future__ import annotations
 
@@ -40,9 +49,16 @@ SEED = 0
 STENCIL_CHECK_LAM = 1e-2  # large enough that the stencil term shows in fp32
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-EC_TOL = 1e-5          # ec_matmul vs its plain version (fp32 sums, other order)
-ELEMENTWISE_TOL = 1e-6  # the three one-pass kernels
+EC_TOL = 1e-5          # ec_(r)matmul vs its plain version (fp32 sums, other order)
+ELEMENTWISE_TOL = 1e-6  # the one-pass kernels, and thomas_solve (a contraction)
 SOLVE_TOL = 1e-3
+LSTSQ_SHAPE = (N, N // 2)   # rows, columns of the least-squares matrix
+LP_SHAPE = (N // 2, N)      # constraints, variables of the LP
+PDHG_MAXITER = 5000
+# Thomas: each row is a dependent FMA + multiply forward and an FMA backward,
+# about 12 cycles in all; at the H100 SXM's 1.98 GHz boost clock.
+THOMAS_CYCLES_PER_ROW = 12
+SM_CLOCK_HZ = 1.98e9
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than queueing a run
 
 
@@ -98,8 +114,10 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
-            library_fn=None):
-    """Kernel vs plain version on the same inputs: error, times, bound."""
+            library_fn=None, plain_iters=None, plain_warmup=2):
+    """Kernel vs plain version on the same inputs: error, times, bound.
+    ``plain_iters`` / ``plain_warmup`` time a slow plain version with fewer
+    calls than the kernel."""
     got, want = kernel_fn(), plain_fn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -113,7 +131,8 @@ def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
     row = {"rel_l2": err, "max_abs_err": max_abs,
            "ms": device_time_ms(kernel_fn, iters),
            "call_ms": call_time_ms(kernel_fn, iters),
-           "plain_ms": device_time_ms(plain_fn, iters),
+           "plain_ms": device_time_ms(plain_fn, plain_iters or iters,
+                                      plain_warmup),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": (device_time_ms(library_fn, iters)
                           if library_fn is not None else None)}
@@ -149,6 +168,7 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda} | tf32 off",
           flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    t_start = time.perf_counter()
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -206,6 +226,35 @@ def main() -> int:
         res["stencil_denoise"].update(
             rel_l2=checked["rel_l2"], max_abs_err=checked["max_abs_err"],
             err_lam=STENCIL_CHECK_LAM, ms_lam=cfg.lam)
+        # The same image read backwards: A_tilde^T y + dA^T y_tilde.
+        y = torch.randn(m, batch, generator=gen, device=dev)
+        y_t = crossbar._encode_vec(y, cfg, gen=generator(100 + batch, dev))
+        res["ec_rmatmul"] = compare(
+            f"ec_rmatmul {m}x{k} batch {batch}",
+            lambda: kernels.ec_rmatmul(at, da, y, y_t),
+            lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
+            nbytes=4 * (2 * m * k + 2 * m * batch + k * batch),
+            flops=4 * m * k * batch, iters=10,
+            library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))
+        # Thomas: checked at STENCIL_CHECK_LAM (the identity in fp32 at the
+        # engine's lam), timed at the engine's lam (the same work).  The
+        # plain version is 2n small steps from the host: 1 warmup, 1 timed.
+        checked = compare(
+            f"thomas_solve {m}x{batch} lam {STENCIL_CHECK_LAM:g} (check)",
+            lambda: kernels.thomas_solve(p, STENCIL_CHECK_LAM, cfg.h),
+            lambda: kernels.thomas_solve_plain(p, STENCIL_CHECK_LAM, cfg.h),
+            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * m),
+            flops=5 * m * batch, iters=3, plain_iters=1, plain_warmup=0)
+        res["thomas_solve"] = compare(
+            f"thomas_solve {m}x{batch} lam {cfg.lam:g}",
+            lambda: kernels.thomas_solve(p, cfg.lam, cfg.h),
+            lambda: kernels.thomas_solve_plain(p, cfg.lam, cfg.h),
+            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * m),
+            flops=5 * m * batch, iters=20, plain_iters=1, plain_warmup=1)
+        res["thomas_solve"].update(
+            rel_l2=checked["rel_l2"], max_abs_err=checked["max_abs_err"],
+            err_lam=STENCIL_CHECK_LAM, ms_lam=cfg.lam,
+            chain_ms=THOMAS_CYCLES_PER_ROW * m / SM_CLOCK_HZ * 1e3)
         v = [torch.randn(m, batch, generator=gen, device=dev)
              for _ in range(4)]
         alpha = torch.rand(batch, generator=gen, device=dev)
@@ -269,7 +318,71 @@ def main() -> int:
               for be in ("cuda", "reference")}
     print(f"    corrected MVM, batch 1, per call: cuda {mvm_ms['cuda']:.3f} "
           f"ms, reference {mvm_ms['reference']:.3f} ms", flush=True)
-    del A, a, digital, views, det, batched, singles
+    del digital, det, batched, singles
+
+    # ------------------------------------- 3t. serve transposed + Thomas (main)
+    ys = torch.randn(N, 8, generator=gen, device=dev)
+    digital_t = torch.matmul(a.T, ys)
+    # DAC off, the exact Thomas tier-2 at a lam where it is not the identity.
+    thomas_cfg = dataclasses.replace(exact, denoise_method="thomas",
+                                     lam=STENCIL_CHECK_LAM)
+    thomas = {be: AnalogMatrix(
+        engine=AnalogEngine(thomas_cfg, backend=be, device=dev),
+        shape=A.shape, base_key=0, write_stats=A.write_stats,
+        at_pad=A.at_pad, da_pad=A.da_pad) for be in ("cuda", "reference")}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    singles = torch.stack([A.T @ ys[:, i] for i in range(8)], dim=1)
+    batched = A.T @ ys
+    torch.cuda.synchronize()
+    serve_t_s = time.perf_counter() - t0
+    th_cuda = (thomas["cuda"] @ xs, thomas["cuda"].T @ ys)
+    torch.cuda.synchronize()
+    served_t = dict(kernels.LAUNCHES)
+    check(served_t["ec_rmatmul"] > 0 and served_t["thomas_solve"] > 0,
+          f"transposed serving did not launch its kernels: {served_t}")
+    check(tuple(singles.shape) == (N, 8) and tuple(batched.shape) == (N, 8),
+          "unexpected transposed output shapes")
+    check(bool(torch.isfinite(singles).all() & torch.isfinite(batched).all()
+               & torch.isfinite(th_cuda[0]).all()
+               & torch.isfinite(th_cuda[1]).all()),
+          "non-finite transposed MVM output")
+    err_cuda = rel_l2(singles, digital_t)
+    err_batch = rel_l2(batched, digital_t)
+    err_ref = rel_l2(reference.rmvm(A, ys), digital_t)
+    print(f"[3t] served 8 A.T @ y requests + 1 batch of 8 in "
+          f"{serve_t_s * 1e3:.1f} ms; with the Thomas engine, launches "
+          f"{served_t}", flush=True)
+    print(f"    rel-L2 vs digital a.T @ y: cuda {err_cuda:.4e} (batch "
+          f"{err_batch:.4e}), reference backend {err_ref:.4e}", flush=True)
+    check(err_cuda < 0.1 and 0.5 < err_cuda / err_ref < 2.0,
+          "cuda and reference backends disagree in transposed accuracy")
+    det = [h.T @ ys for h in views]
+    det_err = rel_l2(det[0], det[1])
+    print(f"    DAC off: cuda vs reference pipeline, A.T @ y, rel-L2 "
+          f"{det_err:.3e} (vs digital {rel_l2(det[0], digital_t):.3e})",
+          flush=True)
+    check(det_err <= 1e-5,
+          "transposed cuda path disagrees with the reference pipeline")
+    t0 = time.perf_counter()
+    th_ref = (thomas["reference"] @ xs, thomas["reference"].T @ ys)
+    torch.cuda.synchronize()
+    th_ref_s = time.perf_counter() - t0
+    th_err = [rel_l2(g, w) for g, w in zip(th_cuda, th_ref)]
+    print(f"    DAC off, Thomas tier-2 at lam {STENCIL_CHECK_LAM:g}: cuda vs "
+          f"reference pipeline rel-L2 {th_err[0]:.3e} (A @ x), "
+          f"{th_err[1]:.3e} (A.T @ y); the reference pair took "
+          f"{th_ref_s:.1f} s (host-loop Thomas)", flush=True)
+    check(max(th_err) <= 1e-5,
+          "Thomas cuda path disagrees with the reference pipeline")
+    y1 = ys[:, :1].contiguous()
+    rmvm_ms = {be: call_time_ms(lambda: AnalogEngine(cfg, backend=be,
+                                                     device=dev).rmvm(A, y1), 5)
+               for be in ("cuda", "reference")}
+    print(f"    corrected A.T @ y, batch 1, per call: cuda "
+          f"{rmvm_ms['cuda']:.3f} ms, reference {rmvm_ms['reference']:.3f} ms",
+          flush=True)
+    del A, a, digital_t, views, det, batched, singles, thomas, th_cuda, th_ref
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. solve (main)
@@ -308,14 +421,132 @@ def main() -> int:
           solved["richardson"]["richardson_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
+    del A, b, x_true
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 5. least squares and LP (main, A.T @ y)
+    def check_image(A):
+        """The MVM kernels at batch 1 on a phase-5 image, with its own M, K
+        and slab count, against their plain versions; the stencil on its
+        shorter output panel."""
+        at, da = A.at_pad, A.da_pad
+        m, k = at.shape
+        x = torch.randn(k, 1, generator=gen, device=dev)
+        x_t = crossbar._encode_vec(x, scfg, gen=generator(1, dev))
+        y = torch.randn(m, 1, generator=gen, device=dev)
+        y_t = crossbar._encode_vec(y, scfg, gen=generator(101, dev))
+        res = {"ec_matmul": compare(
+            f"ec_matmul {m}x{k} batch 1",
+            lambda: kernels.ec_matmul(at, da, x, x_t),
+            lambda: kernels.ec_matmul_plain(at, da, x, x_t), EC_TOL,
+            nbytes=4 * (2 * m * k + 2 * k + m), flops=4 * m * k, iters=10,
+            library_fn=lambda: torch.matmul(at, x) + torch.matmul(da, x_t)),
+            "ec_rmatmul": compare(
+            f"ec_rmatmul {m}x{k} batch 1",
+            lambda: kernels.ec_rmatmul(at, da, y, y_t),
+            lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
+            nbytes=4 * (2 * m * k + 2 * m + k), flops=4 * m * k, iters=10,
+            library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))}
+        p = (kernels.ec_matmul(at, da, x, x_t) if m < k
+             else kernels.ec_rmatmul(at, da, y, y_t))
+        res["stencil_denoise"] = compare(
+            f"stencil_denoise {p.shape[0]}x1 lam {STENCIL_CHECK_LAM:g}",
+            lambda: kernels.stencil_denoise(p, STENCIL_CHECK_LAM, scfg.h),
+            lambda: kernels.stencil_denoise_plain(p, STENCIL_CHECK_LAM,
+                                                  scfg.h),
+            ELEMENTWISE_TOL, nbytes=4 * 2 * p.shape[0], flops=6 * p.shape[0],
+            iters=50)
+        res["stencil_denoise"].update(err_lam=STENCIL_CHECK_LAM,
+                                      ms_lam=STENCIL_CHECK_LAM)
+        for row in res.values():
+            row.update(shape=f"{m}x{k}", batch=1)
+        return res
+
+    more_shapes = []
+    m, n = LSTSQ_SHAPE
+    a = torch.randn(m, n, generator=gen, device=dev).div_(m ** 0.5)
+    x_true = torch.randn(n, generator=gen, device=dev)
+    b = torch.matmul(a, x_true)
+    # kappa of a Gaussian m x n matrix: (1 + sqrt(n/m)) / (1 - sqrt(n/m))
+    kappa = (1 + (n / m) ** 0.5) / (1 - (n / m) ** 0.5)
+    A = AnalogEngine(scfg, backend="cuda", device=dev).program(a, 3)
+    del a
+    torch.cuda.empty_cache()
+    print(f"[5] {m}x{n} image: kernels vs plain", flush=True)
+    more_shapes.append(check_image(A))
+    kernels.reset_launches()
+    for name in ("lsqr", "lsmr"):
+        for run in ("cold", "warm"):
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = getattr(solvers, name)(A, b, tol=SOLVE_TOL, maxiter=200)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            err = rel_l2(res.x, x_true)
+            led = res.ledger
+            used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+            print(f"[5] {name} ({run}) {m}x{n}: {res.iterations} iterations, "
+                  f"{led.mvms} + {led.mvms_t} transposed MVMs, normal "
+                  f"residual {res.final_residual:.3e}, converged="
+                  f"{res.converged}, x err {err:.3e} (bound kappa^2 tol = "
+                  f"{kappa ** 2 * SOLVE_TOL:.2e}), {wall * 1e3:.1f} ms = "
+                  f"{wall * 1e3 / max(res.iterations, 1):.3f} ms/iteration; "
+                  f"launches {used}", flush=True)
+            check(res.converged and bool(torch.isfinite(res.x).all()),
+                  f"{name} did not reach normal residual <= {SOLVE_TOL}")
+            check(err <= kappa ** 2 * SOLVE_TOL,
+                  f"{name}: x error {err:.3e} above kappa^2 tol")
+            check(used["ec_rmatmul"] == led.mvms_t,
+                  f"{name} did not run every A.T @ u through ec_rmatmul")
+    lstsq_counts = dict(kernels.LAUNCHES)
+    del A, b, x_true
+    torch.cuda.empty_cache()
+
+    m, n = LP_SHAPE
+    a, b, c, x_star, y_star = solvers.random_feasible_lp(SEED, m, n,
+                                                         device=dev)
+    obj = float(torch.dot(c, x_star))
+    A = AnalogEngine(scfg, backend="cuda", device=dev).program(a, 4)
+    del a
+    torch.cuda.empty_cache()
+    print(f"[5] {m}x{n} image: kernels vs plain", flush=True)
+    more_shapes.append(check_image(A))
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solvers.pdhg(A, b, c, tol=SOLVE_TOL, maxiter=PDHG_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    led = res.ledger
+    lp_counts = dict(kernels.LAUNCHES)
+    gap = abs(float(torch.dot(c, res.x)) - obj) / (1 + abs(obj))
+    print(f"[5] pdhg {m}x{n}: {res.iterations} iterations, {led.mvms} + "
+          f"{led.mvms_t} transposed MVMs (+ {led.mvms_single} + "
+          f"{led.mvms_single_t} power-iteration), KKT "
+          f"{res.final_residual:.3e}, converged={res.converged}, objective "
+          f"gap vs c'x* {gap:.3e}, {wall:.2f} s = "
+          f"{wall * 1e3 / max(res.iterations, 1):.3f} ms/iteration; "
+          f"launches {lp_counts}", flush=True)
+    check(res.converged and bool(torch.isfinite(res.x).all()),
+          f"pdhg did not reach KKT <= {SOLVE_TOL} in {PDHG_MAXITER} "
+          f"iterations")
+    check(lp_counts["ec_rmatmul"] == led.mvms_t + led.mvms_single_t,
+          "pdhg did not run every A.T @ y through ec_rmatmul")
+    del A, b, c, x_star, y_star
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
                       "src/repro/kernels/rram_mvm.py:236"),
+        # The same pallas_call read backwards by the JAX engine.
+        "ec_rmatmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
+                       "src/repro/engine.py:613"),
         "stencil_denoise": ("src/repro_torch/kernels/csrc/tridiag.cu",
                             "src/repro/kernels/tridiag.py:108"),
+        "thomas_solve": ("src/repro_torch/kernels/csrc/tridiag.cu",
+                         "src/repro/kernels/tridiag.py:54"),
         "cg_update": ("src/repro_torch/kernels/csrc/solver_update.cu",
                       "src/repro/kernels/solver_update.py:83"),
         "richardson_update": ("src/repro_torch/kernels/csrc/solver_update.cu",
@@ -323,14 +554,17 @@ def main() -> int:
     }
     table = []
     for name, (source, replaces) in sources.items():
-        launches = served[name] + solve_counts[name]
+        launches = sum(counts[name] for counts in
+                       (served, served_t, solve_counts, lstsq_counts,
+                        lp_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "rel_l2": row["rel_l2"],
-            **{k: row[k] for k in ("err_lam", "ms_lam") if k in row},
+            **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms")
+               if k in row},
             "ms": row["ms"],
             "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -339,7 +573,11 @@ def main() -> int:
             "batch8": {k: rows[8][name][k] for k in
                        ("ms", "call_ms", "plain_ms", "bound_ms",
                         "library_ms")},
+            # The phase-5 images: other M, K and slab counts, batch 1.
+            "shapes": [res[name] for res in more_shapes if name in res],
         })
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

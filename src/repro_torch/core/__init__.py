@@ -3,7 +3,8 @@ correction and the local crossbar stages (see :mod:`repro.core`)."""
 
 from .crossbar import (CrossbarConfig, assemble_blocks, encode_tiled,
                        input_write_cost, matrix_write_cost, program_blocks,
-                       programmed_block_mvm, tile_write_cost, write_cost)
+                       programmed_block_mvm, programmed_block_rmvm,
+                       tile_write_cost, write_cost)
 from .devices import (DEVICES, DeviceModel, effective_sigma,
                       effective_sigma_py, encode, get_device, quantize)
 from .error_correction import (build_l_matrix, denoise_least_square,

@@ -4,7 +4,9 @@ The program-once dataflow in two stages: :func:`program_blocks` encodes the
 zero-padded matrix one capacity block at a time (per-MCA-tile quantization
 plus residual programming noise) and keeps ``A_tilde`` and ``dA = A - A_tilde``;
 :func:`programmed_block_mvm` executes a corrected MVM against that image with
-only the input vector passing through the DAC.
+only the input vector passing through the DAC, and
+:func:`programmed_block_rmvm` the transposed ``A.T @ y`` against the same
+image.
 
 Layout: the image lives as two dense padded ``(Mp, Np)`` float32 tensors;
 the ``(mb, nb, cap_m, cap_n)`` block layout of the reference is a view
@@ -39,6 +41,7 @@ __all__ = [
     "assemble_blocks",
     "program_blocks",
     "programmed_block_mvm",
+    "programmed_block_rmvm",
 ]
 
 
@@ -99,13 +102,17 @@ def _encode_vec(x: torch.Tensor, cfg: CrossbarConfig, *,
 
 def write_cost(m: int, n: int, cfg: CrossbarConfig, batch: int = 1, *,
                include_matrix: bool = True,
-               include_inputs: bool = True) -> WriteStats:
+               include_inputs: bool = True,
+               transpose: bool = False) -> WriteStats:
     """Analytic write energy/latency for one corrected MVM of an (m, n) problem.
 
     The matrix part (programming the image, paid once) and the input part
     (the x DAC write plus the EC X^T replica, per call and per column) are
     selected by the ``include_*`` switches; :func:`matrix_write_cost` and
-    :func:`input_write_cost` are the named halves.
+    :func:`input_write_cost` are the named halves.  ``transpose=True`` bills
+    the input part of ``A.T @ y``: the DAC vector has the padded row count
+    and the EC replica is r x r per MCA assignment instead of c x c; the
+    matrix part is the same image, never paid again.
     """
     dev, geom = cfg.device, cfg.geom
     cap_m, cap_n = geom.capacity
@@ -126,8 +133,8 @@ def write_cost(m: int, n: int, cfg: CrossbarConfig, batch: int = 1, *,
         energy += cells_a * dev.e_write
         latency += rows_a_per_mca * dev.t_write
 
-    c_ = geom.cell_cols
-    n_pad = nb * cap_n
+    c_ = geom.cell_rows if transpose else geom.cell_cols
+    n_pad = mb * cap_m if transpose else nb * cap_n
     if include_inputs:
         if cfg.encode_inputs:
             energy += float(n_pad) * batch * dev.e_write        # x vector write
@@ -156,9 +163,11 @@ def tile_write_cost(cfg: CrossbarConfig) -> WriteStats:
 
 
 def input_write_cost(m: int, n: int, cfg: CrossbarConfig,
-                     batch: int = 1) -> WriteStats:
-    """Per-execution cost: x-vector DAC write + EC X^T replica, per column."""
-    return write_cost(m, n, cfg, batch=batch, include_matrix=False)
+                     batch: int = 1, *, transpose: bool = False) -> WriteStats:
+    """Per-execution cost: x-vector DAC write + EC X^T replica, per column
+    (``transpose=True``: the m-length y pass and the row-dimension replica)."""
+    return write_cost(m, n, cfg, batch=batch, include_matrix=False,
+                      transpose=transpose)
 
 
 # --------------------------------------------------------------------------- #
@@ -205,9 +214,74 @@ def program_blocks(a: torch.Tensor, key: int, cfg: CrossbarConfig, *,
     return at, da
 
 
+def _block_product(at_blk: torch.Tensor, da_blk: torch.Tensor,
+                   u: torch.Tensor, u_t: torch.Tensor, cfg: CrossbarConfig,
+                   use_kernel: bool, transpose: bool) -> torch.Tensor:
+    """Tier-1 product of one capacity block, forward (``A_tilde u + dA
+    u_tilde``) or transposed (``A_tilde^T u + dA^T u_tilde``); ``ec=False``
+    is the raw ``A_tilde u_tilde``."""
+    if not cfg.ec:
+        return (at_blk.T if transpose else at_blk) @ u_t
+    if use_kernel:
+        # The fused kernel on the block view itself (no copy of the block).
+        from .. import kernels
+        run = kernels.ec_rmatmul if transpose else kernels.ec_matmul
+        return run(at_blk, da_blk, u, u_t)
+    if transpose:
+        at_blk, da_blk = at_blk.T, da_blk.T
+    if cfg.ec_mode == "faithful":
+        # The paper's three analog products, with A = A_tilde + dA.
+        return at_blk @ u + (at_blk + da_blk) @ u_t - at_blk @ u_t
+    return at_blk @ u + da_blk @ u_t
+
+
+def _block_execute(at, da, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
+                   transpose):
+    """The execute stage in either direction: the input is chunked along
+    the contraction axis (columns forward, rows transposed), block (I, J)'s
+    chunk passes the DAC with ``fold_in(block_key(key, I, J), 1)`` (or
+    ``eta[I, J]``) in both directions, partials are summed over the
+    contraction blocks and tier-2 runs on the assembled output."""
+    if cfg.ec and cfg.ec_mode not in ("fused", "faithful"):
+        raise ValueError(f"unknown first-order EC mode {cfg.ec_mode!r}")
+    at_b, da_b = blocks_view(at, cfg.geom), blocks_view(da, cfg.geom)
+    mb, nb, cap_m, cap_n = at_b.shape
+    # (output blocks, contraction blocks, their sizes, true lengths)
+    if transpose:
+        n_out, n_in, cap_out, cap_in, len_out, len_in = nb, mb, cap_n, cap_m, n, m
+    else:
+        n_out, n_in, cap_out, cap_in, len_out, len_in = mb, nb, cap_m, cap_n, m, n
+    batch = ub.shape[1]
+    u_pad = torch.zeros(n_in * cap_in, batch, dtype=torch.float32,
+                        device=at.device)
+    u_pad[:len_in] = ub
+    chunks = u_pad.view(n_in, cap_in, batch)
+    outs = []
+    for o in range(n_out):
+        acc = torch.zeros(cap_out, batch, dtype=torch.float32, device=at.device)
+        for c in range(n_in):
+            i, j = (c, o) if transpose else (o, c)
+            u_blk = chunks[c]
+            if not cfg.encode_inputs:
+                u_t = u_blk
+            elif eta is None:
+                gen = generator(fold_in(block_key(key, i, j), 1), at.device)
+                u_t = _encode_vec(u_blk, cfg, gen=gen)
+            else:
+                u_t = _encode_vec(u_blk, cfg, eta=eta[i, j])
+            acc += _block_product(at_b[i, j], da_b[i, j], u_blk, u_t, cfg,
+                                  use_kernel, transpose)
+        outs.append(acc)
+    p = torch.cat(outs)[:len_out]
+    if cfg.ec and tier2:
+        p = denoise_least_square(p, lam=cfg.lam, h=cfg.h,
+                                 method=cfg.denoise_method)
+    return p
+
+
 def programmed_block_mvm(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
                          key: int, cfg: CrossbarConfig, *, m: int, n: int,
-                         tier2: bool = True,
+                         tier2: bool = True, use_kernel: bool = False,
                          eta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Execute stage (the ``reference`` backend): corrected MVM against an
     already-programmed padded image, zero matrix-encode work.
@@ -217,39 +291,28 @@ def programmed_block_mvm(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
     ``(mb, nb, cap_n, batch)`` replaces the draws), tier-1 is assembled from
     the stored operands as ``p = A_tilde x + dA x_tilde``, column-block
     partials are summed and tier-2 runs on the assembled output
-    (``tier2=False`` skips it).  Returns (m, batch).
+    (``tier2=False`` skips it).  ``use_kernel=True`` runs each block's
+    tier-1 product through the :func:`~repro_torch.kernels.ec_matmul` kernel
+    on the block view.  Returns (m, batch).
     """
-    if cfg.ec and cfg.ec_mode not in ("fused", "faithful"):
-        raise ValueError(f"unknown first-order EC mode {cfg.ec_mode!r}")
-    at_b, da_b = blocks_view(at, cfg.geom), blocks_view(da, cfg.geom)
-    mb, nb, cap_m, cap_n = at_b.shape
-    batch = xb.shape[1]
-    x_pad = torch.zeros(nb * cap_n, batch, dtype=torch.float32,
-                        device=at.device)
-    x_pad[:n] = xb
-    x_chunks = x_pad.view(nb, cap_n, batch)
-    rows = []
-    for i in range(mb):
-        acc = torch.zeros(cap_m, batch, dtype=torch.float32, device=at.device)
-        for j in range(nb):
-            at_blk, da_blk, x_blk = at_b[i, j], da_b[i, j], x_chunks[j]
-            if not cfg.encode_inputs:
-                x_t = x_blk
-            elif eta is None:
-                gen = generator(fold_in(block_key(key, i, j), 1), at.device)
-                x_t = _encode_vec(x_blk, cfg, gen=gen)
-            else:
-                x_t = _encode_vec(x_blk, cfg, eta=eta[i, j])
-            if not cfg.ec:
-                acc += at_blk @ x_t
-            elif cfg.ec_mode == "faithful":
-                # The paper's three analog products, with A = A_tilde + dA.
-                acc += at_blk @ x_blk + (at_blk + da_blk) @ x_t - at_blk @ x_t
-            else:
-                acc += at_blk @ x_blk + da_blk @ x_t
-        rows.append(acc)
-    p = torch.cat(rows)[:m]
-    if cfg.ec and tier2:
-        p = denoise_least_square(p, lam=cfg.lam, h=cfg.h,
-                                 method=cfg.denoise_method)
-    return p
+    return _block_execute(at, da, xb, key, cfg, m=m, n=n, tier2=tier2,
+                          use_kernel=use_kernel, eta=eta, transpose=False)
+
+
+def programmed_block_rmvm(at: torch.Tensor, da: torch.Tensor, yb: torch.Tensor,
+                          key: int, cfg: CrossbarConfig, *, m: int, n: int,
+                          tier2: bool = True, use_kernel: bool = False,
+                          eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed execute stage: corrected ``A.T @ y`` against the same
+    programmed image, zero re-encode.
+
+    ``yb`` is (m, batch), chunked by ROW blocks; block (I, J)'s chunk passes
+    the DAC with the same ``fold_in(block_key(key, I, J), 1)`` draw a forward
+    execution uses (``eta`` of shape ``(mb, nb, cap_m, batch)`` replaces
+    them); tier-1 is ``A_tilde^T y + dA^T y_tilde``, row-block partials are
+    summed and tier-2 runs over the (n, batch) output.  ``use_kernel=True``
+    runs each block's product through :func:`~repro_torch.kernels.ec_rmatmul`.
+    Returns (n, batch).
+    """
+    return _block_execute(at, da, yb, key, cfg, m=m, n=n, tier2=tier2,
+                          use_kernel=use_kernel, eta=eta, transpose=True)

@@ -71,7 +71,8 @@ def _dense_inverse_apply(p: torch.Tensor, lam: float, h: float) -> torch.Tensor:
 
 def _thomas_solve(p: torch.Tensor, lam: float, h: float) -> torch.Tensor:
     """Exact O(n) tridiagonal solve, vectorized over trailing dims of p (a
-    host loop over rows: the plain version; the kernel is Queue B1)."""
+    host loop over rows, the reference backend's tier-2; the ``cuda``
+    backend runs :func:`repro_torch.kernels.thomas_solve`)."""
     n = p.shape[0]
     sub, diag, sup = tridiag_coeffs(n, lam, h, device=p.device)
     flat = p.to(torch.float32).reshape(n, -1)

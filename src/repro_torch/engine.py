@@ -8,23 +8,29 @@ dense ``(Mp, Np)`` float32 tensor (the block layout is a view, see
 :attr:`AnalogMatrix.at_blocks`); ``engine.mvm(A, x)`` or ``A @ x`` then runs
 tier-1 error correction and tier-2 denoising with only the input vector
 passing through the DAC, for ``x`` of shape ``(n,)`` or ``(n, batch)``.
+``engine.rmvm(A, y)`` or ``A.T @ y`` reads the same image backwards (the
+transposed corrected MVM, ``y`` of shape ``(m,)`` or ``(m, batch)``); it
+pays no second programming cost.
 
 Backends:
 
-  * ``"reference"`` -- :func:`repro_torch.core.crossbar.programmed_block_mvm`,
-    plain PyTorch, one DAC draw per capacity block;
+  * ``"reference"`` -- :func:`repro_torch.core.crossbar.programmed_block_mvm`
+    and ``programmed_block_rmvm``, plain PyTorch, one DAC draw per capacity
+    block;
   * ``"cuda"`` -- the mirror of the JAX engine's ``_pallas_corrected``: one
     DAC pass over the whole padded input, tier-1 through the
-    :func:`~repro_torch.kernels.ec_matmul` kernel, tier-2 through the
-    :func:`~repro_torch.kernels.stencil_denoise` kernel (the default
-    ``denoise_method="neumann"``).  On CPU tensors the kernels' plain
-    versions run, which is how the tests drive it.
+    :func:`~repro_torch.kernels.ec_matmul` kernel (forward) or
+    :func:`~repro_torch.kernels.ec_rmatmul` (transposed), tier-2 through
+    :func:`~repro_torch.kernels.stencil_denoise` (the default
+    ``denoise_method="neumann"``) or :func:`~repro_torch.kernels.thomas_solve`
+    (``"thomas"``).  On CPU tensors the kernels' plain versions run, which is
+    how the tests drive it.
 
 Only ``execution="local"`` exists so far; ``"streamed"`` and
 ``"distributed"`` raise ``NotImplementedError`` naming their ROADMAP item.
-Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle
-draws its DAC noise from ``key`` for ``c == 0`` and ``fold_in(key, c)``
-after, as the JAX engine does.
+Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle, in
+either direction (one counter), draws its DAC noise from ``key`` for
+``c == 0`` and ``fold_in(key, c)`` after, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -43,7 +49,8 @@ from .core.prng import fold_in, generator
 from .core.virtualization import blocks_view
 from .core.write_verify import WriteStats
 
-__all__ = ["AnalogEngine", "AnalogMatrix", "EXECUTION_MODES", "BACKENDS"]
+__all__ = ["AnalogEngine", "AnalogMatrix", "TransposedAnalogMatrix",
+           "EXECUTION_MODES", "BACKENDS"]
 
 EXECUTION_MODES = ("local", "streamed", "distributed")
 BACKENDS = ("reference", "cuda")
@@ -107,6 +114,12 @@ class AnalogMatrix:
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.engine.mvm(self, x)
 
+    @property
+    def T(self) -> "TransposedAnalogMatrix":
+        """Transposed view: ``A.T @ y`` runs the corrected ``A^T y`` against
+        this same image (no copy, no second programming cost)."""
+        return TransposedAnalogMatrix(self)
+
     def input_write_stats(self, batch: int = 1) -> WriteStats:
         """Per-execution write cost (x DAC pass + EC X^T replica)."""
         return self.engine.input_write_stats(self, batch)
@@ -124,33 +137,87 @@ class AnalogMatrix:
         return 0
 
 
+@dataclasses.dataclass(frozen=True)
+class TransposedAnalogMatrix:
+    """Transposed view of an :class:`AnalogMatrix` (``A.T``).
+
+    Holds no operands of its own: every execution reads the parent's image
+    backwards through :meth:`AnalogEngine.rmvm`, so the one-time write cost
+    is shared with the forward view.  ``A.T.T is A``.
+    """
+
+    parent: AnalogMatrix
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.parent.shape[1], self.parent.shape[0])
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[1]
+
+    @property
+    def T(self) -> AnalogMatrix:
+        return self.parent
+
+    @property
+    def engine(self) -> "AnalogEngine":
+        return self.parent.engine
+
+    @property
+    def write_stats(self) -> WriteStats:
+        """The parent's one-time programming cost (shared, never re-paid)."""
+        return self.parent.write_stats
+
+    def __matmul__(self, y: torch.Tensor) -> torch.Tensor:
+        return self.parent.engine.rmvm(self.parent, y)
+
+    def dense(self) -> torch.Tensor:
+        """The exact transposed source matrix A^T, unpadded (n, m) view."""
+        return self.parent.dense().T
+
+    def input_write_stats(self, batch: int = 1) -> WriteStats:
+        """Per-execution cost of one transposed MVM (y DAC pass + EC Y^T
+        replica over the row dimension)."""
+        return self.parent.engine.input_write_stats(self.parent, batch,
+                                                    transpose=True)
+
+
 def _cuda_corrected(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
-                    key: int, cfg: CrossbarConfig, m: int, *,
+                    key: int, cfg: CrossbarConfig, rows: int, *,
+                    transpose: bool = False,
                     eta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``cuda`` backend's execute, mirroring the JAX ``_pallas_corrected``.
 
     One DAC pass over the whole padded input (one scale, one draw from
-    ``fold_in(key, 1)``; ``eta`` of shape ``(Np, batch)`` replaces it),
-    tier-1 ``A_tilde x + dA x_tilde`` through the ``ec_matmul`` kernel and
-    tier-2 through the ``stencil_denoise`` kernel.
+    ``fold_in(key, 1)`` forward and ``fold_in(key, 2)`` transposed; ``eta``
+    of the padded input's shape replaces it), tier-1 ``A_tilde x + dA
+    x_tilde`` through the ``ec_matmul`` kernel (``A_tilde^T y + dA^T
+    y_tilde`` through ``ec_rmatmul``), cut to the first ``rows`` outputs,
+    and tier-2 through the ``stencil_denoise`` or ``thomas_solve`` kernel.
     """
-    x_pad = F.pad(xb, (0, 0, 0, at.shape[1] - xb.shape[0])).contiguous()
+    pad_to = at.shape[0] if transpose else at.shape[1]
+    x_pad = F.pad(xb, (0, 0, 0, pad_to - xb.shape[0])).contiguous()
     if not cfg.encode_inputs:
         x_t = x_pad
     elif eta is None:
+        fold = 2 if transpose else 1
         x_t = crossbar._encode_vec(
-            x_pad, cfg, gen=generator(fold_in(key, 1), x_pad.device))
+            x_pad, cfg, gen=generator(fold_in(key, fold), x_pad.device))
     else:
         x_t = crossbar._encode_vec(x_pad, cfg, eta=eta)
     if not cfg.ec:
-        return (at @ x_t)[:m]
-    p = kernels.ec_matmul(at, da, x_pad, x_t)[:m]
+        return ((at.T if transpose else at) @ x_t)[:rows]
+    run = kernels.ec_rmatmul if transpose else kernels.ec_matmul
+    p = run(at, da, x_pad, x_t)[:rows]
     if cfg.denoise_method == "neumann":
         return kernels.stencil_denoise(p, cfg.lam, cfg.h)
     if cfg.denoise_method == "thomas":
-        raise NotImplementedError(
-            "denoise_method='thomas' on backend='cuda' needs the thomas_solve "
-            "kernel, ROADMAP Queue B1 (not ported yet)")
+        return kernels.thomas_solve(p, cfg.lam, cfg.h)
     return denoise_least_square(p, lam=cfg.lam, h=cfg.h,
                                 method=cfg.denoise_method)
 
@@ -238,14 +305,43 @@ class AnalogEngine:
                        eta: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, WriteStats]:
         """Like :meth:`mvm` but also returns this call's input-write cost."""
-        y, batch = self._execute(A, x, key, eta)
-        return y, self.input_write_stats(A, batch)
+        return self._execute(A, x, key, eta, with_stats=True)
 
-    def input_write_stats(self, A: AnalogMatrix, batch: int = 1) -> WriteStats:
-        """Per-execution input-write cost (x DAC pass + EC X^T replica)."""
-        return crossbar.input_write_cost(A.m, A.n, self.cfg, batch=batch)
+    def rmvm(self, A: AnalogMatrix, y, *, key: Optional[int] = None,
+             eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Corrected transposed MVM ``A.T @ y`` against the same image.
 
-    def _execute(self, A: AnalogMatrix, x, key, eta):
+        ``y``: (m,) or (m, batch); returns (n,) / (n, batch).  Only ``y``
+        passes the DAC; tier-2 runs over the column output.  ``eta``
+        replaces the DAC draws: ``(Mp, batch)`` for ``backend="cuda"``,
+        ``(mb, nb, cap_m, batch)`` for ``"reference"``.
+        """
+        z, _ = self._execute(A, y, key, eta, transpose=True)
+        return z
+
+    def rmvm_with_stats(self, A: AnalogMatrix, y, *, key: Optional[int] = None,
+                        eta: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, WriteStats]:
+        """Like :meth:`rmvm` but also returns this call's input-write cost."""
+        return self._execute(A, y, key, eta, with_stats=True, transpose=True)
+
+    def input_write_stats(self, A: AnalogMatrix, batch: int = 1, *,
+                          transpose: bool = False) -> WriteStats:
+        """Per-execution input-write cost (x DAC pass + EC X^T replica;
+        ``transpose=True``: the m-length y pass + the row-dimension replica)."""
+        return crossbar.input_write_cost(A.m, A.n, self.cfg, batch=batch,
+                                         transpose=transpose)
+
+    def _execute(self, A, x, key, eta, *, with_stats=False, transpose=False):
+        if isinstance(A, TransposedAnalogMatrix):
+            # A view executes as the opposite direction of its parent, after
+            # the same engine check as a direct call.
+            if A.parent.engine is not self and A.parent.engine.cfg != self.cfg:
+                raise ValueError("AnalogMatrix was programmed by an "
+                                 "incompatible engine configuration")
+            return A.parent.engine._execute(A.parent, x, key, eta,
+                                            with_stats=with_stats,
+                                            transpose=not transpose)
         if A.engine is not self and A.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrix was programmed by an incompatible "
                              "engine configuration")
@@ -255,17 +351,23 @@ class AnalogEngine:
         x = self._as_tensor(x)
         squeeze = x.ndim == 1
         xb = x[:, None] if squeeze else x
-        if xb.shape[0] != A.n:
-            raise ValueError(f"A @ x: input has {xb.shape[0]} rows but the "
-                             f"programmed matrix is {A.m} x {A.n}")
+        m, n = A.shape
+        if xb.shape[0] != (m if transpose else n):
+            direction = "A.T @ y" if transpose else "A @ x"
+            raise ValueError(f"{direction}: input has {xb.shape[0]} rows but "
+                             f"the programmed matrix is {m} x {n}")
         if key is None:
+            # One call counter for both directions, as the JAX handle has.
             key = A.base_key if A.calls == 0 else fold_in(A.base_key, A.calls)
         A.calls += 1
         if self.backend == "cuda":
-            p = _cuda_corrected(A.at_pad, A.da_pad, xb, key, self.cfg, A.m,
+            p = _cuda_corrected(A.at_pad, A.da_pad, xb, key, self.cfg,
+                                n if transpose else m, transpose=transpose,
                                 eta=eta)
         else:
-            p = crossbar.programmed_block_mvm(A.at_pad, A.da_pad, xb, key,
-                                              self.cfg,
-                                              m=A.m, n=A.n, eta=eta)
-        return (p[:, 0] if squeeze else p), xb.shape[1]
+            run = crossbar.programmed_block_rmvm if transpose \
+                else crossbar.programmed_block_mvm
+            p = run(A.at_pad, A.da_pad, xb, key, self.cfg, m=m, n=n, eta=eta)
+        stats = self.input_write_stats(A, xb.shape[1], transpose=transpose) \
+            if with_stats else None
+        return (p[:, 0] if squeeze else p), stats

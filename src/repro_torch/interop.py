@@ -59,7 +59,8 @@ def image_from_numpy(at_blocks: np.ndarray, da_blocks: np.ndarray,
 
     def padded(blocks):
         dense = blocks.transpose(0, 2, 1, 3).reshape(mb * cap_m, nb * cap_n)
-        return torch.from_numpy(np.ascontiguousarray(dense)).to(device)
+        # A copy: the blocks may be a read-only view of a JAX array.
+        return torch.from_numpy(np.array(dense, order="C")).to(device)
 
     m, n = shape
     engine = AnalogEngine(cfg, backend=backend, device=device)

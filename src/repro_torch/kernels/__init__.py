@@ -2,18 +2,23 @@
 PyTorch version.  Wrappers run the kernel on CUDA tensors and the plain
 version on CPU tensors; ``build.LAUNCHES`` counts kernel launches."""
 from .build import LAUNCHES, reset_launches
-from .rram_mvm import ec_matmul, ec_matmul_plain
+from .rram_mvm import ec_matmul, ec_matmul_plain, ec_rmatmul, ec_rmatmul_plain
 from .solver_update import (cg_update, cg_update_plain, richardson_update,
                             richardson_update_plain)
-from .tridiag import stencil_denoise, stencil_denoise_plain
+from .tridiag import (stencil_denoise, stencil_denoise_plain, thomas_solve,
+                      thomas_solve_plain)
 
 __all__ = [
     "LAUNCHES",
     "reset_launches",
     "ec_matmul",
     "ec_matmul_plain",
+    "ec_rmatmul",
+    "ec_rmatmul_plain",
     "stencil_denoise",
     "stencil_denoise_plain",
+    "thomas_solve",
+    "thomas_solve_plain",
     "cg_update",
     "cg_update_plain",
     "richardson_update",

@@ -25,7 +25,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "library", "build", "launch"]
+__all__ = ["LAUNCHES", "reset_launches", "library", "build", "launch",
+           "query"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -33,16 +34,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-#: C signature of every exported launch function (argtypes; restype is int,
-#: the cudaError_t of the launch).
+#: C signature of every exported function (argtypes; restype is int, the
+#: cudaError_t of the call): the launchers and one size query.
 SIGNATURES = {
-    "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "repro_ec_rmatmul_workspace": [_I, _I, _I, ctypes.POINTER(_LL)],
+    "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
+                         _P],
     "repro_stencil_denoise": [_P, _P, _LL, _I, _F, _F, _P],
+    "repro_thomas_solve": [_P, _P, _P, _P, _I, _I, _F, _P],
     "repro_cg_update": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     "repro_richardson_update": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
 }
 
-LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "stencil_denoise": 0,
+#: One count per kernel; ``ec_rmatmul``'s one launch is its slab pass plus,
+#: with several slabs, the pass that sums them.
+LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "ec_rmatmul": 0,
+                            "stencil_denoise": 0, "thomas_solve": 0,
                             "cg_update": 0, "richardson_update": 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,15 +146,25 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _call(what: str, symbol: str, device, *args) -> None:
+    lib = library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, symbol)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.repro_error_string(rc).decode()})")
+
+
 def launch(kernel: str, symbol: str, device, *args) -> None:
     """Call the C launcher ``symbol`` on ``device``'s current stream (passed as
     its last argument), count one launch of ``kernel`` and raise if the launch
     failed (``cudaGetLastError`` after the launch)."""
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, symbol)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc} "
-                           f"({lib.repro_error_string(rc).decode()})")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _call(f"{kernel} launch", symbol, device, *args, stream)
     LAUNCHES[kernel] += 1
+
+
+def query(symbol: str, device, *args) -> None:
+    """Call the C function ``symbol`` with ``device`` current; it launches
+    nothing and counts nothing.  Raises if it returns a CUDA error."""
+    _call(symbol, symbol, device, *args)

@@ -55,18 +55,21 @@ def program_eta(key, cfg, mb, nb):
         for j in range(nb)]) for i in range(mb)])
 
 
-def block_dac_eta(key, cfg, mb, nb, batch):
-    """The reference backend's per-block DAC draws, (mb, nb, cap_n, batch):
-    block key -> split -> the k_x half."""
-    cap_n = cfg.geom.capacity[1]
+def block_dac_eta(key, cfg, mb, nb, batch, transpose=False):
+    """The reference backend's per-block DAC draws, (mb, nb, cap, batch) with
+    cap = cap_n forward and cap_m transposed: block key -> split -> the k_x
+    half (the same half in both directions)."""
+    cap = cfg.geom.capacity[0 if transpose else 1]
     keys = jcb.block_keys(key, mb, nb)
     return np.stack([np.stack([
         np.asarray(jax.random.normal(jax.random.split(keys[i, j])[1],
-                                     (cap_n, batch), dtype=np.float32))
+                                     (cap, batch), dtype=np.float32))
         for j in range(nb)]) for i in range(mb)])
 
 
-def whole_dac_eta(key, np_, batch):
-    """The kernel backend's single whole-vector DAC draw, fold 1 of the key."""
-    return np.array(jax.random.normal(jax.random.fold_in(key, 1),
+def whole_dac_eta(key, np_, batch, transpose=False):
+    """The kernel backend's single whole-vector DAC draw over the padded
+    input: fold 1 of the key forward, fold 2 transposed."""
+    fold = 2 if transpose else 1
+    return np.array(jax.random.normal(jax.random.fold_in(key, fold),
                                       (np_, batch), dtype=np.float32))

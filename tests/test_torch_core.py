@@ -81,6 +81,29 @@ def test_write_cost_equal(kw):
             assert tf.latency_s == pytest.approx(float(jf.latency_s), rel=1e-6)
 
 
+@pytest.mark.parametrize("kw", [{}, {"skip_zero_pad_writes": True},
+                                {"ec": False}, {"encode_inputs": False}])
+def test_transposed_write_cost_equal(kw):
+    """``transpose=True`` bills the row-dimension input pass; on a non-square
+    geometry (cells 16 x 8, a 2 x 3 tile) it differs from the forward bill,
+    and both equal the reference exactly (the reference stores float32, so
+    the port's float is compared rounded to float32)."""
+    cfg = jax_cfg(geom=(2, 3, 16, 8), **kw)
+    pcfg = port_cfg(cfg)
+    for (m, n, batch) in [(66, 66, 1), (150, 40, 3), (20, 100, 8)]:
+        for fn, args in [(tcb.write_cost, (m, n, pcfg, batch)),
+                         (tcb.input_write_cost, (m, n, pcfg, batch))]:
+            jfn = getattr(jcb, fn.__name__)
+            got = fn(*args, transpose=True)
+            want = jfn(m, n, cfg, batch, transpose=True)
+            assert np.float32(got.energy_j) == want.energy_j
+            assert np.float32(got.latency_s) == want.latency_s
+    fwd = tcb.input_write_cost(150, 40, pcfg, 2)
+    tra = tcb.input_write_cost(150, 40, pcfg, 2, transpose=True)
+    if pcfg.ec or pcfg.encode_inputs:
+        assert tra.energy_j != fwd.energy_j
+
+
 def test_virtualization_equal():
     geom = (2, 3, 16, 8)
     jg, tg = jvirt.MCAGeometry(*geom), tvirt.MCAGeometry(*geom)
@@ -217,6 +240,69 @@ def test_programmed_block_mvm_matches_with_injected_eta(kw):
                                        m=m, n=n, tier2=tier2, eta=dac)
         assert got.shape == (m, batch)
         assert rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("kw", [{}, {"ec_mode": "faithful"}, {"ec": False},
+                                {"encode_inputs": False},
+                                {"denoise_method": "thomas", "lam": 1e-2}])
+@pytest.mark.parametrize("shape,geom", [((66, 66), (1, 1, 66, 66)),
+                                        ((150, 70), (2, 2, 32, 16))])
+def test_programmed_block_rmvm_matches_with_injected_eta(kw, shape, geom):
+    """A.T @ y against the programmed image: the 66 x 66 paper matrix
+    (bcsstk02) on one block and a non-divisible rectangular shape over 3 x 3
+    non-square blocks, with the reference's row-chunk DAC draws (the k_x
+    half of each block key, as forward) injected; tier2 on and off."""
+    cfg = jax_cfg(geom=geom, **kw)
+    pcfg = port_cfg(cfg)
+    m, n = shape
+    a = tmat.paper_matrix("bcsstk02") if shape == (66, 66) \
+        else rng_array(shape, 17)
+    a = np.asarray(a, np.float32)
+    y = rng_array((m, 2), 18)
+    key, ykey = jax.random.PRNGKey(9), jax.random.PRNGKey(10)
+    at_j, da_j = jcb.program_blocks(jnp.asarray(a), key, cfg)
+    mb, nb = at_j.shape[:2]
+    at, da = tcb.program_blocks(
+        torch.from_numpy(a), 0, pcfg,
+        eta=torch.from_numpy(program_eta(key, cfg, mb, nb)))
+    dac = torch.from_numpy(block_dac_eta(ykey, cfg, mb, nb, 2,
+                                         transpose=True))
+    for tier2 in (True, False):
+        want = jcb.programmed_block_rmvm(at_j, da_j, jnp.asarray(y), ykey,
+                                         cfg, m=m, n=n, tier2=tier2)
+        got = tcb.programmed_block_rmvm(at, da, torch.from_numpy(y), 0, pcfg,
+                                        m=m, n=n, tier2=tier2, eta=dac)
+        assert got.shape == (n, 2)
+        assert rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_block_execute_use_kernel_matches(transpose):
+    """``use_kernel=True``: each block's tier-1 product through the fused
+    kernel on the block view (its plain version here), held to the JAX
+    stage with its Pallas tile step (interpret mode)."""
+    cfg = jax_cfg(geom=(2, 2, 16, 16))
+    pcfg = port_cfg(cfg)
+    m, n = 70, 40
+    a = rng_array((m, n), 19)
+    u = rng_array((n if not transpose else m, 3), 20)
+    key, ukey = jax.random.PRNGKey(11), jax.random.PRNGKey(12)
+    at_j, da_j = jcb.program_blocks(jnp.asarray(a), key, cfg)
+    mb, nb = at_j.shape[:2]
+    at, da = tcb.program_blocks(
+        torch.from_numpy(a), 0, pcfg,
+        eta=torch.from_numpy(program_eta(key, cfg, mb, nb)))
+    dac = torch.from_numpy(block_dac_eta(ukey, cfg, mb, nb, 3,
+                                         transpose=transpose))
+    jrun = jcb.programmed_block_rmvm if transpose else jcb.programmed_block_mvm
+    trun = tcb.programmed_block_rmvm if transpose else tcb.programmed_block_mvm
+    want = jrun(at_j, da_j, jnp.asarray(u), ukey, cfg, m=m, n=n,
+                use_kernel=True)
+    got = trun(at, da, torch.from_numpy(u), 0, pcfg, m=m, n=n,
+               use_kernel=True, eta=dac)
+    assert rel(got, want) <= TOL
+    assert rel(got, trun(at, da, torch.from_numpy(u), 0, pcfg, m=m, n=n,
+                         eta=dac)) <= TOL
 
 
 # ----------------------------------------------------- the port's own draws

@@ -24,6 +24,18 @@ def imported_roots(path: Path):
     return roots
 
 
+def test_port_file_list_covers_the_transposed_slice():
+    """The import scan reaches every module of the port, the transposed and
+    least-squares/LP slice included."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/solvers/lstsq.py",
+                "src/repro_torch/solvers/pdhg.py",
+                "src/repro_torch/kernels/tridiag.py",
+                "src/repro_torch/kernels/rram_mvm.py",
+                "src/repro_torch/engine.py", "chip_smoke.py"):
+        assert rel in names, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):
@@ -45,6 +57,10 @@ def test_package_imports_with_jax_and_repro_blocked():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.solvers import lsqr, lsmr, pdhg, random_feasible_lp\n"
+        "from repro_torch.kernels import ec_rmatmul, thomas_solve\n"
+        "from repro_torch.engine import TransposedAnalogMatrix\n"
+        "from repro_torch.core import programmed_block_rmvm\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,

@@ -131,3 +131,208 @@ def test_analog_solves_converge(backend):
             + led.mvms_single * A.input_write_stats(1).energy_j
         assert led.total_energy_j == pytest.approx(want, rel=1e-9)
     assert res.ledger.mvms_single == 32            # 2 x 16 power iterations
+
+
+# ------------------------------------- least squares and LP (A @ x, A.T @ y)
+def lstsq_problem(m=96, n=48, seed=50, batch=1):
+    """A consistent plus a small inconsistent part: a least-squares problem
+    whose residual does not vanish."""
+    a = rng_array((m, n), seed) / np.sqrt(m)
+    x = rng_array((n, batch), seed + 1)
+    b = a @ x + 0.01 * rng_array((m, batch), seed + 2)
+    if batch == 1:
+        x, b = x[:, 0], b[:, 0]
+    return a.astype(np.float32), x.astype(np.float32), b.astype(np.float32)
+
+
+def bare_ops_t(a):
+    """Deterministic matvec + rmatvec in both packages (keys ignored)."""
+    aj, at = jnp.asarray(a), torch.from_numpy(a)
+    jop = jsol.as_operator(lambda v, _k: aj @ v, shape=a.shape,
+                           rmatvec=lambda u, _k: aj.T @ u)
+    top = tsol.as_operator(lambda v, _k: at @ v, shape=a.shape,
+                           rmatvec=lambda u, _k: at.T @ u, device="cpu")
+    return jop, top
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("solver", ["lsqr", "lsmr"])
+def test_lstsq_core_matches(solver, batch):
+    """The same numpy problem through both packages on a digital operator:
+    the same iteration count, x within 1e-4, the same ledger counts."""
+    a, _, b = lstsq_problem(batch=batch)
+    jop, top = bare_ops_t(a)
+    want = getattr(jsol, solver)(jop, jnp.asarray(b), tol=1e-5, maxiter=80)
+    got = getattr(tsol, solver)(top, b, tol=1e-5, maxiter=80)
+    assert got.iterations == want.iterations > 3
+    assert got.converged == want.converged
+    assert rel(got.x, want.x) <= 1e-4
+    assert (got.ledger.mvms, got.ledger.mvms_t) == \
+        (int(want.ledger.mvms), int(want.ledger.mvms_t))
+    assert rel(got.residuals[:got.iterations],
+               want.residuals[:want.iterations]) <= 1e-3
+    # with a start point: one more transposed MVM for ||A'b||
+    x0 = np.full(a.shape[1], 0.1, np.float32) if batch == 1 else \
+        np.full((a.shape[1], batch), 0.1, np.float32)
+    want = getattr(jsol, solver)(jop, jnp.asarray(b), tol=1e-5, maxiter=80,
+                                 x0=jnp.asarray(x0))
+    got = getattr(tsol, solver)(top, b, tol=1e-5, maxiter=80, x0=x0)
+    assert got.iterations == want.iterations
+    assert got.ledger.mvms_t == got.ledger.mvms + 1 == int(want.ledger.mvms_t)
+    assert rel(got.x, want.x) <= 1e-4
+
+
+def lp_problem(m=32, n=48, seed=14, batch=1):
+    """The JAX package's random feasible LP, carried across as numpy."""
+    import jax
+    out = jsol.random_feasible_lp(jax.random.PRNGKey(seed), m, n, batch)
+    return [np.array(v, np.float32) for v in out]
+
+
+@pytest.mark.parametrize("steps", ["given", "estimated"])
+def test_pdhg_core_matches(steps):
+    """PDHG on a digital operator from the same numpy LP: iterations within
+    one of the reference's (equal with given steps; the estimated steps come
+    from power iterations that start from each package's own draw), x within
+    1e-4."""
+    a, b, c, x_star, _ = lp_problem()
+    jop, top = bare_ops_t(a)
+    kw = dict(tol=1e-4, maxiter=5000)
+    if steps == "given":
+        step = 0.9 / float(np.linalg.norm(a, 2))
+        kw.update(tau=step, sigma=step)
+    else:
+        kw.update(power_iters=60)
+    want = jsol.pdhg(jop, jnp.asarray(b), jnp.asarray(c), **kw)
+    got = tsol.pdhg(top, b, c, **kw)
+    assert want.converged and got.converged
+    assert abs(got.iterations - want.iterations) <= (0 if steps == "given"
+                                                     else 1)
+    assert rel(got.x, want.x) <= 1e-4 and rel(got.dual, want.dual) <= 1e-4
+    assert got.ledger.mvms == got.ledger.mvms_t == got.iterations + 1
+    assert got.ledger.mvms_single == got.ledger.mvms_single_t == \
+        (0 if steps == "given" else 60)
+    assert rel(got.x, x_star) <= 1e-2
+
+
+def test_random_feasible_lp_has_a_known_optimum():
+    """Primal feasibility, dual feasibility and complementary slackness by
+    construction, so c'x* = b'y*; same seed, same LP."""
+    a, b, c, x_star, y_star = tsol.random_feasible_lp(3, 40, 64, batch=3,
+                                                      device="cpu")
+    assert a.shape == (40, 64) and b.shape == (40, 3) and c.shape == (64, 3)
+    assert rel(a @ x_star, b) <= 1e-6 and bool((x_star >= 0).all())
+    s = c - a.T @ y_star
+    assert float(s.min()) >= -1e-5                     # dual feasible
+    assert float((s * x_star).abs().max()) <= 1e-5     # complementary
+    gap = (c * x_star).sum(0) - (b * y_star).sum(0)
+    assert float(gap.abs().max()) <= 1e-4 * float((c * x_star).sum(0)
+                                                  .abs().max() + 1)
+    again = tsol.random_feasible_lp(3, 40, 64, batch=3, device="cpu")
+    assert torch.equal(again[0], a) and torch.equal(again[2], c)
+    a1, b1, c1, x1, y1 = tsol.random_feasible_lp(4, 8, 12, device="cpu")
+    assert b1.shape == (8,) and c1.shape == (12,) and y1.shape == (8,)
+
+
+def test_transposed_operator_and_ledger():
+    """``as_operator(A.T)`` / ``LinearOperator.T`` swap the directions and
+    share the image's write cost; a matvec without rmatvec cannot serve
+    LSQR or PDHG; the five-rate ledger adds up as the reference's does."""
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 32, 16))
+    a = rng_array((70, 40), 60)
+    eng = AnalogEngine(cfg, device="cpu")
+    A = eng.program(a, 0)
+    op = tsol.as_operator(A.T)
+    assert op.shape == (40, 70) and op.T.shape == (70, 40)
+    u = torch.from_numpy(rng_array((40, 1), 61))
+    v = torch.from_numpy(rng_array((70, 1), 62))
+    assert torch.equal(op.matvec(v, 7), eng.rmvm(A, v, key=7))
+    assert torch.equal(op.rmatvec(u, 7), eng.mvm(A, u, key=7))
+    assert op.write_stats is A.write_stats
+    assert op.input_stats(2).energy_j == A.T.input_write_stats(2).energy_j
+    assert rel(op.dense(), a.T) <= 1e-6
+    dense = tsol.as_operator(torch.from_numpy(a))
+    assert rel(dense.T.matvec(v, 0), a.T @ v.numpy()) <= 1e-6
+    bare = tsol.as_operator(lambda w, _k: w, shape=(40, 40), device="cpu")
+    for solve in (lambda: tsol.lsqr(bare, np.ones(40, np.float32)),
+                  lambda: tsol.pdhg(bare, np.ones(40, np.float32),
+                                    np.ones(40, np.float32))):
+        with pytest.raises(ValueError, match="rmatvec"):
+            solve()
+    with pytest.raises(ValueError, match="rmatvec"):
+        bare.T
+    # The ledger's arithmetic against the reference's, on the same rates.
+    from repro.core import write_verify as jwv
+    rates = [A.input_write_stats(3), A.input_write_stats(1),
+             A.T.input_write_stats(3), A.T.input_write_stats(1)]
+    counts = dict(mvms=5, mvms_single=16, mvms_t=6, mvms_single_t=16)
+
+    def jstats(s):
+        return jwv.WriteStats(energy_j=jnp.float32(s.energy_j),
+                              latency_s=jnp.float32(s.latency_s),
+                              iterations=jnp.int32(s.iterations),
+                              final_delta=jnp.float32(s.final_delta))
+
+    names = ["input_stats", "input_stats_single", "input_stats_t",
+             "input_stats_single_t"]
+    got = tsol.SolveLedger(write_stats=A.write_stats,
+                           **dict(zip(names, rates)), **counts)
+    want = jsol.SolveLedger(write_stats=jstats(A.write_stats),
+                            **dict(zip(names, map(jstats, rates))), **counts)
+    assert got.total_energy_j == pytest.approx(want.total_energy_j, rel=1e-6)
+    assert got.total_latency_s == pytest.approx(want.total_latency_s,
+                                                rel=1e-6)
+    assert rates[2].energy_j != rates[0].energy_j    # non-square: differ
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_analog_lstsq_and_pdhg_converge(backend):
+    """LSQR and LSMR on a programmed rectangular image and PDHG on a
+    programmed LP (epiram, EC on): converged, with x error (least squares)
+    and objective gap (LP) within 2x of the JAX package's analog solves of
+    the same problems (their own noise draws), plus a 1e-5 floor."""
+    import jax
+    from repro.core import crossbar as jcb
+    from repro.core import devices as jdev
+    from repro.core import virtualization as jvirt
+    from repro.engine import AnalogEngine as JaxEngine
+    jcfg = jcb.CrossbarConfig(device=jdev.get_device("epiram"),
+                              geom=jvirt.MCAGeometry(2, 2, 32, 32))
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 32, 32))
+    jeng = JaxEngine(jcfg, backend="pallas" if backend == "cuda"
+                     else "reference")
+    eng = AnalogEngine(cfg, backend=backend, device="cpu")
+
+    a = rng_array((150, 70), 63) / np.sqrt(150)
+    x_true = rng_array((70,), 64)
+    b = (a @ x_true).astype(np.float32)
+    A = eng.program(a, 1)
+    jA = jeng.program(jnp.asarray(a), jax.random.PRNGKey(1))
+    for name in ("lsqr", "lsmr"):
+        got = getattr(tsol, name)(A, b, tol=1e-3, maxiter=100)
+        want = getattr(jsol, name)(jA, jnp.asarray(b), tol=1e-3, maxiter=100)
+        assert got.converged and want.converged, (got, want)
+        assert rel(got.x, x_true) <= 2 * rel(want.x, x_true) + 1e-5
+        assert got.ledger.mvms_t == got.ledger.mvms == got.iterations + 1
+
+    a, b, c, x_star, _ = lp_problem(48, 64, seed=12)
+    obj = float(c @ x_star)
+    A = eng.program(a, 2)
+    jA = jeng.program(jnp.asarray(a), jax.random.PRNGKey(2))
+    got = tsol.pdhg(A, b, c, tol=1e-3, maxiter=5000)
+    want = jsol.pdhg(jA, jnp.asarray(b), jnp.asarray(c), tol=1e-3,
+                     maxiter=5000)
+    assert got.converged and want.converged, (got, want)
+    gap = abs(float(c @ got.x.numpy()) - obj) / (1 + abs(obj))
+    jgap = abs(float(c @ np.asarray(want.x)) - obj) / (1 + abs(obj))
+    assert gap <= 2 * jgap + 1e-5, (gap, jgap)
+    led = got.ledger
+    assert led.mvms_single == led.mvms_single_t == 16
+    assert led.total_energy_j == pytest.approx(
+        led.write_energy_j
+        + led.mvms * led.input_stats.energy_j
+        + led.mvms_single * led.input_stats_single.energy_j
+        + led.mvms_t * led.input_stats_t.energy_j
+        + led.mvms_single_t * led.input_stats_single_t.energy_j, rel=1e-9)
