@@ -7,7 +7,7 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); exits
 non-zero, printing no result, without them or without the repository's
 ``src/repro_torch`` beside it.  Phases, each of which raises on failure:
 
-  1. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the ten CUDA kernels from ``src/repro_torch/kernels/csrc``;
   2. program a 32,768 x 32,768 matrix (taox-hfox, EC on, default 8 x 8 MCAs
      of 512 x 512) and hold each kernel to its plain PyTorch version at the
      main path's shapes, timing kernel, plain version and library call;
@@ -24,11 +24,26 @@ non-zero, printing no result, without them or without the repository's
      LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
      feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
      the two images first holds ec_matmul, ec_rmatmul (batch 1) and
-     stencil_denoise (on its 16,384-row panel) to their plain versions.
+     stencil_denoise (on its 16,384-row panel) to their plain versions;
+  6. program the 8 experts' w1 of one Mixtral-8x7B MoE layer (14,336 x
+     4,096 each, A ~ N(0, 1/4,096), taox-hfox, EC on) as one group, hold the
+     grouped EC kernels to their plain versions, and run group_mvm /
+     group_rmvm at batch 1 and 8 on both backends: one grouped EC launch and
+     one tier-2 launch per call, each member equal to its solo execute, the
+     DAC-off cuda path equal to the reference pipeline (Neumann and Thomas
+     at lam = 1e-2) to 1e-5;
+  6c. chain 32 square 4,096^2 layers (Mixtral's d_model and depth, He
+     init, relu) through chain_mvm on both backends: 32 ec_matmul launches
+     per chain, DAC off cuda equal to reference to 1e-4 after 32 layers;
+  7. x (256, 4,096) @ encode(W (4,096, 14,336)) in 512^2 MCA tiles through
+     rram_encode_matmul and encode_matmul_rng (taox-hfox levels and
+     effective sigma): each held to its plain version, the rng kernel at
+     sigma = 0 equal to encode_matmul with zero eps, bit for bit run to
+     run, and its draws' moments read back through the product.
 
 Launch counts are zeroed just before each solve of phases 4 and 5, and
-before phases 3 and 3t, and read just after: every kernel must have run on
-the path that uses it.  The last three
+before phases 3, 3t, 6, 6c and 7's main calls, and read just after: every
+kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -55,6 +70,11 @@ SOLVE_TOL = 1e-3
 LSTSQ_SHAPE = (N, N // 2)   # rows, columns of the least-squares matrix
 LP_SHAPE = (N // 2, N)      # constraints, variables of the LP
 PDHG_MAXITER = 5000
+# Mixtral-8x7B (src/repro/configs/mixtral_8x7b.py): one MoE layer's experts.
+D_MODEL, D_FF, N_EXPERTS, N_LAYERS = 4096, 14336, 8, 32
+CHAIN_TOL = 1e-4        # cuda vs reference after N_LAYERS chained layers
+ENCODE_ROWS = 256       # rows of x in phase 7
+ENCODE_SEED = 2024
 # Thomas: each row is a dependent FMA + multiply forward and an FMA backward,
 # about 12 cycles in all; at the H100 SXM's 1.98 GHz boost clock.
 THOMAS_CYCLES_PER_ROW = 12
@@ -153,8 +173,10 @@ def main() -> int:
     from repro_torch import kernels, solvers
     from repro_torch.core import CrossbarConfig, get_device
     from repro_torch.core import crossbar
-    from repro_torch.core.prng import generator
-    from repro_torch.engine import AnalogEngine, AnalogMatrix
+    from repro_torch.core.devices import effective_sigma_py
+    from repro_torch.core.prng import fold_in, generator
+    from repro_torch.engine import (AnalogEngine, AnalogMatrix,
+                                    AnalogMatrixGroup)
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -382,7 +404,10 @@ def main() -> int:
     print(f"    corrected A.T @ y, batch 1, per call: cuda "
           f"{rmvm_ms['cuda']:.3f} ms, reference {rmvm_ms['reference']:.3f} ms",
           flush=True)
-    del A, a, digital_t, views, det, batched, singles, thomas, th_cuda, th_ref
+    # at / da (phase 2's names for the image) go too, or the 8 GiB image
+    # stays alive through every later phase.
+    del A, a, at, da, digital_t, views, det, batched, singles, thomas, \
+        th_cuda, th_ref
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4. solve (main)
@@ -536,6 +561,281 @@ def main() -> int:
     del A, b, c, x_star, y_star
     torch.cuda.synchronize()
 
+    torch.cuda.empty_cache()
+
+    # ---------------------------- 6. Mixtral-8x7B expert group (main, groups)
+    def group_view(G, gcfg, backend):
+        """The same stacks under another engine configuration / backend."""
+        return AnalogMatrixGroup(
+            engine=AnalogEngine(gcfg, backend=backend, device=dev),
+            size=G.size, shape=G.shape, base_key=G.base_key,
+            member_keys=G.member_keys, write_stats=G.write_stats,
+            at_pad=G.at_pad, da_pad=G.da_pad)
+
+    geng = AnalogEngine(cfg, backend="cuda", device=dev)
+    gref = AnalogEngine(cfg, backend="reference", device=dev)
+    w1 = torch.randn(N_EXPERTS, D_FF, D_MODEL, generator=gen,
+                     device=dev).div_(D_MODEL ** 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    G = geng.program_group(w1, 5)
+    torch.cuda.synchronize()
+    print(f"[6] programmed {N_EXPERTS} experts' w1 ({D_FF} x {D_MODEL}) as "
+          f"one group in {time.perf_counter() - t0:.2f} s; stacks "
+          f"{tuple(G.at_pad.shape)}, {G.image_nbytes / 1e9:.3f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB (A "
+          f"{w1.nbytes / gib:.2f} GiB)", flush=True)
+    g_, mp, np_ = G.at_pad.shape
+    check((g_, mp, np_) == (N_EXPERTS, 16384, D_MODEL),
+          "unexpected group stack shape")
+    # A group call hands the kernels the live (14,336, 4,096) view of each
+    # member (the padding is zeros), so they and the bound read real rows.
+    mr = D_FF
+    check(not (G.at_pad[:, mr:].any() or G.da_pad[:, mr:].any()),
+          "the padding rows of the group stacks are not zero")
+    at, da = G.at_pad[:, :mr], G.da_pad[:, :mr]
+    for batch in (1, 8):
+        x = torch.randn(np_, g_ * batch, generator=gen, device=dev)
+        x_t = crossbar._encode_vec(x, cfg, gen=generator(200 + batch, dev))
+        y = torch.randn(mr, g_ * batch, generator=gen, device=dev)
+        y_t = crossbar._encode_vec(y, cfg, gen=generator(300 + batch, dev))
+
+        def members(u):    # (rows, g * b) panel -> (g, rows, b) for bmm
+            return u.view(u.shape[0], g_, batch).permute(1, 0, 2)
+
+        image_bytes = 2 * g_ * mr * np_
+        rows[batch]["ec_group_matmul"] = compare(
+            f"ec_group_matmul {g_}x{mr}x{np_} batch {batch}",
+            lambda: kernels.ec_group_matmul(at, da, x, x_t),
+            lambda: kernels.ec_group_matmul_plain(at, da, x, x_t), EC_TOL,
+            nbytes=4 * (image_bytes + 2 * np_ * g_ * batch
+                        + mr * g_ * batch),
+            flops=4 * g_ * mr * np_ * batch, iters=10,
+            library_fn=lambda: torch.bmm(at, members(x))
+            + torch.bmm(da, members(x_t)))
+        rows[batch]["ec_group_rmatmul"] = compare(
+            f"ec_group_rmatmul {g_}x{mr}x{np_} batch {batch}",
+            lambda: kernels.ec_group_rmatmul(at, da, y, y_t),
+            lambda: kernels.ec_group_rmatmul_plain(at, da, y, y_t), EC_TOL,
+            nbytes=4 * (image_bytes + 2 * mr * g_ * batch
+                        + np_ * g_ * batch),
+            flops=4 * g_ * mr * np_ * batch, iters=10,
+            library_fn=lambda: torch.bmm(at.transpose(1, 2), members(y))
+            + torch.bmm(da.transpose(1, 2), members(y_t)))
+        for name in ("ec_group_matmul", "ec_group_rmatmul"):
+            rows[batch][name]["shape"] = f"{g_}x{mr}x{np_} (of {mp})"
+        del x, x_t, y, y_t
+    gx = {b: torch.randn(N_EXPERTS, D_MODEL, b, generator=gen, device=dev)
+          for b in (1, 8)}
+    gy = {b: torch.randn(N_EXPERTS, D_FF, b, generator=gen, device=dev)
+          for b in (1, 8)}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fwd = {b: G @ gx[b] for b in (1, 8)}
+    bwd = {b: geng.group_rmvm(G, gy[b]) for b in (1, 8)}
+    torch.cuda.synchronize()
+    group_s = time.perf_counter() - t0
+    group_counts = dict(kernels.LAUNCHES)
+    print(f"[6] 2 group_mvm + 2 group_rmvm (batch 1, 8) in "
+          f"{group_s * 1e3:.1f} ms; launches {group_counts}", flush=True)
+    check(group_counts["ec_group_matmul"] == 2
+          and group_counts["ec_group_rmatmul"] == 2
+          and group_counts["stencil_denoise"] == 4
+          and sum(group_counts.values()) == 8,
+          f"a group call is not one grouped EC + one tier-2 launch: "
+          f"{group_counts}")
+    for b in (1, 8):
+        check(tuple(fwd[b].shape) == (N_EXPERTS, D_FF, b)
+              and tuple(bwd[b].shape) == (N_EXPERTS, D_MODEL, b)
+              and bool(torch.isfinite(fwd[b]).all()
+                       & torch.isfinite(bwd[b]).all()),
+              "group outputs: wrong shape or non-finite")
+    digital = {b: (torch.bmm(w1, gx[b]), torch.bmm(w1.transpose(1, 2), gy[b]))
+               for b in (1, 8)}
+    ref_out = {b: (gref.group_mvm(G, gx[b]), gref.group_rmvm(G, gy[b]))
+               for b in (1, 8)}
+    for b in (1, 8):
+        errs = [rel_l2(fwd[b], digital[b][0]), rel_l2(bwd[b], digital[b][1]),
+                rel_l2(ref_out[b][0], digital[b][0]),
+                rel_l2(ref_out[b][1], digital[b][1])]
+        print(f"    batch {b}: rel-L2 vs digital bmm: cuda {errs[0]:.4e} "
+              f"(A.T: {errs[1]:.4e}), reference {errs[2]:.4e} (A.T: "
+              f"{errs[3]:.4e})", flush=True)
+        check(max(errs[:2]) < 0.1 and 0.5 < errs[0] / errs[2] < 2.0
+              and 0.5 < errs[1] / errs[3] < 2.0,
+              "group cuda and reference backends disagree in accuracy")
+    # Member g of a group call under key k is its solo execute under
+    # fold_in(k, g): the same DAC draw, the same image.  Forward the grouped
+    # kernel sums each row as the solo one does (bit for bit); transposed
+    # it cuts the rows into other slabs (equal to fp32 rounding).
+    same_fwd, solo_err_t = True, 0.0
+    out, out_t = geng.group_mvm(G, gx[8], key=7), geng.group_rmvm(G, gy[8],
+                                                                key=7)
+    for i in range(N_EXPERTS):
+        k_i = fold_in(7, i)
+        same_fwd &= torch.equal(out[i], geng.mvm(G.member(i), gx[8][i],
+                                                 key=k_i))
+        solo_err_t = max(solo_err_t, rel_l2(
+            out_t[i], geng.rmvm(G.member(i), gy[8][i], key=k_i)))
+    print(f"    member g vs solo member(g) under the same key: forward bit "
+          f"for bit {same_fwd}, transposed max rel-L2 {solo_err_t:.3e}",
+          flush=True)
+    check(same_fwd and solo_err_t <= EC_TOL,
+          "a group member differs from its solo execute")
+    det_err = {}
+    for label, gcfg in (("neumann", exact), ("thomas", thomas_cfg)):
+        views = [group_view(G, gcfg, be) for be in ("cuda", "reference")]
+        t0 = time.perf_counter()
+        det = [(h.engine.group_mvm(h, gx[8]), h.engine.group_rmvm(h, gy[8]))
+               for h in views]
+        torch.cuda.synchronize()
+        det_err[label] = (rel_l2(det[0][0], det[1][0]),
+                          rel_l2(det[0][1], det[1][1]),
+                          time.perf_counter() - t0)
+    print(f"    DAC off, cuda vs reference pipeline: rel-L2 "
+          f"{det_err['neumann'][0]:.3e} / {det_err['neumann'][1]:.3e} "
+          f"(G @ x / G.T @ y); Thomas at lam {STENCIL_CHECK_LAM:g} "
+          f"{det_err['thomas'][0]:.3e} / {det_err['thomas'][1]:.3e} (the "
+          f"pair took {det_err['thomas'][2]:.1f} s with the reference's "
+          f"host-loop Thomas)", flush=True)
+    check(max(max(e[:2]) for e in det_err.values()) <= 1e-5,
+          "group cuda path disagrees with the reference pipeline")
+    group_ms = {}
+    for b in (1, 8):
+        group_ms[b] = {
+            "cuda": call_time_ms(lambda: geng.group_mvm(G, gx[b], key=1), 5),
+            "cuda_t": call_time_ms(lambda: geng.group_rmvm(G, gy[b], key=1),
+                                   5),
+            "reference": call_time_ms(lambda: gref.group_mvm(G, gx[b], key=1),
+                                      3),
+            "reference_t": call_time_ms(
+                lambda: gref.group_rmvm(G, gy[b], key=1), 3)}
+        print(f"    per group call, batch {b}: cuda {group_ms[b]['cuda']:.3f}"
+              f" ms (G.T: {group_ms[b]['cuda_t']:.3f} ms), reference "
+              f"{group_ms[b]['reference']:.3f} ms (G.T: "
+              f"{group_ms[b]['reference_t']:.3f} ms)", flush=True)
+    for name in ("ec_group_matmul", "ec_group_rmatmul"):
+        for b in (1, 8):
+            rows[b][name]["group_call_ms"] = \
+                group_ms[b]["cuda_t" if "rmatmul" in name else "cuda"]
+    del G, w1, at, da, fwd, bwd, digital, ref_out, det, views, gx, gy, out, \
+        out_t
+    torch.cuda.empty_cache()
+
+    # ------------------------ 6c. 32 chained 4,096^2 layers (main, chain_mvm)
+    layers = torch.randn(N_LAYERS, D_MODEL, D_MODEL, generator=gen,
+                         device=dev).mul_((2.0 / D_MODEL) ** 0.5)
+    t0 = time.perf_counter()
+    C = geng.program_group(layers, 6)
+    torch.cuda.synchronize()
+    print(f"[6c] programmed {N_LAYERS} layers of {D_MODEL}^2 in "
+          f"{time.perf_counter() - t0:.2f} s ({C.image_nbytes / 1e9:.3f} GB)",
+          flush=True)
+    h = torch.randn(D_MODEL, 1, generator=gen, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    chained = geng.chain_mvm(C, h, activation="relu")
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    chain_counts = dict(kernels.LAUNCHES)
+    want = h
+    for g in range(N_LAYERS):
+        want = torch.relu(torch.matmul(layers[g], want))
+    chain_ref = gref.chain_mvm(C, h, activation="relu")
+    views = [group_view(C, exact, be) for be in ("cuda", "reference")]
+    det = [v.engine.chain_mvm(v, h, activation="relu", key=3) for v in views]
+    chain_det = rel_l2(det[0], det[1])
+    chain_ms = {"cuda": call_time_ms(
+        lambda: geng.chain_mvm(C, h, activation="relu", key=1), 3),
+        "reference": call_time_ms(
+        lambda: gref.chain_mvm(C, h, activation="relu", key=1), 3)}
+    print(f"[6c] chain of {N_LAYERS} (relu, batch 1): {chain_s * 1e3:.1f} ms "
+          f"cold, {chain_ms['cuda']:.3f} ms per chain warm (reference "
+          f"{chain_ms['reference']:.3f} ms); launches {chain_counts}; rel-L2 "
+          f"vs digital: cuda {rel_l2(chained, want):.4e}, reference "
+          f"{rel_l2(chain_ref, want):.4e}; DAC off cuda vs reference "
+          f"{chain_det:.3e}; bound {bound_ms(N_LAYERS * 2 * 4 * D_MODEL ** 2, 0)[0]:.3f} ms",
+          flush=True)
+    check(bool(torch.isfinite(chained).all())
+          and tuple(chained.shape) == (D_MODEL, 1), "chain output")
+    check(chain_counts["ec_matmul"] == N_LAYERS,
+          f"chain did not run one ec_matmul per layer: {chain_counts}")
+    check(chain_det <= CHAIN_TOL,
+          "chain cuda path disagrees with the reference pipeline")
+    del C, layers, chained, chain_ref, want, views, det
+    torch.cuda.empty_cache()
+
+    # ------------------------- 7. single-pass encode (main, rram_encode_matmul)
+    taox = get_device("taox-hfox")
+    sigma = effective_sigma_py(taox, cfg.k_iters)
+    m, k, n = ENCODE_ROWS, D_MODEL, D_FF
+    x = torch.randn(m, k, generator=gen, device=dev)
+    wt = torch.randn(k, n, generator=gen, device=dev).div_(k ** 0.5)
+    eps = torch.randn(k, n, generator=gen, device=dev)
+    kw = dict(sigma=sigma, levels=taox.levels)
+    kernels.reset_launches()
+    y = kernels.rram_encode_matmul(x, wt, eps, **kw)
+    y_rng = kernels.encode_matmul_rng(ENCODE_SEED, x, wt, **kw)
+    torch.cuda.synchronize()
+    encode_counts = dict(kernels.LAUNCHES)
+    check(encode_counts["encode_matmul"] == 1
+          and encode_counts["encode_matmul_rng"] == 1,
+          f"the encode entry points did not launch their kernels: "
+          f"{encode_counts}")
+    check(tuple(y.shape) == (m, n) and bool(torch.isfinite(y).all()
+                                           & torch.isfinite(y_rng).all()),
+          "encode outputs: wrong shape or non-finite")
+    tiles = dict(block_k=512, block_n=512)
+    q = kernels.quantize_tile_plain(wt, taox.levels, 512, 512)
+    w_tilde = q * (1.0 + sigma * eps)
+    print(f"[7] x {m}x{k} @ encode(W {k}x{n}), 512^2 tiles, levels "
+          f"{taox.levels}, sigma {sigma:.4g}; rel-L2 vs digital x @ W "
+          f"{rel_l2(y, torch.matmul(x, wt)):.4e}; launches {encode_counts}",
+          flush=True)
+    rows[1]["encode_matmul"] = compare(
+        f"encode_matmul {m}x{k}x{n}",
+        lambda: kernels.encode_matmul(x, wt, eps, **kw, **tiles),
+        lambda: kernels.encode_matmul_plain(x, wt, eps, sigma, taox.levels,
+                                            512, 512), EC_TOL,
+        nbytes=4 * (m * k + 2 * k * n + m * n), flops=2 * m * k * n, iters=5,
+        library_fn=lambda: torch.matmul(x, w_tilde))
+    del w_tilde
+    w_rng = q * (1.0 + sigma * kernels.philox_normal_plain(
+        ENCODE_SEED, k, n, 512, 512, dev))
+    rows[1]["encode_matmul_rng"] = compare(
+        f"encode_matmul_rng {m}x{k}x{n}",
+        lambda: kernels.encode_matmul_rng(ENCODE_SEED, x, wt, **kw, **tiles),
+        lambda: kernels.encode_matmul_rng_plain(ENCODE_SEED, x, wt, **kw,
+                                                **tiles), EC_TOL,
+        nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n, iters=5,
+        plain_iters=1, plain_warmup=1,
+        library_fn=lambda: torch.matmul(x, w_rng))
+    for name in ("encode_matmul", "encode_matmul_rng"):
+        rows[1][name]["shape"] = f"{m}x{k}x{n}"
+    zero = dict(kw, sigma=0.0)
+    same_zero = torch.equal(
+        kernels.encode_matmul_rng(ENCODE_SEED, x, wt, **zero),
+        kernels.encode_matmul(x, wt, torch.zeros_like(wt), **zero))
+    same_run = torch.equal(y_rng, kernels.encode_matmul_rng(ENCODE_SEED, x,
+                                                            wt, **kw))
+    # W of ones quantizes to ones, so eye @ encode(W) = 1 + sigma * eta
+    # (64 rows of x: the 256-row output tile masks the rest).
+    eye, ones = torch.eye(64, device=dev), torch.ones(64, 32768, device=dev)
+    eta = (kernels.encode_matmul_rng(ENCODE_SEED, eye, ones, sigma=0.5,
+                                     levels=taox.levels) - 1.0) / 0.5
+    moments = (float(eta.mean()), float(eta.var()))
+    print(f"    rng kernel: sigma = 0 equals encode_matmul with zero eps: "
+          f"{same_zero}; bit for bit run to run: {same_run}; {eta.numel()} "
+          f"draws read back: mean {moments[0]:.2e}, variance "
+          f"{moments[1]:.4f}", flush=True)
+    check(same_zero and same_run, "encode_matmul_rng is not deterministic "
+                                  "or not encode_matmul at sigma = 0")
+    check(abs(moments[0]) <= 0.01 and abs(moments[1] - 1.0) <= 0.02,
+          "encode_matmul_rng's draws are not standard normal")
+    del x, wt, eps, q, w_rng, y, y_rng, eta, eye, ones
+    torch.cuda.synchronize()
+
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
@@ -551,28 +851,40 @@ def main() -> int:
                       "src/repro/kernels/solver_update.py:83"),
         "richardson_update": ("src/repro_torch/kernels/csrc/solver_update.cu",
                               "src/repro/kernels/solver_update.py:46"),
+        # The grouped wrappers reach the pallas_call of ec_matmul per member.
+        "ec_group_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
+                            "src/repro/kernels/ops.py:150"),
+        "ec_group_rmatmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
+                             "src/repro/kernels/ops.py:174"),
+        "encode_matmul": ("src/repro_torch/kernels/csrc/encode_matmul.cu",
+                          "src/repro/kernels/rram_mvm.py:79"),
+        "encode_matmul_rng": ("src/repro_torch/kernels/csrc/encode_matmul.cu",
+                              "src/repro/kernels/rram_mvm.py:166"),
     }
     table = []
     for name, (source, replaces) in sources.items():
         launches = sum(counts[name] for counts in
                        (served, served_t, solve_counts, lstsq_counts,
-                        lp_counts))
+                        lp_counts, group_counts, chain_counts,
+                        encode_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "rel_l2": row["rel_l2"],
-            **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms")
+            **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms", "shape",
+                                   "group_call_ms")
                if k in row},
             "ms": row["ms"],
             "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "batch": 1,
-            "batch8": {k: rows[8][name][k] for k in
-                       ("ms", "call_ms", "plain_ms", "bound_ms",
-                        "library_ms")},
+            "batch8": ({k: rows[8][name][k] for k in
+                        ("ms", "call_ms", "plain_ms", "bound_ms",
+                         "library_ms", "group_call_ms") if k in rows[8][name]}
+                       if name in rows[8] else None),
             # The phase-5 images: other M, K and slab counts, batch 1.
             "shapes": [res[name] for res in more_shapes if name in res],
         })

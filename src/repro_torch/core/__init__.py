@@ -2,7 +2,9 @@
 correction and the local crossbar stages (see :mod:`repro.core`)."""
 
 from .crossbar import (CrossbarConfig, assemble_blocks, encode_tiled,
-                       input_write_cost, matrix_write_cost, program_blocks,
+                       group_program_blocks, grouped_block_mvm,
+                       grouped_block_rmvm, input_write_cost,
+                       matrix_write_cost, program_blocks,
                        programmed_block_mvm, programmed_block_rmvm,
                        tile_write_cost, write_cost)
 from .devices import (DEVICES, DeviceModel, effective_sigma,

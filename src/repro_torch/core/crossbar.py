@@ -6,7 +6,9 @@ plus residual programming noise) and keeps ``A_tilde`` and ``dA = A - A_tilde``;
 :func:`programmed_block_mvm` executes a corrected MVM against that image with
 only the input vector passing through the DAC, and
 :func:`programmed_block_rmvm` the transposed ``A.T @ y`` against the same
-image.
+image.  The grouped stages (:func:`group_program_blocks`,
+:func:`grouped_block_mvm`, :func:`grouped_block_rmvm`) run a stack of
+same-shape members, member ``g`` exactly as its solo stage under ``keys[g]``.
 
 Layout: the image lives as two dense padded ``(Mp, Np)`` float32 tensors;
 the ``(mb, nb, cap_m, cap_n)`` block layout of the reference is a view
@@ -42,6 +44,9 @@ __all__ = [
     "program_blocks",
     "programmed_block_mvm",
     "programmed_block_rmvm",
+    "group_program_blocks",
+    "grouped_block_mvm",
+    "grouped_block_rmvm",
 ]
 
 
@@ -316,3 +321,62 @@ def programmed_block_rmvm(at: torch.Tensor, da: torch.Tensor, yb: torch.Tensor,
     """
     return _block_execute(at, da, yb, key, cfg, m=m, n=n, tier2=tier2,
                           use_kernel=use_kernel, eta=eta, transpose=True)
+
+
+# --------------------------------------------------------------------------- #
+# Grouped stages: a stack of same-shape images, member by member
+# --------------------------------------------------------------------------- #
+# Member ``g`` of a grouped stage is its solo stage under ``keys[g]``, so a
+# grouped image and every grouped draw equal the solo ones; the stacked
+# layout is a leading member axis on the padded images, (g, Mp, Np).
+
+def group_program_blocks(a_stack, keys, cfg: CrossbarConfig, *,
+                         eta: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Program a stack of same-shape matrices: ``a_stack`` is a (g, m, n)
+    tensor or a sequence of g (m, n) tensors, ``keys`` one base key per
+    member.  Returns the padded ``(A_tilde, dA)`` stacks, each (g, Mp, Np);
+    member ``g`` is ``program_blocks(a_stack[g], keys[g], cfg)``
+    exactly.  ``eta`` of shape (g, mb, nb, cap_m, cap_n) replaces the
+    draws."""
+    at = da = None
+    for g, a in enumerate(a_stack):
+        at_g, da_g = program_blocks(a, keys[g], cfg,
+                                    eta=None if eta is None else eta[g])
+        if at is None:
+            at = at_g.new_empty((len(a_stack),) + tuple(at_g.shape))
+            da = torch.empty_like(at)
+        at[g], da[g] = at_g, da_g
+        del at_g, da_g
+    return at, da
+
+
+def _grouped(run, at, da, ub, keys, cfg, m, n, tier2, use_kernel, eta):
+    return torch.stack([
+        run(at[g], da[g], ub[g], keys[g], cfg, m=m, n=n, tier2=tier2,
+            use_kernel=use_kernel, eta=None if eta is None else eta[g])
+        for g in range(at.shape[0])])
+
+
+def grouped_block_mvm(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
+                      keys, cfg: CrossbarConfig, *, m: int, n: int,
+                      tier2: bool = True, use_kernel: bool = False,
+                      eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Corrected MVM of every member: (g, Mp, Np) image stacks, ``xb`` one
+    (n, batch) panel per member (g, n, batch), one execute key per member.
+    Member ``g`` is :func:`programmed_block_mvm` under ``keys[g]``, tier-2
+    included; ``eta`` (g, mb, nb, cap_n, batch) replaces the DAC draws.
+    Returns (g, m, batch)."""
+    return _grouped(programmed_block_mvm, at, da, xb, keys, cfg, m, n, tier2,
+                    use_kernel, eta)
+
+
+def grouped_block_rmvm(at: torch.Tensor, da: torch.Tensor, yb: torch.Tensor,
+                       keys, cfg: CrossbarConfig, *, m: int, n: int,
+                       tier2: bool = True, use_kernel: bool = False,
+                       eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Transposed grouped execute: member ``g`` is
+    :func:`programmed_block_rmvm` under ``keys[g]``; ``yb`` is (g, m, batch),
+    ``eta`` (g, mb, nb, cap_m, batch); returns (g, n, batch)."""
+    return _grouped(programmed_block_rmvm, at, da, yb, keys, cfg, m, n, tier2,
+                    use_kernel, eta)

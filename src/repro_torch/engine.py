@@ -26,6 +26,17 @@ Backends:
     (``"thomas"``).  On CPU tensors the kernels' plain versions run, which is
     how the tests drive it.
 
+Groups: ``engine.program_group(source, key)`` programs a stack of
+same-shape matrices (MoE experts, the layers of one model) into one
+:class:`AnalogMatrixGroup`, ``engine.group(handles)`` stacks programmed
+handles; ``engine.group_mvm`` / ``group_rmvm`` execute every member, and
+``engine.chain_mvm`` threads one input through the members in turn (an
+L-layer forward).  Member ``g`` draws exactly what a solo handle with the
+member's key draws.  On ``backend="cuda"`` a group execute is one grouped EC
+launch (:func:`~repro_torch.kernels.ec_group_matmul` /
+:func:`~repro_torch.kernels.ec_group_rmatmul`) and one tier-2 launch on the
+``(rows, g * batch)`` panel, at batch <= 8 per member.
+
 Only ``execution="local"`` exists so far; ``"streamed"`` and
 ``"distributed"`` raise ``NotImplementedError`` naming their ROADMAP item.
 Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle, in
@@ -35,7 +46,7 @@ either direction (one counter), draws its DAC noise from ``key`` for
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +60,9 @@ from .core.prng import fold_in, generator
 from .core.virtualization import blocks_view
 from .core.write_verify import WriteStats
 
-__all__ = ["AnalogEngine", "AnalogMatrix", "TransposedAnalogMatrix",
-           "EXECUTION_MODES", "BACKENDS"]
+__all__ = ["AnalogEngine", "AnalogMatrix", "AnalogMatrixGroup",
+           "TransposedAnalogMatrix", "EXECUTION_MODES", "BACKENDS",
+           "CHAIN_ACTIVATIONS"]
 
 EXECUTION_MODES = ("local", "streamed", "distributed")
 BACKENDS = ("reference", "cuda")
@@ -59,6 +71,37 @@ _NOT_PORTED = {
     "streamed": "ROADMAP Queue A7 (streamed execution)",
     "distributed": "ROADMAP Queue A11 (distributed placement)",
 }
+
+#: Elementwise nonlinearities :meth:`AnalogEngine.chain_mvm` applies between
+#: chained group members (None: a linear chain).  ``gelu`` is the tanh
+#: form, which is ``jax.nn.gelu``'s default (torch's default is the erf form).
+CHAIN_ACTIVATIONS = {
+    None: lambda x: x,
+    "relu": torch.relu,
+    "tanh": torch.tanh,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+}
+
+
+def _scale_stats(stats: WriteStats, factor: float) -> WriteStats:
+    """``factor`` members' worth of one member's :class:`WriteStats`."""
+    return WriteStats(energy_j=stats.energy_j * factor,
+                      latency_s=stats.latency_s * factor,
+                      iterations=stats.iterations,
+                      final_delta=stats.final_delta)
+
+
+def _tree_leaves(source) -> list:
+    """The leaves of a nested dict / list / tuple in JAX's pytree order:
+    dict keys sorted (torch's own pytree keeps insertion order), sequences
+    in order, ``None`` empty; anything else is a leaf."""
+    if source is None:
+        return []
+    if isinstance(source, dict):
+        return [leaf for k in sorted(source) for leaf in _tree_leaves(source[k])]
+    if isinstance(source, (list, tuple)):
+        return [leaf for item in source for leaf in _tree_leaves(item)]
+    return [source]
 
 
 @dataclasses.dataclass(eq=False)
@@ -187,39 +230,167 @@ class TransposedAnalogMatrix:
                                                     transpose=True)
 
 
-def _cuda_corrected(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
-                    key: int, cfg: CrossbarConfig, rows: int, *,
-                    transpose: bool = False,
-                    eta: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The ``cuda`` backend's execute, mirroring the JAX ``_pallas_corrected``.
+@dataclasses.dataclass(eq=False)
+class AnalogMatrixGroup:
+    """A stack of same-shape programmed images, executed together.
 
-    One DAC pass over the whole padded input (one scale, one draw from
-    ``fold_in(key, 1)`` forward and ``fold_in(key, 2)`` transposed; ``eta``
-    of the padded input's shape replaces it), tier-1 ``A_tilde x + dA
-    x_tilde`` through the ``ec_matmul`` kernel (``A_tilde^T y + dA^T
-    y_tilde`` through ``ec_rmatmul``), cut to the first ``rows`` outputs,
-    and tier-2 through the ``stencil_denoise`` or ``thomas_solve`` kernel.
+    Built by :meth:`AnalogEngine.program_group` or :meth:`AnalogEngine.group`.
+    Holds the ``size`` members' padded images as ``(size, Mp, Np)`` stacks;
+    member ``g`` executes with its own base key ``member_keys[g]``, so it
+    draws exactly what a solo handle with that key draws.  ``write_stats``
+    is the total over the members.
     """
-    pad_to = at.shape[0] if transpose else at.shape[1]
-    x_pad = F.pad(xb, (0, 0, 0, pad_to - xb.shape[0])).contiguous()
+
+    engine: "AnalogEngine"
+    size: int
+    shape: Tuple[int, int]          # per-member (m, n)
+    base_key: int
+    member_keys: List[int]
+    write_stats: WriteStats
+    at_pad: torch.Tensor            # (size, Mp, Np)
+    da_pad: torch.Tensor
+    calls: int = 0
+
+    @property
+    def m(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.shape[1]
+
+    def _blocks(self, stack: torch.Tensor) -> torch.Tensor:
+        g, mp, np_ = stack.shape
+        return blocks_view(stack.view(g * mp, np_),
+                           self.engine.cfg.geom).unflatten(0, (g, -1))
+
+    @property
+    def at_blocks(self) -> torch.Tensor:
+        """(size, mb, nb, cap_m, cap_n) block view of the stacked ``A_tilde``
+        (no copy)."""
+        return self._blocks(self.at_pad)
+
+    @property
+    def da_blocks(self) -> torch.Tensor:
+        """(size, mb, nb, cap_m, cap_n) block view of the stacked ``dA``."""
+        return self._blocks(self.da_pad)
+
+    def member(self, g: int) -> AnalogMatrix:
+        """Member ``g`` as a standalone :class:`AnalogMatrix` on views of the
+        stacks (no copy), with the member's base key, its own call counter
+        and a ``1 / size`` share of the group's write cost."""
+        if not 0 <= g < self.size:
+            raise IndexError(f"member {g} of a size-{self.size} group")
+        return AnalogMatrix(engine=self.engine, shape=self.shape,
+                            base_key=self.member_keys[g],
+                            write_stats=_scale_stats(self.write_stats,
+                                                     1.0 / self.size),
+                            at_pad=self.at_pad[g], da_pad=self.da_pad[g])
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.engine.group_mvm(self, x)
+
+    def input_write_stats(self, batch: int = 1, *,
+                          transpose: bool = False) -> WriteStats:
+        """Per-execution input-write cost of the whole group (``size``
+        members' DAC passes and EC replicas)."""
+        one = self.engine.input_write_stats(self, batch, transpose=transpose)
+        return _scale_stats(one, self.size)
+
+    @property
+    def image_nbytes(self) -> int:
+        """Resident bytes of the two stacked images (there are no caches)."""
+        return self.at_pad.nbytes + self.da_pad.nbytes
+
+    def release(self) -> int:
+        """Drop derived execution caches; the port keeps none, so 0 bytes."""
+        return 0
+
+
+def _dac_pass(x_pad: torch.Tensor, key: int, cfg: CrossbarConfig,
+              transpose: bool, eta: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel backend's one DAC pass over a whole padded input: one
+    scale, one draw from ``fold_in(key, 1)`` forward and ``fold_in(key, 2)``
+    transposed (``eta`` of the input's shape replaces the draw)."""
     if not cfg.encode_inputs:
-        x_t = x_pad
-    elif eta is None:
-        fold = 2 if transpose else 1
-        x_t = crossbar._encode_vec(
-            x_pad, cfg, gen=generator(fold_in(key, fold), x_pad.device))
-    else:
-        x_t = crossbar._encode_vec(x_pad, cfg, eta=eta)
-    if not cfg.ec:
-        return ((at.T if transpose else at) @ x_t)[:rows]
-    run = kernels.ec_rmatmul if transpose else kernels.ec_matmul
-    p = run(at, da, x_pad, x_t)[:rows]
+        return x_pad
+    if eta is not None:
+        return crossbar._encode_vec(x_pad, cfg, eta=eta)
+    fold = 2 if transpose else 1
+    return crossbar._encode_vec(
+        x_pad, cfg, gen=generator(fold_in(key, fold), x_pad.device))
+
+
+def _tier2(p: torch.Tensor, cfg: CrossbarConfig) -> torch.Tensor:
+    """Tier-2 of the kernel backend on an (n, columns) panel: the stencil or
+    Thomas kernel, which both work column by column."""
     if cfg.denoise_method == "neumann":
         return kernels.stencil_denoise(p, cfg.lam, cfg.h)
     if cfg.denoise_method == "thomas":
         return kernels.thomas_solve(p, cfg.lam, cfg.h)
     return denoise_least_square(p, lam=cfg.lam, h=cfg.h,
                                 method=cfg.denoise_method)
+
+
+def _cuda_corrected(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
+                    key: int, cfg: CrossbarConfig, shape: Tuple[int, int], *,
+                    transpose: bool = False,
+                    eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``cuda`` backend's execute, mirroring the JAX ``_pallas_corrected``.
+
+    One DAC pass over the whole padded input (:func:`_dac_pass`; ``eta`` of
+    the padded input's shape replaces its draw), tier-1 ``A_tilde x + dA
+    x_tilde`` through the ``ec_matmul`` kernel (``A_tilde^T y + dA^T
+    y_tilde`` through ``ec_rmatmul``) on the live ``shape`` = (m, n) part of
+    the padded images, and tier-2 through the ``stencil_denoise`` or
+    ``thomas_solve`` kernel.  The padding of an image is exact zeros, so
+    leaving it unread changes no term of the products.
+    """
+    m, n = shape
+    pad_to = at.shape[0] if transpose else at.shape[1]
+    width = m if transpose else n    # the live part of the contraction
+    x_pad = F.pad(xb, (0, 0, 0, pad_to - xb.shape[0])).contiguous()
+    x_t = _dac_pass(x_pad, key, cfg, transpose, eta)
+    at, da = at[:m, :n], da[:m, :n]
+    if not cfg.ec:
+        return (at.T if transpose else at) @ x_t[:width]
+    run = kernels.ec_rmatmul if transpose else kernels.ec_matmul
+    return _tier2(run(at, da, x_pad[:width], x_t[:width]), cfg)
+
+
+def _cuda_group_corrected(at: torch.Tensor, da: torch.Tensor,
+                          xb: torch.Tensor, keys: Sequence[int],
+                          cfg: CrossbarConfig, shape: Tuple[int, int], *,
+                          transpose: bool = False,
+                          eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``cuda`` backend's grouped execute, mirroring the JAX
+    ``_exec_group_pallas``: member ``g`` gets its own whole-vector DAC pass
+    under ``keys[g]`` (``eta[g]`` replaces it), exactly as its solo
+    :func:`_cuda_corrected`; then ONE grouped EC launch on the live (m, n)
+    part of every member and the ``(contraction, g * batch)`` panels, and
+    ONE tier-2 launch on the ``(rows, g * batch)`` output.  ``at``/``da``
+    are (g, Mp, Np) stacks, ``xb`` (g, n, batch); returns (g, rows,
+    batch)."""
+    m, n = shape
+    g, _, batch = xb.shape
+    pad_to = at.shape[1] if transpose else at.shape[2]
+    width, rows = (m, n) if transpose else (n, m)
+    x_pad = F.pad(xb, (0, 0, 0, pad_to - xb.shape[1]))
+    x_t = torch.stack([_dac_pass(x_pad[i], keys[i], cfg, transpose,
+                                 None if eta is None else eta[i])
+                       for i in range(g)])
+    at, da = at[:, :m, :n], da[:, :m, :n]
+    if not cfg.ec:
+        return torch.stack([(at[i].T if transpose else at[i]) @ x_t[i, :width]
+                            for i in range(g)])
+
+    def panel(u):   # (g, pad_to, batch) -> (width, g * batch)
+        return u[:, :width].transpose(0, 1).reshape(width, g * batch) \
+            .contiguous()
+
+    run = kernels.ec_group_rmatmul if transpose else kernels.ec_group_matmul
+    p = _tier2(run(at, da, panel(x_pad), panel(x_t)), cfg)
+    return p.view(rows, g, batch).transpose(0, 1).contiguous()
 
 
 class AnalogEngine:
@@ -288,6 +459,93 @@ class AnalogEngine:
         at, _ = crossbar.program_blocks(a, key, self.cfg)
         return crossbar.assemble_blocks(at, *a.shape)
 
+    # ------------------------------------------------------ group programming
+    def program_group(self, source, key: int, *,
+                      eta: Optional[torch.Tensor] = None) -> AnalogMatrixGroup:
+        """Program a stack of same-shape matrices as one group.
+
+        ``source`` is a nested dict / list / tuple of same-shape 2-D arrays
+        or tensors (the leaves stack in JAX's pytree order: dict keys
+        sorted), or one ``(g, m, n)`` stack.  Member ``g`` is programmed with
+        ``fold_in(key, g)``: its image is that of a solo :meth:`program`
+        under that key.  ``eta`` ((g, mb, nb, cap_m, cap_n)) replaces the
+        programming draws.  Producer sources (``block_fn(i, j)``) are
+        streamed execution, not ported yet (ROADMAP Queue A7).
+        """
+        leaves = _tree_leaves(source)
+        if not leaves:
+            raise ValueError("program_group needs at least one member")
+        producers = [f for f in leaves
+                     if callable(f) and not hasattr(f, "shape")]
+        if producers and len(producers) != len(leaves):
+            raise ValueError("program_group members must be all arrays or "
+                             "all block_fn producers, not a mix")
+        if producers:
+            raise NotImplementedError(
+                "program_group over block_fn producers is streamed "
+                f"execution, not ported yet: {_NOT_PORTED['streamed']}")
+        if len(leaves) == 1 and getattr(leaves[0], "ndim", 0) == 3:
+            members = self._as_tensor(leaves[0])
+        else:
+            shapes = sorted({tuple(getattr(leaf, "shape", ()))
+                             for leaf in leaves})
+            if len(shapes) != 1 or len(shapes[0]) != 2:
+                raise ValueError(
+                    "program_group needs geometry-compatible members: every "
+                    f"leaf must be the same 2-D (m, n) shape, got {shapes} "
+                    "(group same-shape kernels; program the rest solo)")
+            members = [self._as_tensor(leaf) for leaf in leaves]
+        size = len(members)
+        m, n = members[0].shape
+        member_keys = [fold_in(key, g) for g in range(size)]
+        at, da = crossbar.group_program_blocks(members, member_keys, self.cfg,
+                                               eta=eta)
+        return AnalogMatrixGroup(
+            engine=self, size=size, shape=(m, n), base_key=int(key),
+            member_keys=member_keys,
+            write_stats=_scale_stats(
+                crossbar.matrix_write_cost(m, n, self.cfg), size),
+            at_pad=at, da_pad=da)
+
+    def group(self, handles: Sequence[AnalogMatrix]) -> AnalogMatrixGroup:
+        """Stack programmed handles into a group, no re-programming: member
+        ``g`` is ``handles[g]``'s image bit for bit, with its base key.
+        Members share this engine's configuration and one (m, n) shape.
+        (The port's handles are all local and unaged, so there is no
+        streamed or aged member to refuse.)"""
+        handles = list(handles)
+        if not handles:
+            raise ValueError("group() needs at least one handle")
+        shapes = sorted({h.shape for h in handles})
+        if len(shapes) != 1:
+            raise ValueError("group() members must be geometry-compatible "
+                             f"(one shared (m, n) shape); got {shapes}")
+        for g, h in enumerate(handles):
+            if isinstance(h, TransposedAnalogMatrix):
+                raise ValueError("group() stacks forward handles; run the "
+                                 "transposed direction through group_rmvm")
+            if not isinstance(h, AnalogMatrix):
+                raise TypeError(f"group() member {g} is a "
+                                f"{type(h).__name__}, not an AnalogMatrix")
+            if h.engine is not self and h.engine.cfg != self.cfg:
+                raise ValueError(f"group() member {g} was programmed by an "
+                                 "incompatible engine configuration")
+            if h.at_pad.device != self.device:
+                raise ValueError(f"group() member {g} lives on "
+                                 f"{h.at_pad.device}, this engine on "
+                                 f"{self.device}")
+        total = WriteStats(
+            energy_j=sum(h.write_stats.energy_j for h in handles),
+            latency_s=sum(h.write_stats.latency_s for h in handles),
+            iterations=handles[0].write_stats.iterations,
+            final_delta=max(h.write_stats.final_delta for h in handles))
+        return AnalogMatrixGroup(
+            engine=self, size=len(handles), shape=handles[0].shape,
+            base_key=handles[0].base_key,
+            member_keys=[h.base_key for h in handles], write_stats=total,
+            at_pad=torch.stack([h.at_pad for h in handles]),
+            da_pad=torch.stack([h.da_pad for h in handles]))
+
     # --------------------------------------------------------------- execution
     def mvm(self, A: AnalogMatrix, x, *, key: Optional[int] = None,
             eta: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -333,6 +591,9 @@ class AnalogEngine:
                                          transpose=transpose)
 
     def _execute(self, A, x, key, eta, *, with_stats=False, transpose=False):
+        if isinstance(A, AnalogMatrixGroup):
+            raise TypeError("mvm takes an AnalogMatrix; execute a group with "
+                            "group_mvm / group_rmvm / chain_mvm")
         if isinstance(A, TransposedAnalogMatrix):
             # A view executes as the opposite direction of its parent, after
             # the same engine check as a direct call.
@@ -362,8 +623,7 @@ class AnalogEngine:
         A.calls += 1
         if self.backend == "cuda":
             p = _cuda_corrected(A.at_pad, A.da_pad, xb, key, self.cfg,
-                                n if transpose else m, transpose=transpose,
-                                eta=eta)
+                                (m, n), transpose=transpose, eta=eta)
         else:
             run = crossbar.programmed_block_rmvm if transpose \
                 else crossbar.programmed_block_mvm
@@ -371,3 +631,152 @@ class AnalogEngine:
         stats = self.input_write_stats(A, xb.shape[1], transpose=transpose) \
             if with_stats else None
         return (p[:, 0] if squeeze else p), stats
+
+    # --------------------------------------------------------- group execution
+    def group_mvm(self, G: AnalogMatrixGroup, x, *, key: Optional[int] = None,
+                  eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Corrected MVM of every member of ``G``.
+
+        ``x`` is ``(n,)`` / ``(n, batch)`` (the same input to every member)
+        or ``(size, n)`` / ``(size, n, batch)`` (one per member; a 2-D shape
+        that is both reads per member).  Returns ``(size, m)`` /
+        ``(size, m, batch)``.  ``key`` gives member ``g`` the call key
+        ``fold_in(key, g)``; by default member ``g``'s call ``c`` draws what
+        a solo handle with key ``member_keys[g]`` draws on its call ``c``.
+        ``eta`` replaces the DAC draws: ``(size, Np, batch)`` for
+        ``backend="cuda"``, ``(size, mb, nb, cap_n, batch)`` for
+        ``"reference"``.
+        """
+        y, _ = self._group_execute(G, x, key, eta)
+        return y
+
+    def group_mvm_with_stats(self, G: AnalogMatrixGroup, x, *,
+                             key: Optional[int] = None,
+                             eta: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, WriteStats]:
+        """Like :meth:`group_mvm` plus the whole group's input-write cost."""
+        return self._group_execute(G, x, key, eta, with_stats=True)
+
+    def group_rmvm(self, G: AnalogMatrixGroup, y, *, key: Optional[int] = None,
+                   eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Corrected ``A_g.T @ y_g`` of every member against the same
+        stacks (``y``: ``(m,)``, ``(m, batch)``, ``(size, m)`` or
+        ``(size, m, batch)``; ``eta`` ``(size, Mp, batch)`` on ``"cuda"``,
+        ``(size, mb, nb, cap_m, batch)`` on ``"reference"``)."""
+        z, _ = self._group_execute(G, y, key, eta, transpose=True)
+        return z
+
+    def group_rmvm_with_stats(self, G: AnalogMatrixGroup, y, *,
+                              key: Optional[int] = None,
+                              eta: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, WriteStats]:
+        """Like :meth:`group_rmvm` plus the group's input-write cost."""
+        return self._group_execute(G, y, key, eta, with_stats=True,
+                                   transpose=True)
+
+    def chain_mvm(self, G: AnalogMatrixGroup, x, *, key: Optional[int] = None,
+                  activation: Optional[str] = None,
+                  eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Chained forward: member 0's output feeds member 1's input and so
+        on, with ``activation`` (a :data:`CHAIN_ACTIVATIONS` name or None)
+        between members.  Members must be square; ``x`` is (n,) or
+        (n, batch).  Member ``g`` runs :func:`crossbar.programmed_block_mvm`
+        under its key (per-block DAC draws; ``eta[g]`` of shape
+        (mb, nb, cap_n, batch) replaces them), through the ``ec_matmul``
+        kernel per capacity block on ``backend="cuda"``: a host loop of
+        per-block launches, as the JAX scan body runs its tile step.
+        """
+        if isinstance(G, (AnalogMatrix, TransposedAnalogMatrix)):
+            raise TypeError("chain_mvm takes an AnalogMatrixGroup; wrap solo "
+                            "handles with engine.group([...])")
+        self._check_group(G)
+        if G.m != G.n:
+            raise ValueError(
+                f"chain_mvm threads each member's output into the next, so "
+                f"members must be square; the group is {G.m} x {G.n}")
+        if activation not in CHAIN_ACTIVATIONS:
+            names = sorted(k for k in CHAIN_ACTIVATIONS if k is not None)
+            raise ValueError(f"unknown chain activation {activation!r}; "
+                             f"expected None or one of {names}")
+        x = self._as_tensor(x)
+        squeeze = x.ndim == 1
+        y = x[:, None] if squeeze else x
+        if y.ndim != 2 or y.shape[0] != G.n:
+            raise ValueError(f"chain_mvm: input of shape {tuple(x.shape)} "
+                             f"does not fit members of {G.m} x {G.n}")
+        keys = self._group_keys(G, key)
+        G.calls += 1
+        use_kernel = self.backend == "cuda" and self.cfg.ec
+        act = CHAIN_ACTIVATIONS[activation]
+        for g in range(G.size):
+            y = act(crossbar.programmed_block_mvm(
+                G.at_pad[g], G.da_pad[g], y, keys[g], self.cfg, m=G.m, n=G.n,
+                use_kernel=use_kernel, eta=None if eta is None else eta[g]))
+        return y[:, 0] if squeeze else y
+
+    def _check_group(self, G) -> None:
+        if not isinstance(G, AnalogMatrixGroup):
+            raise TypeError("group execution takes an AnalogMatrixGroup; use "
+                            "engine.mvm for solo handles")
+        if G.engine is not self and G.engine.cfg != self.cfg:
+            raise ValueError("AnalogMatrixGroup was programmed by an "
+                             "incompatible engine configuration")
+        if G.at_pad.device != self.device:
+            raise ValueError(f"AnalogMatrixGroup lives on {G.at_pad.device} "
+                             f"but this engine executes on {self.device}")
+
+    def _group_keys(self, G: AnalogMatrixGroup, key: Optional[int]
+                    ) -> List[int]:
+        """Per-member call keys: an explicit ``key`` fans out as
+        ``fold_in(key, g)``; by default member ``g``'s key is folded by the
+        group's call counter as a solo handle's is by its own."""
+        if key is not None:
+            return [fold_in(key, g) for g in range(G.size)]
+        if G.calls == 0:
+            return list(G.member_keys)
+        return [fold_in(k, G.calls) for k in G.member_keys]
+
+    def _group_input(self, G: AnalogMatrixGroup, x: torch.Tensor,
+                     transpose: bool) -> Tuple[torch.Tensor, bool]:
+        """The input as (size, contraction, batch), and whether the caller's
+        form had no batch axis."""
+        contraction = G.m if transpose else G.n
+        direction = "G.T @ y" if transpose else "G @ x"
+        if x.ndim == 1:
+            if x.shape[0] != contraction:
+                raise ValueError(f"{direction}: input has {x.shape[0]} rows "
+                                 f"but members are {G.m} x {G.n}")
+            return x[None, :, None].expand(G.size, contraction, 1), True
+        if x.ndim == 2:
+            if tuple(x.shape) == (G.size, contraction):
+                return x[:, :, None], True
+            if x.shape[0] == contraction:
+                return x[None].expand((G.size,) + tuple(x.shape)), False
+            raise ValueError(
+                f"{direction}: 2-D input must be ({contraction}, batch) or "
+                f"(size={G.size}, {contraction}); got {tuple(x.shape)}")
+        if x.ndim == 3:
+            if x.shape[0] != G.size or x.shape[1] != contraction:
+                raise ValueError(
+                    f"{direction}: 3-D input must be (size={G.size}, "
+                    f"{contraction}, batch); got {tuple(x.shape)}")
+            return x, False
+        raise ValueError(f"{direction}: input must be 1-, 2- or 3-D")
+
+    def _group_execute(self, G, x, key, eta, *, with_stats=False,
+                       transpose=False):
+        self._check_group(G)
+        xb, squeeze = self._group_input(G, self._as_tensor(x), transpose)
+        keys = self._group_keys(G, key)
+        G.calls += 1
+        m, n = G.shape
+        if self.backend == "cuda":
+            p = _cuda_group_corrected(G.at_pad, G.da_pad, xb, keys, self.cfg,
+                                      (m, n), transpose=transpose, eta=eta)
+        else:
+            run = crossbar.grouped_block_rmvm if transpose \
+                else crossbar.grouped_block_mvm
+            p = run(G.at_pad, G.da_pad, xb, keys, self.cfg, m=m, n=n, eta=eta)
+        stats = G.input_write_stats(xb.shape[2], transpose=transpose) \
+            if with_stats else None
+        return (p[:, :, 0] if squeeze else p), stats

@@ -37,19 +37,28 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: C signature of every exported function (argtypes; restype is int, the
 #: cudaError_t of the call): the launchers and one size query.
 SIGNATURES = {
-    "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "repro_ec_rmatmul_workspace": [_I, _I, _I, ctypes.POINTER(_LL)],
-    "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I,
-                         _P],
+    "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
+                        _P],
+    "repro_ec_rmatmul_workspace": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
+    "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
+    "repro_encode_matmul_scales": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
+    "repro_encode_matmul": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _F,
+                            _I, ctypes.c_ulonglong, _I, _P],
     "repro_stencil_denoise": [_P, _P, _LL, _I, _F, _F, _P],
     "repro_thomas_solve": [_P, _P, _P, _P, _I, _I, _F, _P],
     "repro_cg_update": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     "repro_richardson_update": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
 }
 
-#: One count per kernel; ``ec_rmatmul``'s one launch is its slab pass plus,
-#: with several slabs, the pass that sums them.
+#: One count per kernel.  A count is one call of the C launcher, which may
+#: run more than one CUDA kernel: ``ec_rmatmul``'s slab pass plus, with
+#: several slabs, the pass that sums them; ``encode_matmul``'s scale pre-pass
+#: plus its product.  The grouped EC kernels are the solo ones with a member
+#: axis in the grid, counted under their own names.
 LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "ec_rmatmul": 0,
+                            "ec_group_matmul": 0, "ec_group_rmatmul": 0,
+                            "encode_matmul": 0, "encode_matmul_rng": 0,
                             "stencil_denoise": 0, "thomas_solve": 0,
                             "cg_update": 0, "richardson_update": 0}
 

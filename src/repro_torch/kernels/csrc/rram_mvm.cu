@@ -40,6 +40,17 @@
 // writes the output directly.  The caller sizes the workspace by
 // repro_ec_rmatmul_workspace; the launch layout is decided here alone.
 //
+// Groups (replaces src/repro/kernels/ops.py::rram_ec_group_mvm / _rmvm, which
+// run the same pallas_call once per member under lax.map): both kernels take
+// a member axis in the grid (blockIdx.y forward, blockIdx.z transposed), so a
+// whole stack of g same-shape images runs in ONE launch.  Member g's image
+// starts img_stride floats after member g-1's; its panel columns start
+// member_ld columns after member g-1's, in the same panels (forward: x, xt
+// and out; transposed: y, yt and out), so a (rows, g * batch) panel holds
+// member g's columns at g * batch.  The transposed launcher chooses its slab
+// count for the whole grid (g column tiles per image), not for one image.
+// A solo product is the group launch with G = 1.
+//
 // No tensor cores and no TF32 in either direction.
 #include <cuda_runtime.h>
 
@@ -63,8 +74,15 @@ template <int B>
 __global__ void __launch_bounds__(kThreads)
 ec_matmul_kernel(const float* __restrict__ at, const float* __restrict__ da,
                  const float* __restrict__ x, const float* __restrict__ xt,
-                 float* __restrict__ out, int M, int K, int lda, int ldx) {
+                 float* __restrict__ out, int M, int K, int lda, int ldx,
+                 long long img_stride, int member_ld) {
   __shared__ float xs[2][B][kChunk + kPad];
+  const size_t member = blockIdx.y;
+  at += member * img_stride;
+  da += member * img_stride;
+  x += member * member_ld;
+  xt += member * member_ld;
+  out += member * member_ld;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
@@ -141,15 +159,23 @@ ec_matmul_kernel(const float* __restrict__ at, const float* __restrict__ da,
   }
 }
 
-// Slab blockIdx.y of rows [y0, y0 + rows_per_split) against kRThreads
-// columns; writes dst[(blockIdx.y * K + col) * ldd + b].
+// Member blockIdx.z, slab blockIdx.y of rows [y0, y0 + rows_per_split)
+// against kRThreads columns; writes dst[member * dst_member +
+// (blockIdx.y * K + col) * ldd + b].
 template <int B>
 __global__ void __launch_bounds__(kRThreads)
 ec_rmatmul_kernel(const float* __restrict__ at, const float* __restrict__ da,
                   const float* __restrict__ y, const float* __restrict__ yt,
                   float* __restrict__ dst, int M, int K, int lda, int ldy,
-                  int rows_per_split, int ldd) {
+                  int rows_per_split, int ldd, long long img_stride,
+                  int member_ld, long long dst_member) {
   __shared__ float ys[2][kRRows][B];
+  const size_t member = blockIdx.z;
+  at += member * img_stride;
+  da += member * img_stride;
+  y += member * member_ld;
+  yt += member * member_ld;
+  dst += member * dst_member;
   const int col = blockIdx.x * kRThreads + threadIdx.x;
   const bool live = col < K;
   const int r_begin = blockIdx.y * rows_per_split;
@@ -200,17 +226,21 @@ ec_rmatmul_kernel(const float* __restrict__ at, const float* __restrict__ da,
   }
 }
 
-// out[k * ldz + b] = sum over s of ws[(s * K + k) * batch + b], s in order.
+// out[k * ldz + g * member_ld + b] = sum over s of
+// ws[((g * splits + s) * K + k) * batch + b], s in order.
 __global__ void __launch_bounds__(kThreads)
 split_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                 int K, int batch, int splits, int ldz) {
-  const long long total = (long long)K * batch;
+                 int G, int K, int batch, int splits, int ldz, int member_ld) {
+  const long long per = (long long)K * batch;
+  const long long total = per * G;
   for (long long idx = blockIdx.x * (long long)kThreads + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * kThreads) {
+    const long long g = idx / per, rem = idx % per;
+    const float* src = ws + g * splits * per + rem;
     float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += ws[sp * total + idx];
-    const long long k = idx / batch, b = idx % batch;
-    out[k * ldz + b] = s;
+    for (int sp = 0; sp < splits; ++sp) s += src[sp * per];
+    const long long k = rem / batch, b = rem % batch;
+    out[k * ldz + g * member_ld + b] = s;
   }
 }
 
@@ -223,10 +253,11 @@ cudaError_t device_sms(int* sms) {
 }
 
 // Row slabs of one transposed launch: enough blocks for kRBlocksPerSm on
-// each of `sms` SMs, each slab at least one staged step of rows.  (32,768^2
-// on 132 SMs: 128 column tiles x 9 slabs; 32,768 x 16,384: 17 slabs.)
-int rmatmul_splits(int M, int K, int sms) {
-  const int tiles = (K + kRThreads - 1) / kRThreads;
+// each of `sms` SMs over all G members' column tiles, each slab at least one
+// staged step of rows.  (32,768^2 on 132 SMs: 128 column tiles x 9 slabs;
+// 32,768 x 16,384: 17 slabs; 8 members of 16,384 x 4,096: 8 x 16 tiles x 9.)
+int rmatmul_splits(int G, int M, int K, int sms) {
+  const int tiles = (K + kRThreads - 1) / kRThreads * G;
   const int want = (sms * kRBlocksPerSm + tiles - 1) / tiles;
   const int most = (M + kRRows - 1) / kRRows;
   const int splits = want < most ? want : most;
@@ -235,87 +266,104 @@ int rmatmul_splits(int M, int K, int sms) {
 
 template <int B>
 void launch(const float* at, const float* da, const float* x, const float* xt,
-            float* out, int M, int K, int lda, int ldx, cudaStream_t stream) {
-  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
-  ec_matmul_kernel<B><<<grid, kThreads, 0, stream>>>(at, da, x, xt, out, M, K,
-                                                     lda, ldx);
+            float* out, int G, long long img_stride, int member_ld, int M,
+            int K, int lda, int ldx, cudaStream_t stream) {
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, G);
+  ec_matmul_kernel<B><<<grid, kThreads, 0, stream>>>(
+      at, da, x, xt, out, M, K, lda, ldx, img_stride, member_ld);
 }
 
 template <int B>
 void launch_t(const float* at, const float* da, const float* y,
-              const float* yt, float* dst, int M, int K, int lda, int ldy,
-              int splits, int rows_per_split, int ldd, cudaStream_t stream) {
-  const dim3 grid((K + kRThreads - 1) / kRThreads, splits);
+              const float* yt, float* dst, int G, long long img_stride,
+              int member_ld, long long dst_member, int M, int K, int lda,
+              int ldy, int splits, int rows_per_split, int ldd,
+              cudaStream_t stream) {
+  const dim3 grid((K + kRThreads - 1) / kRThreads, splits, G);
   ec_rmatmul_kernel<B><<<grid, kRThreads, 0, stream>>>(
-      at, da, y, yt, dst, M, K, lda, ldy, rows_per_split, ldd);
+      at, da, y, yt, dst, M, K, lda, ldy, rows_per_split, ldd, img_stride,
+      member_ld, dst_member);
 }
+
+bool bad_group(int G) { return G < 1 || G > 65535; }
 
 }  // namespace
 
 extern "C" {
 
-// Columns [0, batch) of the panels starting at x, xt and out; their row
-// stride is ldx >= batch, the images' row stride lda >= K.  batch must be
-// 1..8 (the wrapper splits wider panels).  Returns the cudaError_t of the
-// launch.
+// G members: member g's images start g * img_stride floats in, its panel
+// columns g * member_ld columns in.  Columns [0, batch) of each member's
+// panels starting at x, xt and out; their row stride is ldx, the images'
+// row stride lda >= K.  batch must be 1..8 (the wrapper splits wider
+// panels).  Returns the cudaError_t of the launch.
 int repro_ec_matmul(const float* at, const float* da, const float* x,
-                    const float* xt, float* out, int M, int K, int lda,
-                    int batch, int ldx, void* stream) {
+                    const float* xt, float* out, int G, long long img_stride,
+                    int member_ld, int M, int K, int lda, int batch, int ldx,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_group(G)) return static_cast<int>(cudaErrorInvalidValue);
   switch (batch) {
-    case 1: launch<1>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 2: launch<2>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 3: launch<3>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 4: launch<4>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 5: launch<5>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 6: launch<6>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 7: launch<7>(at, da, x, xt, out, M, K, lda, ldx, s); break;
-    case 8: launch<8>(at, da, x, xt, out, M, K, lda, ldx, s); break;
+#define REPRO_CASE(b)                                                   \
+  case b:                                                               \
+    launch<b>(at, da, x, xt, out, G, img_stride, member_ld, M, K, lda,  \
+              ldx, s);                                                  \
+    break;
+    REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
+    REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
+#undef REPRO_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of workspace repro_ec_rmatmul needs for these M, K and batch on
-// the current device, written to *floats (0: one slab, no workspace).
-// Returns a cudaError_t.
-int repro_ec_rmatmul_workspace(int M, int K, int batch, long long* floats) {
+// Floats of workspace repro_ec_rmatmul needs for G members of M x K at this
+// batch on the current device, written to *floats (0: one slab, no
+// workspace).  Returns a cudaError_t.
+int repro_ec_rmatmul_workspace(int G, int M, int K, int batch,
+                               long long* floats) {
   int sms = 0;
   const cudaError_t rc = device_sms(&sms);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int splits = rmatmul_splits(M, K, sms);
-  *floats = splits > 1 ? (long long)splits * K * batch : 0;
+  const int splits = rmatmul_splits(G, M, K, sms);
+  *floats = splits > 1 ? (long long)G * splits * K * batch : 0;
   return static_cast<int>(cudaSuccess);
 }
 
-// z = at^T y + da^T yt for (M, K) images of row stride lda and (M, batch)
-// panels y, yt of row stride ldy; z is written to columns [0, batch) of out,
-// row stride ldz.  ws holds ws_floats floats, at least what
-// repro_ec_rmatmul_workspace asks for (may be null when that is 0).  batch
-// must be 1..8.  Returns the cudaError_t of the launches.
+// z_g = at_g^T y_g + da_g^T yt_g for G members of (M, K) images of row
+// stride lda (member g at g * img_stride) and (M, batch) panels y, yt of row
+// stride ldy (member g's columns at g * member_ld); z_g is written to
+// columns [g * member_ld, g * member_ld + batch) of out, row stride ldz.  ws
+// holds ws_floats floats, at least what repro_ec_rmatmul_workspace asks for
+// (may be null when that is 0).  batch must be 1..8.  Returns the
+// cudaError_t of the launches.
 int repro_ec_rmatmul(const float* at, const float* da, const float* y,
                      const float* yt, float* out, float* ws,
-                     long long ws_floats, int M, int K, int lda, int batch,
-                     int ldy, int ldz, void* stream) {
+                     long long ws_floats, int G, long long img_stride,
+                     int member_ld, int M, int K, int lda, int batch, int ldy,
+                     int ldz, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch < 1 || batch > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch < 1 || batch > 8 || bad_group(G))
+    return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   cudaError_t rc = device_sms(&sms);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int splits = rmatmul_splits(M, K, sms);
+  const int splits = rmatmul_splits(G, M, K, sms);
   if (splits > 1 && (ws == nullptr ||
-                     ws_floats < (long long)splits * K * batch))
+                     ws_floats < (long long)G * splits * K * batch))
     return static_cast<int>(cudaErrorInvalidValue);
   // Whole staged slabs per split; slabs past M sum nothing and write zeros.
   const int per = (M + splits - 1) / splits;
   const int rows_per_split = (per + kRRows - 1) / kRRows * kRRows;
   float* dst = splits == 1 ? out : ws;
   const int ldd = splits == 1 ? ldz : batch;
+  const long long dst_member =
+      splits == 1 ? member_ld : (long long)splits * K * batch;
   switch (batch) {
 #define REPRO_CASE(b)                                                   \
   case b:                                                               \
-    launch_t<b>(at, da, y, yt, dst, M, K, lda, ldy, splits,            \
-                rows_per_split, ldd, s);                                \
+    launch_t<b>(at, da, y, yt, dst, G, img_stride, member_ld,          \
+                dst_member, M, K, lda, ldy, splits, rows_per_split,    \
+                ldd, s);                                                \
     break;
     REPRO_CASE(1) REPRO_CASE(2) REPRO_CASE(3) REPRO_CASE(4)
     REPRO_CASE(5) REPRO_CASE(6) REPRO_CASE(7) REPRO_CASE(8)
@@ -323,11 +371,11 @@ int repro_ec_rmatmul(const float* at, const float* da, const float* y,
   }
   rc = cudaGetLastError();
   if (rc != cudaSuccess || splits == 1) return static_cast<int>(rc);
-  const long long total = (long long)K * batch;
+  const long long total = (long long)G * K * batch;
   long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > (long long)sms * 16) blocks = (long long)sms * 16;
   split_sum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      ws, out, K, batch, splits, ldz);
+      ws, out, G, K, batch, splits, ldz, member_ld);
   return static_cast<int>(cudaGetLastError());
 }
 

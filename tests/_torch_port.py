@@ -73,3 +73,28 @@ def whole_dac_eta(key, np_, batch, transpose=False):
     fold = 2 if transpose else 1
     return np.array(jax.random.normal(jax.random.fold_in(key, fold),
                                       (np_, batch), dtype=np.float32))
+
+
+# Per-member draws of a group: member g of a JAX group executes (and is
+# programmed) under fold_in(key, g).
+
+def member_keys(key, size):
+    return [jax.random.fold_in(key, g) for g in range(size)]
+
+
+def group_program_eta(key, cfg, mb, nb, size):
+    """(size, mb, nb, cap_m, cap_n): each member's programming draws."""
+    return np.stack([program_eta(k, cfg, mb, nb)
+                     for k in member_keys(key, size)])
+
+
+def group_block_dac_eta(key, cfg, mb, nb, batch, size, transpose=False):
+    """(size, mb, nb, cap, batch): each member's per-block DAC draws."""
+    return np.stack([block_dac_eta(k, cfg, mb, nb, batch, transpose)
+                     for k in member_keys(key, size)])
+
+
+def group_whole_dac_eta(key, np_, batch, size, transpose=False):
+    """(size, Np, batch): each member's whole-vector DAC draw."""
+    return np.stack([whole_dac_eta(k, np_, batch, transpose)
+                     for k in member_keys(key, size)])

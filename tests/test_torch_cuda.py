@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each held to its plain version, and
-the ``cuda`` engine/solver path on the card held to the same path on the
-CPU (plain versions) with the same injected noise.
+the ``cuda`` engine/solver path on the card (solo and grouped) held to the
+same path on the CPU (plain versions) with the same injected noise.
 
 Every test here needs an NVIDIA GPU with ``nvcc`` and skips without one.
 This file imports neither ``jax`` nor ``repro``, so it runs on a machine
@@ -94,16 +94,18 @@ def test_rmatmul_splits_fill_the_card(cuda_device):
     """The transposed launcher cuts the rows into slabs so that a
     32,768-column image still gives each of an H100 SXM's 132 SMs several
     blocks (128 column tiles x 9 slabs), a short image takes one slab per
-    64 rows at most, and one slab needs no workspace."""
+    64 rows at most, and one slab needs no workspace; a group's slab count
+    is chosen for all its members' column tiles (8 x 16 tiles x 9 slabs)."""
     from repro_torch.kernels.rram_mvm import _rmatmul_workspace
     props = torch.cuda.get_device_properties(cuda_device)
     if props.multi_processor_count != 132:
         pytest.skip("the slab counts below are those of a 132-SM card")
     dev = torch.device("cuda", torch.cuda.current_device())
-    assert _rmatmul_workspace(32768, 32768, 1, dev) == 9 * 32768
-    assert _rmatmul_workspace(32768, 16384, 8, dev) == 17 * 16384 * 8
-    assert _rmatmul_workspace(100, 32768, 1, dev) == 2 * 32768
-    assert _rmatmul_workspace(5, 10, 1, dev) == 0
+    assert _rmatmul_workspace(1, 32768, 32768, 1, dev) == 9 * 32768
+    assert _rmatmul_workspace(1, 32768, 16384, 8, dev) == 17 * 16384 * 8
+    assert _rmatmul_workspace(1, 100, 32768, 1, dev) == 2 * 32768
+    assert _rmatmul_workspace(1, 5, 10, 1, dev) == 0
+    assert _rmatmul_workspace(8, 16384, 4096, 1, dev) == 8 * 9 * 4096
 
 
 def test_thomas_kernel_wide_panel(cuda_device):
@@ -247,3 +249,161 @@ def test_solves_on_card(cuda_device):
         assert res.converged
         assert rel(res.x.cpu(), x_true) <= 1e-3
         assert kernels.LAUNCHES[update] == res.iterations
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 11])
+def test_group_kernels_match_plain_and_solo(cuda_device, batch):
+    """The grouped EC kernels on 8 ragged members: against their plain
+    versions; one launch per 8 columns of every member (batch 11: two);
+    member g equal to the solo kernel on member g (forward bit for bit; the
+    transposed slab cut is chosen for the whole grid, so to rounding); a
+    group of one equal to the solo kernel bit for bit."""
+    dev = cuda_device
+    g = 8
+    for m, k in ((1000, 1500), (4100, 300)):
+        at, da = randn((g, m, k), 40, dev), randn((g, m, k), 41, dev)
+        x, xt = randn((k, g * batch), 42, dev), randn((k, g * batch), 43, dev)
+        y, yt = randn((m, g * batch), 44, dev), randn((m, g * batch), 45, dev)
+        kernels.reset_launches()
+        p = kernels.ec_group_matmul(at, da, x, xt)
+        q = kernels.ec_group_rmatmul(at, da, y, yt)
+        assert kernels.LAUNCHES["ec_group_matmul"] == -(-batch // 8)
+        assert kernels.LAUNCHES["ec_group_rmatmul"] == -(-batch // 8)
+        assert rel(p, kernels.ec_group_matmul_plain(at, da, x, xt)) <= 1e-5
+        assert rel(q, kernels.ec_group_rmatmul_plain(at, da, y, yt)) <= 1e-5
+        for i in range(g):
+            cols = slice(i * batch, (i + 1) * batch)
+            u, ut = x[:, cols].contiguous(), xt[:, cols].contiguous()
+            v, vt = y[:, cols].contiguous(), yt[:, cols].contiguous()
+            assert torch.equal(p[:, cols], kernels.ec_matmul(at[i], da[i],
+                                                             u, ut))
+            assert rel(q[:, cols], kernels.ec_rmatmul(at[i], da[i], v, vt)) \
+                <= 1e-6
+        one = slice(0, batch)
+        u, ut = x[:, one].contiguous(), xt[:, one].contiguous()
+        v, vt = y[:, one].contiguous(), yt[:, one].contiguous()
+        assert torch.equal(kernels.ec_group_matmul(at[:1], da[:1], u, ut),
+                           kernels.ec_matmul(at[0], da[0], u, ut))
+        assert torch.equal(kernels.ec_group_rmatmul(at[:1], da[:1], v, vt),
+                           kernels.ec_rmatmul(at[0], da[0], v, vt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m,k,n,bk,bn", [(16, 40, 24, 8, 8),
+                                         (20, 45, 50, 12, 20),
+                                         (70, 100, 130, 24, 40),
+                                         (130, 1100, 700, 512, 512)])
+def test_encode_kernels_match_plain_versions(cuda_device, m, k, n, bk, bn):
+    """``encode_matmul`` against its plain version on padded operands
+    (ragged shapes, fewer rows of x than the kernel's 256-row
+    output tile, tiles of 12 rows that straddle its 8-row K steps) and
+    through ``rram_encode_matmul``; ``encode_matmul_rng`` against its plain
+    version (the same Philox draws in torch integer ops) at sigma > 0,
+    equal bit for bit to ``encode_matmul`` with zero eps at sigma = 0, and
+    bit for bit from run to run."""
+    from repro_torch.kernels import encode
+    dev = cuda_device
+    x, w, eps = randn((m, k), 50, dev), randn((k, n), 51, dev), \
+        randn((k, n), 52, dev)
+    kw = dict(sigma=0.17, levels=8, block_k=bk, block_n=bn)
+    kernels.reset_launches()
+    got = kernels.encode_matmul(x, w, eps, **kw)
+    assert kernels.LAUNCHES["encode_matmul"] == 1
+    xp, wp, ep = encode._pad_to(x, (1, bk)), encode._pad_to(w, (bk, bn)), \
+        encode._pad_to(eps, (bk, bn))
+    want = kernels.encode_matmul_plain(xp, wp, ep, 0.17, 8, bk, bn)[:m, :n]
+    assert rel(got, want) <= 1e-5
+    assert rel(kernels.rram_encode_matmul(x, w, eps, sigma=0.17, levels=8),
+               kernels.rram_encode_matmul(x.cpu(), w.cpu(), eps.cpu(),
+                                          sigma=0.17, levels=8).to(dev)) \
+        <= 1e-5
+    r = kernels.encode_matmul_rng(9, x, w, **kw)
+    assert kernels.LAUNCHES["encode_matmul_rng"] == 1
+    assert rel(r, kernels.encode_matmul_rng_plain(9, x, w, **kw)) <= 1e-5
+    assert torch.equal(r, kernels.encode_matmul_rng(9, x, w, **kw))
+    zero = dict(kw, sigma=0.0)
+    assert torch.equal(kernels.encode_matmul_rng(9, x, w, **zero),
+                       kernels.encode_matmul(x, w, torch.zeros_like(w),
+                                             **zero))
+    torch.cuda.synchronize()
+
+
+def test_encode_rng_kernel_noise_moments(cuda_device):
+    """The in-kernel draws read back through the product: W of ones is
+    quantized to ones, so ``eye @ encode(W) = 1 + sigma * eta``; 2^20
+    draws have mean 0 and variance 1 (within 0.01 and 2 %)."""
+    dev = cuda_device
+    k, n, sigma = 512, 2048, 0.5
+    eye, w = torch.eye(k, device=dev), torch.ones(k, n, device=dev)
+    eta = (kernels.encode_matmul_rng(21, eye, w, sigma=sigma, levels=8) - 1.0) \
+        / sigma
+    assert abs(float(eta.mean())) <= 0.01
+    assert abs(float(eta.var()) - 1.0) <= 0.02
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+def test_group_engine_on_card_is_one_launch_and_matches_cpu(cuda_device,
+                                                            method):
+    """A group of 8 on the card: each ``group_mvm`` / ``group_rmvm`` at
+    batch <= 8 is exactly one grouped EC launch and one tier-2 launch, and
+    equals the same backend on the CPU with the same injected draws; each
+    member equals its solo ``member(g)`` execute under the same key."""
+    from repro_torch.core.prng import fold_in
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 64, 64),
+                         denoise_method=method, lam=1e-2)
+    a = randn((8, 300, 260), 60, "cpu")
+    cpu = AnalogEngine(cfg, backend="cuda", device="cpu")
+    G = cpu.program_group(a, 3)
+    gpu = AnalogEngine(cfg, backend="cuda", device=cuda_device)
+    H = gpu.group([AnalogMatrix(engine=gpu, shape=G.shape, base_key=k,
+                                write_stats=G.member(i).write_stats,
+                                at_pad=G.at_pad[i].to(cuda_device),
+                                da_pad=G.da_pad[i].to(cuda_device))
+                   for i, k in enumerate(G.member_keys)])
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    for transpose, rows, cols in ((False, 260, 300), (True, 300, 260)):
+        for batch in (1, 8):
+            u = randn((8, rows, batch), 61, "cpu")
+            pad = G.at_pad.shape[1 if transpose else 2]
+            eta = randn((8, pad, batch), 62, "cpu")
+            run_gpu = gpu.group_rmvm if transpose else gpu.group_mvm
+            run_cpu = cpu.group_rmvm if transpose else cpu.group_mvm
+            kernels.reset_launches()
+            got = run_gpu(H, u.to(cuda_device), eta=eta.to(cuda_device))
+            name = "ec_group_rmatmul" if transpose else "ec_group_matmul"
+            assert kernels.LAUNCHES[name] == 1
+            assert kernels.LAUNCHES[tier2] == 1
+            assert sum(kernels.LAUNCHES.values()) == 2
+            assert got.shape == (8, cols, batch)
+            assert rel(got.cpu(), run_cpu(G, u, eta=eta)) <= 1e-5
+            keyed = run_gpu(H, u.to(cuda_device), key=5)
+            solo = gpu.rmvm if transpose else gpu.mvm
+            for i in range(8):
+                assert rel(keyed[i], solo(H.member(i), u[i].to(cuda_device),
+                                          key=fold_in(5, i))) <= 1e-6
+
+
+def test_chain_on_card_is_a_loop_of_block_launches(cuda_device):
+    """``chain_mvm`` on the card: one ``ec_matmul`` launch per capacity
+    block per member, and the same result as the CPU path under the same
+    draws."""
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 64, 64))
+    a = randn((4, 200, 200), 63, "cpu") / 200 ** 0.5
+    cpu = AnalogEngine(cfg, backend="cuda", device="cpu")
+    G = cpu.program_group(a, 4)
+    gpu = AnalogEngine(cfg, backend="cuda", device=cuda_device)
+    H = gpu.group([AnalogMatrix(engine=gpu, shape=G.shape, base_key=k,
+                                write_stats=G.member(i).write_stats,
+                                at_pad=G.at_pad[i].to(cuda_device),
+                                da_pad=G.da_pad[i].to(cuda_device))
+                   for i, k in enumerate(G.member_keys)])
+    h = randn((200, 2), 64, "cpu")
+    eta = randn((4, 2, 2, 128, 2), 65, "cpu")
+    kernels.reset_launches()
+    got = gpu.chain_mvm(H, h.to(cuda_device), activation="relu",
+                        eta=eta.to(cuda_device))
+    assert kernels.LAUNCHES["ec_matmul"] == 4 * 2 * 2
+    assert rel(got.cpu(), cpu.chain_mvm(G, h, activation="relu",
+                                        eta=eta)) <= 1e-5

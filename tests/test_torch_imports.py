@@ -36,6 +36,15 @@ def test_port_file_list_covers_the_transposed_slice():
         assert rel in names, rel
 
 
+def test_port_file_list_covers_the_group_slice():
+    """The import scan reaches the grouped-execution and encode modules."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/kernels/encode.py",
+                "src/repro_torch/core/crossbar.py",
+                "src/repro_torch/interop.py"):
+        assert rel in names, rel
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):
@@ -61,6 +70,11 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.kernels import ec_rmatmul, thomas_solve\n"
         "from repro_torch.engine import TransposedAnalogMatrix\n"
         "from repro_torch.core import programmed_block_rmvm\n"
+        "from repro_torch.kernels import (ec_group_matmul, ec_group_rmatmul,\n"
+        "    encode_matmul, encode_matmul_rng, rram_encode_matmul)\n"
+        "from repro_torch.engine import AnalogMatrixGroup, CHAIN_ACTIVATIONS\n"
+        "from repro_torch.core import group_program_blocks, grouped_block_mvm\n"
+        "from repro_torch.interop import group_from_numpy\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,

@@ -1,6 +1,7 @@
 """The port's kernels: plain versions held to the JAX kernel wrappers
 (interpret mode on the CPU, as tests/test_kernels.py runs them) and the
-wrappers' argument checks.  The CUDA kernels themselves are held to their
+wrappers' argument checks; the grouped EC products, the single-pass encode
+(``rram_encode_matmul``, ``encode_matmul_rng``) and its Philox draws.  The CUDA kernels themselves are held to their
 plain versions on the card by tests/test_torch_cuda.py."""
 import re
 
@@ -11,8 +12,11 @@ import torch
 
 from _torch_port import few_threads, rel, rng_array  # noqa: F401
 from repro.kernels import (denoise_stencil, denoise_thomas, rram_ec_matmul,
-                           rram_ec_tile_rmvm, solver_cg_update,
-                           solver_richardson_update)
+                           rram_ec_tile_rmvm, rram_encode_matmul,
+                           solver_cg_update, solver_richardson_update)
+from repro.kernels import ref as kref
+from repro.kernels.ops import rram_ec_group_mvm, rram_ec_group_rmvm
+from repro.kernels.rram_mvm import encode_matmul_rng as jax_encode_matmul_rng
 from repro_torch import kernels
 from repro_torch.kernels import build
 
@@ -181,6 +185,212 @@ def test_sources_export_every_bound_symbol():
         assert re.search(rf"\b{symbol}\s*\(", text), symbol
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert set(build.LAUNCHES) == {"ec_matmul", "ec_rmatmul",
+                                   "ec_group_matmul", "ec_group_rmatmul",
+                                   "encode_matmul", "encode_matmul_rng",
                                    "stencil_denoise", "thomas_solve",
                                    "cg_update", "richardson_update"}
 
+
+
+# ----------------------------------------------------------- grouped products
+def _panel(u):
+    """(g, rows, batch) -> the (rows, g * batch) group panel."""
+    g, rows, batch = u.shape
+    return torch.from_numpy(np.ascontiguousarray(
+        u.transpose(1, 0, 2).reshape(rows, g * batch)))
+
+
+def _unpanel(p, g):
+    rows = p.shape[0]
+    return p.numpy().reshape(rows, g, -1).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("g,m,k,batch", [(4, 64, 64, 1), (3, 70, 100, 3),
+                                         (8, 96, 40, 8), (2, 33, 50, 11)])
+def test_ec_group_matmul_matches_reference(g, m, k, batch):
+    """The grouped forward product against ``ops.rram_ec_group_mvm``
+    (interpret mode, one member at a time under ``lax.map``), per member:
+    rel-L2 <= 1e-5 (fp32 sums in another order)."""
+    at, da = rng_array((g, m, k), 40), rng_array((g, m, k), 41, 0.05)
+    x = rng_array((g, k, batch), 42)
+    xt = x * (1 + 0.05 * rng_array((g, k, batch), 43))
+    want = np.asarray(rram_ec_group_mvm(*(jnp.asarray(v)
+                                          for v in (x, xt, at, da))))
+    got = kernels.ec_group_matmul(torch.from_numpy(at), torch.from_numpy(da),
+                                  _panel(x), _panel(xt))
+    assert got.shape == (m, g * batch)
+    got = _unpanel(got, g)
+    for i in range(g):
+        assert rel(got[i], want[i]) <= TOL
+
+
+@pytest.mark.parametrize("g,m,k,batch", [(4, 64, 64, 1), (3, 70, 100, 3),
+                                         (8, 96, 40, 8), (2, 33, 50, 11)])
+def test_ec_group_rmatmul_matches_reference(g, m, k, batch):
+    """The grouped transposed product against ``ops.rram_ec_group_rmvm``."""
+    at, da = rng_array((g, m, k), 44), rng_array((g, m, k), 45, 0.05)
+    y = rng_array((g, m, batch), 46)
+    yt = y * (1 + 0.05 * rng_array((g, m, batch), 47))
+    want = np.asarray(rram_ec_group_rmvm(*(jnp.asarray(v)
+                                           for v in (y, yt, at, da))))
+    got = kernels.ec_group_rmatmul(torch.from_numpy(at), torch.from_numpy(da),
+                                   _panel(y), _panel(yt))
+    assert got.shape == (k, g * batch)
+    got = _unpanel(got, g)
+    for i in range(g):
+        assert rel(got[i], want[i]) <= TOL
+
+
+def test_group_kernels_equal_solo_per_member_and_check_arguments():
+    """Member g of a grouped product is the solo product on member g's
+    image and columns, exactly (the same plain products here); the
+    wrappers refuse panels that do not split into the members and image
+    stacks that differ, and count no launch on the CPU."""
+    kernels.reset_launches()
+    g, m, k, b = 3, 20, 30, 2
+    at = torch.from_numpy(rng_array((g, m, k), 48))
+    da = torch.from_numpy(rng_array((g, m, k), 49))
+    x, y = torch.from_numpy(rng_array((k, g * b), 50)), \
+        torch.from_numpy(rng_array((m, g * b), 51))
+    p, q = kernels.ec_group_matmul(at, da, x, x), \
+        kernels.ec_group_rmatmul(at, da, y, y)
+    for i in range(g):
+        cols = slice(i * b, (i + 1) * b)
+        xi, yi = x[:, cols].contiguous(), y[:, cols].contiguous()
+        assert torch.equal(p[:, cols], kernels.ec_matmul(at[i], da[i], xi, xi))
+        assert torch.equal(q[:, cols],
+                           kernels.ec_rmatmul(at[i], da[i], yi, yi))
+    with pytest.raises(ValueError, match="split"):
+        kernels.ec_group_matmul(at, da, x[:, :5].contiguous(),
+                                x[:, :5].contiguous())
+    with pytest.raises(ValueError):
+        kernels.ec_group_matmul(at, da[:2], x, x)
+    with pytest.raises(ValueError):
+        kernels.ec_group_matmul(at[0], da[0], x, x)
+    with pytest.raises(ValueError):
+        kernels.ec_group_rmatmul(at, da, x, x)           # needs (M, g*b)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+# ---------------------------------------------------------- single-pass encode
+ENCODE_SHAPES = [(8, 8, 8, 8, 8, 8), (16, 32, 24, 8, 8, 8),
+                 (32, 16, 16, 16, 16, 16), (8, 48, 16, 8, 16, 8),
+                 (24, 24, 40, 8, 8, 8),
+                 (20, 37, 29, 16, 16, 16)]   # padded: no dimension a multiple
+
+
+@pytest.mark.parametrize("m,k,n,bm,bk,bn", ENCODE_SHAPES)
+def test_rram_encode_matmul_matches_reference(m, k, n, bm, bk, bn):
+    """``rram_encode_matmul`` (the plain version here) against the JAX
+    entry point (interpret mode) on tests/test_kernels.py's shapes and one
+    padded shape: rel-L2 <= 1e-5."""
+    x, w, eps = rng_array((m, k), 60), rng_array((k, n), 61), \
+        rng_array((k, n), 62)
+    want = np.asarray(rram_encode_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(eps), sigma=0.13,
+        levels=8, block_m=bm, block_k=bk, block_n=bn))
+    got = kernels.rram_encode_matmul(
+        *(torch.from_numpy(v) for v in (x, w, eps)), sigma=0.13, levels=8,
+        block_m=bm, block_k=bk, block_n=bn)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert rel(got, want) <= TOL
+
+
+@pytest.mark.parametrize("levels", [4, 8, 64])
+def test_rram_encode_matmul_default_tiles_shrink(levels):
+    """With the default 512 tiles a small problem quantizes with tiles of
+    ``min(512, max(8, dim))`` (``_pick_blocks``), as the JAX wrapper: here
+    one tile over a 40 x 24 weight."""
+    x, w, eps = rng_array((12, 40), 63), rng_array((40, 24), 64), \
+        rng_array((40, 24), 65)
+    want = np.asarray(rram_encode_matmul(jnp.asarray(x), jnp.asarray(w),
+                                         jnp.asarray(eps), sigma=0.05,
+                                         levels=levels))
+    got = kernels.rram_encode_matmul(*(torch.from_numpy(v)
+                                       for v in (x, w, eps)),
+                                     sigma=0.05, levels=levels)
+    assert rel(got, want) <= TOL
+    assert kernels.encode._pick_blocks(12, 40, 24, 256, 512, 512) == \
+        (12, 40, 24)
+    assert kernels.encode._pick_blocks(3, 700, 5, 256, 512, 512) == \
+        (8, 512, 8)
+
+
+@pytest.mark.parametrize("levels,tile", [(8, (8, 8)), (4, (16, 8)),
+                                         (64, (32, 16))])
+def test_quantize_tile_plain_equals_reference_exactly(levels, tile):
+    w = rng_array((64, 48), 66)
+    w[:16, :8] = 0.0                    # an all-zero tile: scale 0 -> 1
+    want = np.asarray(kref.quantize_tile_ref(jnp.asarray(w), levels, *tile))
+    got = kernels.quantize_tile_plain(torch.from_numpy(w), levels, *tile)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_encode_matmul_rng_at_sigma_zero_matches_reference():
+    """At sigma = 0 the in-kernel noise vanishes: the port's
+    ``encode_matmul_rng`` equals the JAX kernel in interpret mode (whose
+    CPU interpreter has no TPU random bits) and the port's
+    ``encode_matmul`` with zero eps."""
+    x, w = rng_array((16, 64), 67), rng_array((64, 32), 68)
+    want = np.asarray(jax_encode_matmul_rng(
+        jnp.array([7], jnp.int32), jnp.asarray(x), jnp.asarray(w), sigma=0.0,
+        levels=8, block_m=16, block_k=32, block_n=32, interpret=True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = kernels.encode_matmul_rng(7, xt, wt, sigma=0.0, levels=8,
+                                    block_k=32, block_n=32)
+    assert rel(got, want) <= TOL
+    assert torch.equal(got, kernels.encode_matmul(
+        xt, wt, torch.zeros_like(wt), sigma=0.0, levels=8, block_k=32,
+        block_n=32))
+
+
+def test_encode_matmul_rng_is_seeded_and_deterministic():
+    """The same seed gives the same result bit for bit, another seed
+    another one; the draws are keyed by the weight tile, so every row of
+    x sees one realisation (row r of the product equals x[r] @ W_tilde)."""
+    x, w = torch.from_numpy(rng_array((40, 50), 69)), \
+        torch.from_numpy(rng_array((50, 30), 70))
+    kw = dict(sigma=0.2, levels=8, block_k=16, block_n=16)
+    a, b = kernels.encode_matmul_rng(3, x, w, **kw), \
+        kernels.encode_matmul_rng(3, x, w, **kw)
+    assert torch.equal(a, b)
+    assert rel(kernels.encode_matmul_rng(4, x, w, **kw), a) > 1e-3
+    one = kernels.encode_matmul_rng(3, x[7:8].contiguous(), w, **kw)
+    assert rel(one, a[7:8]) <= 1e-6
+    eps = kernels.philox_normal_plain(3, 64, 32, 16, 16)[:50, :30]
+    assert rel(a, kernels.encode_matmul(x, w, eps.contiguous(), sigma=0.2,
+                                        levels=8, block_k=16,
+                                        block_n=16)) <= 1e-6
+
+
+def test_philox_normal_plain_moments_and_known_answers():
+    """2^20 draws: mean within 0.01 of 0 and variance within 2 % of 1; the
+    generator is Philox4x32-10 (Random123's known answers for a zero and
+    an all-ones counter and key)."""
+    eta = kernels.philox_normal_plain(11, 1024, 1024, 512, 256)
+    assert eta.shape == (1024, 1024) and bool(torch.isfinite(eta).all())
+    assert abs(float(eta.mean())) <= 0.01
+    assert abs(float(eta.var()) - 1.0) <= 0.02
+    enc = kernels.encode
+    for ctr, seed, want in (((0, 0, 0, 0), 0, (0x6627E8D5, 0xE169C58D)),
+                            ((0xFFFFFFFF,) * 4, (1 << 64) - 1,
+                             (0x408F276D, 0x41C83B0E))):
+        words = enc._philox(*(torch.tensor([c]) for c in ctr), seed)
+        assert tuple(int(v) for v in words) == want
+
+
+def test_encode_wrappers_check_arguments():
+    kernels.reset_launches()
+    x, w = torch.ones(4, 6), torch.ones(6, 5)
+    with pytest.raises(ValueError):
+        kernels.encode_matmul(x, torch.ones(7, 5), torch.ones(7, 5),
+                              sigma=0.1, levels=8)
+    with pytest.raises(ValueError):
+        kernels.encode_matmul(x, w, torch.ones(6, 4), sigma=0.1, levels=8)
+    with pytest.raises(TypeError):
+        kernels.encode_matmul_rng(0, x.double(), w, sigma=0.1, levels=8)
+    with pytest.raises(ValueError):
+        kernels.quantize_tile_plain(torch.ones(6, 5), 8, 4, 4)
+    kernels.encode_matmul(x, w, w, sigma=0.1, levels=8)
+    kernels.encode_matmul_rng(0, x, w, sigma=0.1, levels=8)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
