@@ -7,7 +7,8 @@ Needs one CUDA device and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); exits
 non-zero, printing no result, without them or without the repository's
 ``src/repro_torch`` beside it.  Phases, each of which raises on failure:
 
-  1. build the ten CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  1. build the ten CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+     print what ``ptxas -v`` reports for each compiled kernel;
   2. program a 32,768 x 32,768 matrix (taox-hfox, EC on, default 8 x 8 MCAs
      of 512 x 512) and hold each kernel to its plain PyTorch version at the
      main path's shapes, timing kernel, plain version and library call;
@@ -39,7 +40,11 @@ non-zero, printing no result, without them or without the repository's
      rram_encode_matmul and encode_matmul_rng (taox-hfox levels and
      effective sigma): each held to its plain version, the rng kernel at
      sigma = 0 equal to encode_matmul with zero eps, bit for bit run to
-     run, and its draws' moments read back through the product.
+     run, and its draws' moments read back through the product; for both
+     product kernels the ptxas report (registers, stack frame, spills), the
+     SM clock and power sampled while they run, the rate reached and each
+     CUDA kernel's share of a call, and for the rng kernel a second bound
+     that counts its generator.
 
 Launch counts are zeroed just before each solve of phases 4 and 5, and
 before phases 3, 3t, 6, 6c and 7's main calls, and read just after: every
@@ -52,8 +57,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -80,6 +87,13 @@ ENCODE_SEED = 2024
 THOMAS_CYCLES_PER_ROW = 12
 SM_CLOCK_HZ = 1.98e9
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than queueing a run
+# Instructions a draw of encode_matmul_rng's generator issues at the least,
+# counted from the source (philox_normal in csrc/encode_matmul.cu):
+# Philox4x32-10, 10 rounds of 2 wide multiplies and 2 three-way XORs (40; the
+# key schedule is shared by a thread's draws); the two 24-bit uniforms and
+# the clamp (7); logf's branch-free fast path as CUDA 12.9 compiles it (28);
+# sqrt_fast (5); cos_small (20).
+GEN_INSTRUCTIONS_PER_DRAW = 100
 
 
 class SmokeFailure(RuntimeError):
@@ -125,6 +139,77 @@ def call_time_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def clock_under_load(fn, seconds: float = 1.5):
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 50 ms while ``fn`` runs back to back for about ``seconds``, and the
+    number of samples (``(None, None, 0)`` if none came while it ran)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples = []
+    reader = threading.Thread(target=lambda: samples.extend(
+        (time.perf_counter(), line) for line in proc.stdout), daemon=True)
+    reader.start()
+    try:
+        wait = time.perf_counter()
+        while not samples and time.perf_counter() - wait < 10:
+            time.sleep(0.01)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(8):
+                fn()
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+        reader.join(timeout=10)
+    under = []
+    for t, line in samples:
+        parts = [p.strip() for p in line.split(",")]
+        if t0 + 0.1 <= t <= t1 and len(parts) == 2:
+            try:
+                under.append((float(parts[0]), float(parts[1])))
+            except ValueError:
+                continue
+    if not under:
+        return None, None, 0
+    return (statistics.median(u[0] for u in under),
+            statistics.median(u[1] for u in under), len(under))
+
+
+def kernel_split(fn, iters: int = 5):
+    """Mean device ms per call of each CUDA kernel (and memset) ``fn``
+    launches, from ``torch.profiler``; empty if the trace has no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = getattr(evt, "cuda_time_total", 0)
+        if total:
+            split[evt.key] = total / 1e3 / iters
+    return split
+
+
+def short_kernel_name(key: str) -> str:
+    """``void (anonymous namespace)::encode_matmul_kernel<false>(float ...)``
+    -> ``encode_matmul_kernel<false>``: a profiler key without namespace,
+    return type and parameters."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return (key.split("(")[0] or key).strip()
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -197,9 +282,12 @@ def main() -> int:
     build.library()
     print(f"[1] build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{build.build_seconds:.1f} s)", flush=True)
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("    " + line.strip())
+    ptxas = build.ptxas_report()
+    for name, rep in ptxas.items():
+        print(f"    {rep['source']:18s} {name:34s} {rep['registers']:3d} "
+              f"registers, {rep['stack']} B stack frame, "
+              f"{rep['spill_stores']} / {rep['spill_loads']} B spill stores "
+              f"/ loads, {rep['smem']} B static shared memory")
 
     # -------------------------------------------- 2. program, kernels vs plain
     cfg = CrossbarConfig(device=get_device("taox-hfox"))
@@ -811,8 +899,39 @@ def main() -> int:
         nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n, iters=5,
         plain_iters=1, plain_warmup=1,
         library_fn=lambda: torch.matmul(x, w_rng))
-    for name in ("encode_matmul", "encode_matmul_rng"):
-        rows[1][name]["shape"] = f"{m}x{k}x{n}"
+    # What holds the product back: registers and spills (ptxas), the SM clock
+    # and power while it runs (the fp32 bound assumes the 1.98 GHz boost
+    # clock), the rate reached and the share of each CUDA kernel in a call.
+    # encode_matmul_rng's second bound counts the generator's instructions
+    # on the FMAs' issue slots.
+    flops = 2.0 * m * k * n
+    timed = {"encode_matmul": lambda: kernels.encode_matmul(x, wt, eps, **kw,
+                                                            **tiles),
+             "encode_matmul_rng": lambda: kernels.encode_matmul_rng(
+                 ENCODE_SEED, x, wt, **kw, **tiles)}
+    for name, fn in timed.items():
+        row = rows[1][name]
+        row["shape"] = f"{m}x{k}x{n}"
+        instance = "true" if name.endswith("rng") else "false"
+        row["ptxas"] = ptxas.get(f"encode_matmul_kernel<{instance}>")
+        mhz, watts, samples = clock_under_load(fn)
+        row.update(sm_mhz=mhz, watts=watts, tflops=flops / row["ms"] / 1e9,
+                   split_ms=kernel_split(fn))
+        print(f"    {name}: {row['tflops']:.2f} TFLOP/s "
+              f"({row['tflops'] / (FP32_FLOPS_PER_S / 1e12):.1%} of fp32 "
+              f"peak) at SM {mhz} MHz, {watts} W ({samples} nvidia-smi "
+              f"samples); ptxas {row['ptxas']}; per call "
+              + ", ".join(f"{short_kernel_name(key)} {ms:.4f} ms"
+                          for key, ms in row["split_ms"].items()), flush=True)
+    gen_ms = (k * n * GEN_INSTRUCTIONS_PER_DRAW
+              / (FP32_FLOPS_PER_S / 2) * 1e3)
+    rows[1]["encode_matmul_rng"].update(
+        bound_gen_ms=rows[1]["encode_matmul_rng"]["bound_ms"] + gen_ms,
+        bound_gen_by=f"operations + generator ({GEN_INSTRUCTIONS_PER_DRAW} "
+                     f"instructions a draw, counted from the source)")
+    print(f"    encode_matmul_rng bound with the generator: "
+          f"{rows[1]['encode_matmul_rng']['bound_gen_ms']:.4f} ms "
+          f"({gen_ms:.4f} ms of it for {k * n} draws)", flush=True)
     zero = dict(kw, sigma=0.0)
     same_zero = torch.equal(
         kernels.encode_matmul_rng(ENCODE_SEED, x, wt, **zero),
@@ -874,7 +993,9 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "rel_l2": row["rel_l2"],
             **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms", "shape",
-                                   "group_call_ms")
+                                   "group_call_ms", "ptxas", "sm_mhz",
+                                   "watts", "tflops", "split_ms",
+                                   "bound_gen_ms", "bound_gen_by")
                if k in row},
             "ms": row["ms"],
             "call_ms": row["call_ms"], "plain_ms": row["plain_ms"],

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "library", "build", "launch",
-           "query"]
+           "query", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -35,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C signature of every exported function (argtypes; restype is int, the
-#: cudaError_t of the call): the launchers and one size query.
+#: cudaError_t of the call): the launchers and their size queries.
 SIGNATURES = {
     "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
                         _P],
@@ -43,8 +44,9 @@ SIGNATURES = {
     "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I,
                          _I, _I, _I, _I, _P],
     "repro_encode_matmul_scales": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
-    "repro_encode_matmul": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _F,
-                            _I, ctypes.c_ulonglong, _I, _P],
+    "repro_encode_matmul_workspace": [_I, _I, ctypes.POINTER(_LL)],
+    "repro_encode_matmul": [_P, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _I, _I,
+                            _I, _F, _I, ctypes.c_ulonglong, _I, _P],
     "repro_stencil_denoise": [_P, _P, _LL, _I, _F, _F, _P],
     "repro_thomas_solve": [_P, _P, _P, _P, _I, _I, _F, _P],
     "repro_cg_update": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
@@ -63,7 +65,8 @@ LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "ec_rmatmul": 0,
                             "cg_update": 0, "richardson_update": 0}
 
 _lib: Optional[ctypes.CDLL] = None
-#: ``ptxas -v`` report and wall seconds of the build this process loaded.
+#: ``ptxas -v`` report of the library this process loaded (kept beside it,
+#: ``.log``, for a later process) and wall seconds of a build it ran.
 build_log = ""
 build_seconds = 0.0
 
@@ -123,6 +126,7 @@ def build() -> Path:
                 failed.append(src.name)
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        log = "\n".join(logs)
         tmp_lib = Path(tmp) / target.name
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
@@ -130,20 +134,23 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"linking {target.name} failed:\n{link.stdout}")
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp_lib, target)
     build_seconds = time.perf_counter() - t0
-    build_log = "\n".join(logs)
+    build_log = log
     return target
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source tree's build is
     not there yet."""
-    global _lib
+    global _lib, build_log
     if _lib is None:
         path = BUILD_DIR / f"librepro_torch_{_digest()}.so"
         if not path.exists():
             path = build()
+        elif path.with_suffix(".log").exists():
+            build_log = path.with_suffix(".log").read_text()
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -177,3 +184,64 @@ def query(symbol: str, device, *args) -> None:
     """Call the C function ``symbol`` with ``device`` current; it launches
     nothing and counts nothing.  Raises if it returns a CUDA error."""
     _call(symbol, symbol, device, *args)
+
+
+def _kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol: the identifier without
+    its namespaces, and its literal template arguments
+    (``_ZN49_GLOBAL__N__9ff8f882_16_encode_matmul_cu_b9ee5ddf20encode_matmul_
+    kernelILb1EEEv...`` -> ``encode_matmul_kernel<true>``)."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    rest, name = mangled[2:], mangled
+    nested = rest.startswith("N")
+    rest = rest[nested:]
+    while (m := re.match(r"\d+", rest)):
+        end = m.end() + int(m.group())
+        name, rest = rest[m.end():end], rest[end:]
+        if not nested:
+            break
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+    if args is None:
+        return name
+    vals = [{"b0": "false", "b1": "true"}.get(t + v, v) for t, v in
+            re.findall(r"L([a-z])(\d+)E", args.group(1))]
+    return f"{name}<{', '.join(vals)}>"
+
+
+def ptxas_report(log: Optional[str] = None) -> Dict[str, Dict[str, object]]:
+    """Per kernel of a build log (default: this process's build), what
+    ``ptxas -v`` said: source file, registers, stack frame, spill stores and
+    loads, static shared memory (bytes)."""
+    rows: Dict[str, Dict[str, object]] = {}
+    source, props, current = "", None, None
+
+    def row(mangled):
+        return rows.setdefault(_kernel_name(mangled), {
+            "source": source, "registers": 0, "stack": 0, "spill_stores": 0,
+            "spill_loads": 0, "smem": 0})
+
+    for line in (build_log if log is None else log).splitlines():
+        line = line.strip()
+        if line.startswith("== "):
+            source = line[3:]
+        elif (m := re.search(r"Compiling entry function '(\w+)'", line)):
+            current = row(m.group(1))
+        elif (m := re.search(r"Function properties for (\w+)", line)):
+            # Device functions (a division's slow path ...) are listed too.
+            props = m.group(1)
+        elif (m := re.match(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line)):
+            if props is not None and props.startswith("_Z") \
+                    and "kernel" in props:
+                row(props).update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+            props = None
+        elif current is not None and \
+                (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(smem.group(1)) if smem else 0
+            current = None
+    return rows

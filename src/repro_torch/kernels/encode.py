@@ -167,19 +167,31 @@ def _check(name, x, w, eps, block_k, block_n) -> None:
                          f"{(block_k, block_n)}")
 
 
+def _workspace_floats(m: int, k: int, n: int, block_k: int, block_n: int,
+                     device) -> tuple:
+    """Floats of the two workspaces the launcher asks for at these shapes:
+    one scale per MCA tile, and x transposed and zero-padded to the
+    kernel's stages and row tiles."""
+    scales, xt = ctypes.c_longlong(), ctypes.c_longlong()
+    build.query("repro_encode_matmul_scales", device, k, n, block_k, block_n,
+                ctypes.byref(scales))
+    build.query("repro_encode_matmul_workspace", device, m, k,
+                ctypes.byref(xt))
+    return scales.value, xt.value
+
+
 def _launch(kernel: str, x, w, eps, sigma, levels, block_k, block_n,
             seed: int) -> torch.Tensor:
     m, k = x.shape
     n = w.shape[1]
-    floats = ctypes.c_longlong()
-    build.query("repro_encode_matmul_scales", x.device, k, n, block_k,
-                block_n, ctypes.byref(floats))
-    scales = torch.empty(floats.value, dtype=torch.int32, device=x.device)
+    n_scales, n_xt = _workspace_floats(m, k, n, block_k, block_n, x.device)
+    scales = torch.empty(n_scales, dtype=torch.int32, device=x.device)
+    xt = torch.empty(n_xt, dtype=torch.float32, device=x.device)
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     build.launch(kernel, "repro_encode_matmul", x.device, x.data_ptr(),
                  w.data_ptr(), None if eps is None else eps.data_ptr(),
-                 out.data_ptr(), scales.data_ptr(), floats.value, m, k, n,
-                 block_k, block_n, float(sigma), int(levels),
+                 out.data_ptr(), scales.data_ptr(), n_scales, xt.data_ptr(),
+                 n_xt, m, k, n, block_k, block_n, float(sigma), int(levels),
                  int(seed) & ((1 << 64) - 1), int(eps is None))
     return out
 

@@ -292,11 +292,20 @@ def test_group_kernels_match_plain_and_solo(cuda_device, batch):
 @pytest.mark.parametrize("m,k,n,bk,bn", [(16, 40, 24, 8, 8),
                                          (20, 45, 50, 12, 20),
                                          (70, 100, 130, 24, 40),
-                                         (130, 1100, 700, 512, 512)])
+                                         (130, 1100, 700, 512, 512),
+                                         (1, 300, 250, 24, 40),
+                                         (1, 256, 224, 512, 512),
+                                         (600, 100, 228, 24, 40),
+                                         (64, 70, 336, 12, 20),
+                                         (40, 96, 300, 24, 50),
+                                         (100, 64, 100, 16, 30)])
 def test_encode_kernels_match_plain_versions(cuda_device, m, k, n, bk, bn):
     """``encode_matmul`` against its plain version on padded operands
-    (ragged shapes, fewer rows of x than the kernel's 256-row
-    output tile, tiles of 12 rows that straddle its 8-row K steps) and
+    (ragged shapes; one row of x, fewer rows than the kernel's 256-row
+    output tile and more than two of them; K not a multiple of its 16-row
+    stages; MCA tiles of 12 and 24 rows that straddle stages; tile widths
+    that do not divide its 112-column output tile; N below one output
+    tile; W rows 16-byte aligned (N % 4 == 0) or not) and
     through ``rram_encode_matmul``; ``encode_matmul_rng`` against its plain
     version (the same Philox draws in torch integer ops) at sigma > 0,
     equal bit for bit to ``encode_matmul`` with zero eps at sigma = 0, and
@@ -326,6 +335,87 @@ def test_encode_kernels_match_plain_versions(cuda_device, m, k, n, bk, bn):
                        kernels.encode_matmul(x, w, torch.zeros_like(w),
                                              **zero))
     torch.cuda.synchronize()
+
+
+def _encoded_reference(w, eps, sigma, levels, bk, bn):
+    """Q(w) * (1 + sigma * eps) for (bk, bn) MCA tiles in numpy float32, one
+    IEEE operation at a time in the reference's order: the bits the kernel
+    must produce."""
+    f32 = np.float32
+    k, n = w.shape
+    out = np.empty_like(w)
+    lm1 = f32(levels - 1)
+    for r in range(0, k, bk):
+        for c in range(0, n, bn):
+            t = w[r:r + bk, c:c + bn]
+            scale = np.abs(t).max()
+            scale = f32(1.0) if scale == 0 else scale
+            q = np.rint(t / scale * lm1) / lm1 * scale
+            out[r:r + bk, c:c + bn] = q * (f32(1.0) + f32(sigma)
+                                           * eps[r:r + bk, c:c + bn])
+    return out
+
+
+def test_encode_kernel_quantizes_bit_for_bit(cuda_device):
+    """x = I reads the encoded weights back: eye(k) @ encode(w) equals
+    Q(w) * (1 + sigma * eps) computed one IEEE float32 operation at a time
+    (no bin flips), bit for bit, on MCA tiles holding zeros of both signs,
+    subnormals, values one ulp around the bins' half-way points, an
+    all-zero tile and tiles scaled by 2^70 and 2^-70 (outside the
+    branch-free quantizer's range, so the IEEE divisions run)."""
+    dev = cuda_device
+    k, n, bk, bn, levels, sigma = 64, 200, 16, 40, 8, 0.3
+    rng = np.random.default_rng(56)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    eps = rng.standard_normal((k, n)).astype(np.float32)
+    flat = w[:16, :40].reshape(-1)  # tile (0, 0): special values
+    flat[:40] = 0.0
+    flat[40:80] = -0.0
+    flat[80:100] = np.float32(1e-40)
+    flat[100:120] = np.float32(-3e-39)
+    scale = np.abs(w[:16, :40]).max()
+    for i, m in enumerate(range(-6, 7)):
+        half = np.float32((m + 0.5) / 7.0) * scale
+        flat[200 + 3 * i:203 + 3 * i] = [np.nextafter(half, -np.inf), half,
+                                         np.nextafter(half, np.inf)]
+    w[:16, :40] = flat.reshape(16, 40)
+    w[16:32, 40:80] = 0.0
+    w[32:48, 80:120] *= np.float32(2.0 ** 70)
+    w[48:64, 120:160] *= np.float32(2.0 ** -70)
+    want = _encoded_reference(w, eps, sigma, levels, bk, bn)
+    got = kernels.encode_matmul(torch.eye(k, device=dev),
+                                torch.from_numpy(w).to(dev),
+                                torch.from_numpy(eps).to(dev), sigma=sigma,
+                                levels=levels, block_k=bk, block_n=bn)
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_encode_rng_kernel_row_blocks_agree(cuda_device):
+    """``encode_matmul_rng`` on x of 600 rows (three 256-row tiles, the last
+    one short) equals, row block by row block, the kernel on each slice of
+    x, bit for bit: the draws are keyed by the weight tile, so every row
+    tile encodes the same W_tilde and sums it in the same order."""
+    dev = cuda_device
+    x, w = randn((600, 200), 53, dev), randn((200, 260), 54, dev)
+    kw = dict(sigma=0.4, levels=8, block_k=24, block_n=40)
+    whole = kernels.encode_matmul_rng(17, x, w, **kw)
+    for lo, hi in ((0, 256), (256, 512), (512, 600), (100, 350), (599, 600)):
+        assert torch.equal(kernels.encode_matmul_rng(17, x[lo:hi].contiguous(),
+                                                     w, **kw), whole[lo:hi])
+    torch.cuda.synchronize()
+
+
+def test_encode_workspace_query(cuda_device):
+    """The launcher's size queries: one scale per MCA tile, and x transposed
+    and zero-padded to whole 16-row stages and 256-row tiles."""
+    from repro_torch.kernels import encode
+    dev = cuda_device
+    assert encode._workspace_floats(256, 4096, 14336, 512, 512, dev) == \
+        (8 * 28, 4096 * 256)
+    assert encode._workspace_floats(600, 100, 228, 24, 40, dev) == \
+        (5 * 6, 112 * 768)
+    assert encode._workspace_floats(1, 1, 1, 1, 1, dev) == (1, 16 * 256)
+    assert encode._workspace_floats(0, 64, 8, 8, 8, dev) == (8, 0)
 
 
 def test_encode_rng_kernel_noise_moments(cuda_device):

@@ -1,6 +1,7 @@
-"""The port stands alone: no file under src/repro_torch/, and not
-chip_smoke.py, imports ``jax`` or anything of ``repro``; and the package
-imports in a fresh interpreter without them being importable."""
+"""The port stands alone: no file under src/repro_torch/, and neither
+chip_smoke.py nor encode_probe.py, imports ``jax`` or anything of ``repro``;
+and the package imports in a fresh interpreter without them being
+importable."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "encode_probe.py"]
 
 
 def imported_roots(path: Path):

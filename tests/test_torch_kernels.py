@@ -192,6 +192,42 @@ def test_sources_export_every_bound_symbol():
 
 
 
+_PTXAS_LOG = """== encode_matmul.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__9ff8f882_16_encode_matmul_cu_b9ee5ddf20encode_matmul_kernelILb1EEEvPKfS2_S2_PKjPfiiiiiiiiffyi' for 'sm_90a'
+ptxas info    : Function properties for _ZN49_GLOBAL__N__9ff8f882_16_encode_matmul_cu_b9ee5ddf20encode_matmul_kernelILb1EEEvPKfS2_S2_PKjPfiiiiiiiiffyi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 140 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Function properties for __internal_fdiv_slowpath
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__0a1b2c3d_11_rram_mvm_cu_4e5f6a7b16ec_matmul_kernelILi4ELb0EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__0a1b2c3d_11_rram_mvm_cu_4e5f6a7b16ec_matmul_kernelILi4ELb0EEEvPKf
+    88 bytes stack frame, 84 bytes spill stores, 120 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 88 bytes cumulative stack size, 20992 bytes smem
+== tridiag.cu
+ptxas info    : Compiling entry function '_Z14stencil_kernelPKfPf' for 'sm_90a'
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    """``build.ptxas_report`` names each kernel of a ``ptxas -v`` log with its
+    template arguments and reads its registers, stack frame, spills and
+    static shared memory; a device function's lines are not a kernel's."""
+    rep = build.ptxas_report(_PTXAS_LOG)
+    assert set(rep) == {"encode_matmul_kernel<true>",
+                        "ec_matmul_kernel<4, false>", "stencil_kernel"}
+    assert rep["encode_matmul_kernel<true>"] == {
+        "source": "encode_matmul.cu", "registers": 140, "stack": 0,
+        "spill_stores": 0, "spill_loads": 0, "smem": 0}
+    assert rep["ec_matmul_kernel<4, false>"] == {
+        "source": "encode_matmul.cu", "registers": 128, "stack": 88,
+        "spill_stores": 84, "spill_loads": 120, "smem": 20992}
+    assert rep["stencil_kernel"]["source"] == "tridiag.cu"
+    assert rep["stencil_kernel"]["registers"] == 32
+
+
+
 # ----------------------------------------------------------- grouped products
 def _panel(u):
     """(g, rows, batch) -> the (rows, g * batch) group panel."""
@@ -361,6 +397,22 @@ def test_encode_matmul_rng_is_seeded_and_deterministic():
     assert rel(a, kernels.encode_matmul(x, w, eps.contiguous(), sigma=0.2,
                                         levels=8, block_k=16,
                                         block_n=16)) <= 1e-6
+
+
+@pytest.mark.parametrize("m,splits", [(600, (256, 512)), (37, (5, 20, 21))])
+def test_encode_matmul_rng_plain_equals_its_row_split_pieces(m, splits):
+    """The plain ``encode_matmul_rng`` on x of m rows equals, row block by
+    row block, itself on each slice of x: the draws are keyed by the weight
+    tile, so every row block multiplies the same W_tilde (the CPU side of
+    the card test that the kernel's row tiles agree)."""
+    x, w = torch.from_numpy(rng_array((m, 70), 71)), \
+        torch.from_numpy(rng_array((70, 90), 72))
+    kw = dict(sigma=0.3, levels=8, block_k=24, block_n=40)
+    whole = kernels.encode_matmul_rng_plain(5, x, w, **kw)
+    for lo, hi in zip((0,) + splits, splits + (m,)):
+        piece = kernels.encode_matmul_rng_plain(5, x[lo:hi].contiguous(), w,
+                                                **kw)
+        assert rel(piece, whole[lo:hi]) <= 1e-6
 
 
 def test_philox_normal_plain_moments_and_known_answers():
