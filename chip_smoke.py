@@ -11,7 +11,10 @@ non-zero, printing no result, without them or without the repository's
      print what ``ptxas -v`` reports for each compiled kernel;
   2. program a 32,768 x 32,768 matrix (taox-hfox, EC on, default 8 x 8 MCAs
      of 512 x 512) and hold each kernel to its plain PyTorch version at the
-     main path's shapes, timing kernel, plain version and library call;
+     main path's shapes, timing kernel, plain version and library call; the
+     transposed product also bit for bit run to run, and the layout its
+     launcher chose printed (it must be the staged, TMA-fed kernel here, in
+     phase 5 and in phase 6);
   3. serve 8 single-vector requests and one batch of 8 through
      ``backend="cuda"``, against the digital ``a @ x``, the ``reference``
      backend on the same image, and -- with the input DAC off, where both
@@ -25,11 +28,14 @@ non-zero, printing no result, without them or without the repository's
      LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
      feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
      the two images first holds ec_matmul, ec_rmatmul (batch 1) and
-     stencil_denoise (on its 16,384-row panel) to their plain versions;
+     stencil_denoise (on its 16,384-row panel) to their plain versions, and,
+     DAC off, A.T @ y on the cuda path to the reference pipeline to 1e-5
+     (Neumann, and Thomas at lam = 1e-2);
   6. program the 8 experts' w1 of one Mixtral-8x7B MoE layer (14,336 x
      4,096 each, A ~ N(0, 1/4,096), taox-hfox, EC on) as one group, hold the
      grouped EC kernels to their plain versions, and run group_mvm /
-     group_rmvm at batch 1 and 8 on both backends: one grouped EC launch and
+     group_rmvm at batch 1 and 8 on both backends (a group of one equal to
+     the solo transposed kernel bit for bit): one grouped EC launch and
      one tier-2 launch per call, each member equal to its solo execute, the
      DAC-off cuda path equal to the reference pipeline (Neumann and Thomas
      at lam = 1e-2) to 1e-5;
@@ -212,6 +218,18 @@ def short_kernel_name(key: str) -> str:
     return (key.split("(")[0] or key).strip()
 
 
+def layout_line(name: str, lay) -> str:
+    """What the transposed launcher chose (``kernels.rmatmul_layout``)."""
+    waves = lay.blocks / (lay.blocks_per_sm * lay.sms)
+    kind = "staged (TMA)" if lay.staged else "register loads"
+    return (f"    {name} layout: {kind}, {lay.blocks} blocks on "
+            f"{lay.blocks_per_sm} x {lay.sms} resident slots ({waves:.3f} "
+            f"waves), {lay.units} units of {lay.rows_per_unit} x "
+            f"{lay.cols_per_unit}, "
+            f"<= {lay.partials_per_block} partials a block, workspace "
+            f"{lay.workspace_floats} floats")
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
@@ -346,6 +364,14 @@ def main() -> int:
             nbytes=4 * (2 * m * k + 2 * m * batch + k * batch),
             flops=4 * m * k * batch, iters=10,
             library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))
+        lay = kernels.rmatmul_layout(at, da, batch)
+        res["ec_rmatmul"]["layout"] = lay._asdict()
+        print(layout_line(f"ec_rmatmul batch {batch}", lay), flush=True)
+        check(lay.staged, "ec_rmatmul did not take the staged kernel on the "
+                          "main path's image")
+        check(torch.equal(kernels.ec_rmatmul(at, da, y, y_t),
+                          kernels.ec_rmatmul(at, da, y, y_t)),
+              "ec_rmatmul is not the same run to run")
         # Thomas: checked at STENCIL_CHECK_LAM (the identity in fp32 at the
         # engine's lam), timed at the engine's lam (the same work).  The
         # plain version is 2n small steps from the host: 1 warmup, 1 timed.
@@ -540,8 +566,8 @@ def main() -> int:
     # ------------------------------ 5. least squares and LP (main, A.T @ y)
     def check_image(A):
         """The MVM kernels at batch 1 on a phase-5 image, with its own M, K
-        and slab count, against their plain versions; the stencil on its
-        shorter output panel."""
+        and transposed layout, against their plain versions; the stencil on
+        its shorter output panel; DAC off, A.T @ y against the reference."""
         at, da = A.at_pad, A.da_pad
         m, k = at.shape
         x = torch.randn(k, 1, generator=gen, device=dev)
@@ -560,6 +586,30 @@ def main() -> int:
             lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
             nbytes=4 * (2 * m * k + 2 * m + k), flops=4 * m * k, iters=10,
             library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))}
+        lay = kernels.rmatmul_layout(at, da, 1)
+        res["ec_rmatmul"]["layout"] = lay._asdict()
+        print(layout_line(f"ec_rmatmul {m}x{k}", lay), flush=True)
+        check(lay.staged, f"ec_rmatmul did not take the staged kernel on the "
+                          f"{m}x{k} image")
+        # DAC off, A.T @ y through the kernels equals the reference
+        # pipeline, with the Neumann stencil and with Thomas at lam 1e-2.
+        det_err = {}
+        for label, dcfg in (("neumann", dataclasses.replace(
+                scfg, encode_inputs=False)), ("thomas", dataclasses.replace(
+                scfg, encode_inputs=False, denoise_method="thomas",
+                lam=STENCIL_CHECK_LAM))):
+            det = [AnalogMatrix(
+                engine=AnalogEngine(dcfg, backend=be, device=dev),
+                shape=A.shape, base_key=0, write_stats=A.write_stats,
+                at_pad=at, da_pad=da).T @ y[:A.shape[0]]
+                for be in ("cuda", "reference")]
+            det_err[label] = rel_l2(det[0], det[1])
+        print(f"    DAC off, A.T @ y: cuda vs reference pipeline rel-L2 "
+              f"{det_err['neumann']:.3e} (Neumann), {det_err['thomas']:.3e} "
+              f"(Thomas at lam {STENCIL_CHECK_LAM:g})", flush=True)
+        check(max(det_err.values()) <= 1e-5,
+              f"transposed cuda path disagrees with the reference pipeline "
+              f"on the {m}x{k} image")
         p = (kernels.ec_matmul(at, da, x, x_t) if m < k
              else kernels.ec_rmatmul(at, da, y, y_t))
         res["stencil_denoise"] = compare(
@@ -713,7 +763,17 @@ def main() -> int:
             + torch.bmm(da.transpose(1, 2), members(y_t)))
         for name in ("ec_group_matmul", "ec_group_rmatmul"):
             rows[batch][name]["shape"] = f"{g_}x{mr}x{np_} (of {mp})"
-        del x, x_t, y, y_t
+        lay = kernels.rmatmul_layout(at, da, batch)
+        rows[batch]["ec_group_rmatmul"]["layout"] = lay._asdict()
+        print(layout_line(f"ec_group_rmatmul batch {batch}", lay), flush=True)
+        check(lay.staged, "ec_group_rmatmul did not take the staged kernel "
+                          "on the group's live views")
+        # A group of one is the solo call, bit for bit.
+        v, v_t = y[:, :batch].contiguous(), y_t[:, :batch].contiguous()
+        check(torch.equal(kernels.ec_group_rmatmul(at[:1], da[:1], v, v_t),
+                          kernels.ec_rmatmul(at[0], da[0], v, v_t)),
+              "ec_group_rmatmul on one member differs from ec_rmatmul")
+        del x, x_t, y, y_t, v, v_t
     gx = {b: torch.randn(N_EXPERTS, D_MODEL, b, generator=gen, device=dev)
           for b in (1, 8)}
     gy = {b: torch.randn(N_EXPERTS, D_FF, b, generator=gen, device=dev)
@@ -756,7 +816,8 @@ def main() -> int:
     # Member g of a group call under key k is its solo execute under
     # fold_in(k, g): the same DAC draw, the same image.  Forward the grouped
     # kernel sums each row as the solo one does (bit for bit); transposed
-    # it cuts the rows into other slabs (equal to fp32 rounding).
+    # the group's rows are cut otherwise than a member's alone (equal to
+    # fp32 rounding).
     same_fwd, solo_err_t = True, 0.0
     out, out_t = geng.group_mvm(G, gx[8], key=7), geng.group_rmvm(G, gy[8],
                                                                 key=7)
@@ -993,8 +1054,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "rel_l2": row["rel_l2"],
             **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms", "shape",
-                                   "group_call_ms", "ptxas", "sm_mhz",
-                                   "watts", "tflops", "split_ms",
+                                   "layout", "group_call_ms", "ptxas",
+                                   "sm_mhz", "watts", "tflops", "split_ms",
                                    "bound_gen_ms", "bound_gen_by")
                if k in row},
             "ms": row["ms"],
@@ -1004,9 +1065,10 @@ def main() -> int:
             "batch": 1,
             "batch8": ({k: rows[8][name][k] for k in
                         ("ms", "call_ms", "plain_ms", "bound_ms",
-                         "library_ms", "group_call_ms") if k in rows[8][name]}
+                         "library_ms", "group_call_ms", "layout")
+                        if k in rows[8][name]}
                        if name in rows[8] else None),
-            # The phase-5 images: other M, K and slab counts, batch 1.
+            # The phase-5 images: other M, K and layouts, batch 1.
             "shapes": [res[name] for res in more_shapes if name in res],
         })
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",

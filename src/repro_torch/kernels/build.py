@@ -4,8 +4,9 @@ The sources under ``csrc/`` have a plain C interface.  At first use each is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library under ``build/`` beside this
 file, and the library is loaded with ``ctypes``.  The library's name carries
-a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built at import time.
+a hash of the sources, their shared headers (``*.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it
+is.  Nothing is built at import time.
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel and nowhere else (the CPU path runs the plain versions
@@ -40,7 +41,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
                         _P],
-    "repro_ec_rmatmul_workspace": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
+    "repro_ec_rmatmul_workspace": [_P, _P, _I, _LL, _I, _I, _I, _I,
+                                   ctypes.POINTER(_LL)],
     "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I,
                          _I, _I, _I, _I, _P],
     "repro_encode_matmul_scales": [_I, _I, _I, _I, ctypes.POINTER(_LL)],
@@ -54,9 +56,9 @@ SIGNATURES = {
 }
 
 #: One count per kernel.  A count is one call of the C launcher, which may
-#: run more than one CUDA kernel: ``ec_rmatmul``'s slab pass plus, with
-#: several slabs, the pass that sums them; ``encode_matmul``'s scale pre-pass
-#: plus its product.  The grouped EC kernels are the solo ones with a member
+#: run more than one CUDA kernel: ``ec_rmatmul``'s product plus the pass that
+#: sums its blocks' partials; ``encode_matmul``'s pre-passes plus its
+#: product.  The grouped EC kernels are the solo ones with a member
 #: axis in the grid, counted under their own names.
 LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "ec_rmatmul": 0,
                             "ec_group_matmul": 0, "ec_group_rmatmul": 0,
@@ -91,8 +93,9 @@ def _sources():
 
 
 def _digest() -> str:
+    """A hash of the flags and of every source and header under ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

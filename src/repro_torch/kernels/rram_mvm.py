@@ -17,13 +17,14 @@ stride and may have a row stride larger than their width, so one capacity
 block of a padded image runs as a view without a copy; the panels are
 contiguous.  On CUDA tensors the wrappers launch the hand-written kernels in
 ``csrc/rram_mvm.cu`` (memory-bound GEMVs: each reads the images once; a solo
-product is the grouped launcher with one member); on CPU tensors they run the
-``*_plain`` versions.
+product is the grouped launcher with one member; the transposed one stages
+the images by the TMA engine where they are 16-byte aligned, see
+:func:`rmatmul_layout`); on CPU tensors they run the ``*_plain`` versions.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -32,7 +33,8 @@ from ._checks import check_images, check_panels, on_cpu, row_stride
 
 __all__ = ["ec_matmul", "ec_matmul_plain", "ec_rmatmul", "ec_rmatmul_plain",
            "ec_group_matmul", "ec_group_matmul_plain", "ec_group_rmatmul",
-           "ec_group_rmatmul_plain", "MAX_KERNEL_BATCH"]
+           "ec_group_rmatmul_plain", "rmatmul_layout", "RmatmulLayout",
+           "MAX_KERNEL_BATCH"]
 
 #: Widest panel one launch takes; wider panels are split into launches of
 #: this many columns (each re-reads the images).
@@ -122,13 +124,11 @@ def _launch_ec(kernel: str, at, da, u, u_t, transpose: bool,
                          img_stride, member_ld, m, k, row_stride(img), cols,
                          ld)
             continue
-        floats = _rmatmul_workspace(g, m, k, cols, u.device)
-        ws = torch.empty(floats, dtype=torch.float32,
-                         device=u.device) if floats else None
+        floats = rmatmul_layout(at, da, cols).workspace_floats
+        ws = torch.empty(floats, dtype=torch.float32, device=u.device)
         build.launch(kernel, "repro_ec_rmatmul", u.device, *ptrs,
-                     ws.data_ptr() if ws is not None else None, floats, g,
-                     img_stride, member_ld, m, k, row_stride(img), cols, ld,
-                     ld)
+                     ws.data_ptr(), floats, g, img_stride, member_ld, m, k,
+                     row_stride(img), cols, ld, ld)
     return out
 
 
@@ -141,22 +141,53 @@ def ec_matmul(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
     return _launch_ec("ec_matmul", at, da, x, x_t, transpose=False)
 
 
-@functools.lru_cache(maxsize=None)
-def _rmatmul_workspace(g: int, m: int, k: int, batch: int,
-                       device: torch.device) -> int:
-    """Floats of workspace the transposed launcher asks for (0: none); the
-    launcher alone decides how it cuts the rows."""
-    floats = ctypes.c_longlong()
-    build.query("repro_ec_rmatmul_workspace", device, g, m, k, batch,
-                ctypes.byref(floats))
-    return floats.value
+class RmatmulLayout(NamedTuple):
+    """How the transposed launcher runs a call (``repro_ec_rmatmul_workspace``
+    in ``csrc/rram_mvm.cu``): the staged (TMA) kernel or register loads, a
+    persistent grid of ``blocks`` = ``blocks_per_sm`` x ``sms`` (or one
+    block a unit, if fewer), ``units`` of ``rows_per_unit`` x
+    ``cols_per_unit`` cut among them in order, at most
+    ``partials_per_block`` partial panels a block, and the workspace floats
+    those take."""
+    workspace_floats: int
+    staged: bool
+    blocks: int
+    blocks_per_sm: int
+    sms: int
+    units: int
+    rows_per_unit: int
+    cols_per_unit: int
+    partials_per_block: int
+
+
+_LAYOUTS: Dict[tuple, RmatmulLayout] = {}
+
+
+def rmatmul_layout(at: torch.Tensor, da: torch.Tensor,
+                   batch: int) -> RmatmulLayout:
+    """The layout of one transposed launch on CUDA images ``at``/``da``
+    ((M, K), or a (g, M, K) stack) at ``batch`` (1..8) columns a member.
+    The launcher decides it alone, from the shapes, strides, batch, the
+    device and the images' 16-byte alignment; it is asked once per such key."""
+    img = at[0] if at.ndim == 3 else at
+    g, img_stride = (at.shape[0], at.stride(0)) if at.ndim == 3 else (1, 0)
+    (m, k), lda = img.shape, row_stride(img)
+    key = (g, m, k, lda, img_stride, batch, at.data_ptr() % 16,
+           da.data_ptr() % 16, at.device)
+    if key not in _LAYOUTS:
+        got = (ctypes.c_longlong * len(RmatmulLayout._fields))()
+        build.query("repro_ec_rmatmul_workspace", at.device, at.data_ptr(),
+                    da.data_ptr(), g, img_stride, m, k, lda, batch, got)
+        _LAYOUTS[key] = RmatmulLayout(got[0], bool(got[1]), *got[2:])
+    return _LAYOUTS[key]
 
 
 def ec_rmatmul(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
                y_t: torch.Tensor) -> torch.Tensor:
     """``at.T @ y + da.T @ y_t`` for (M, K) images and (M, batch) panels;
-    returns (K, batch).  The kernel sums row slabs in a second pass over a
-    workspace, in a fixed order: the result is the same run to run."""
+    returns (K, batch).  The kernel's blocks each sum a fixed range of row
+    chunks, and a second pass adds their partials in a fixed order: the
+    result is the same run to run (:func:`rmatmul_layout`)."""
     _check("ec_rmatmul", at, da, y, y_t, at.shape[0])
     if on_cpu(y):
         return ec_rmatmul_plain(at, da, y, y_t)
@@ -180,9 +211,9 @@ def ec_group_rmatmul(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
                      y_t: torch.Tensor) -> torch.Tensor:
     """``at[g].T @ y_g + da[g].T @ y_t_g`` for every member g in one launch:
     (M, g * batch) panels in, the (K, g * batch) panel out, member g's
-    columns at ``g * batch``.  The slab count is chosen for the whole grid
-    of members, so a member's sums may be cut into other slabs than a solo
-    :func:`ec_rmatmul` cuts them (equal to fp32 rounding)."""
+    columns at ``g * batch``.  The rows are cut for the whole group, so a
+    member's sums may be cut otherwise than a solo :func:`ec_rmatmul` cuts
+    them (equal to fp32 rounding); a group of one is the solo call."""
     batch = _check_group("ec_group_rmatmul", at, da, y, y_t, at.shape[1])
     if on_cpu(y):
         return ec_group_rmatmul_plain(at, da, y, y_t)

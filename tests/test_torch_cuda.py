@@ -68,7 +68,7 @@ def test_kernels_match_plain_versions(cuda_device, batch):
 @pytest.mark.parametrize("batch", [1, 3, 8, 11])
 def test_transposed_and_thomas_kernels_match_plain_versions(cuda_device,
                                                             batch):
-    """``ec_rmatmul`` (one slab and several; batch 11 takes two launches)
+    """``ec_rmatmul`` (one block and many; batch 11 takes two launches)
     and ``thomas_solve`` at lam = 1e-2 (where it is not the identity) and at
     the engine's 1e-12, on ragged shapes."""
     dev = cuda_device
@@ -90,22 +90,134 @@ def test_transposed_and_thomas_kernels_match_plain_versions(cuda_device,
     torch.cuda.synchronize()
 
 
-def test_rmatmul_splits_fill_the_card(cuda_device):
-    """The transposed launcher cuts the rows into slabs so that a
-    32,768-column image still gives each of an H100 SXM's 132 SMs several
-    blocks (128 column tiles x 9 slabs), a short image takes one slab per
-    64 rows at most, and one slab needs no workspace; a group's slab count
-    is chosen for all its members' column tiles (8 x 16 tiles x 9 slabs)."""
-    from repro_torch.kernels.rram_mvm import _rmatmul_workspace
-    props = torch.cuda.get_device_properties(cuda_device)
-    if props.multi_processor_count != 132:
-        pytest.skip("the slab counts below are those of a 132-SM card")
-    dev = torch.device("cuda", torch.cuda.current_device())
-    assert _rmatmul_workspace(1, 32768, 32768, 1, dev) == 9 * 32768
-    assert _rmatmul_workspace(1, 32768, 16384, 8, dev) == 17 * 16384 * 8
-    assert _rmatmul_workspace(1, 100, 32768, 1, dev) == 2 * 32768
-    assert _rmatmul_workspace(1, 5, 10, 1, dev) == 0
-    assert _rmatmul_workspace(8, 16384, 4096, 1, dev) == 8 * 9 * 4096
+def _block_ranges(lay):
+    """Each block's units [begin, end) under a transposed layout."""
+    return [(b * lay.units // lay.blocks, (b + 1) * lay.units // lay.blocks)
+            for b in range(lay.blocks)]
+
+
+def test_rmatmul_layout_is_one_wave_and_covers_the_partials(cuda_device):
+    """The transposed launcher runs at most one wave of the resident slots
+    it reports (one block a unit when there are fewer units), cuts the units
+    in equal shares, takes the staged kernel on 16-byte aligned images and
+    register loads otherwise, and the workspace it asks for holds every
+    block's partial panels: a block's units straddle at most
+    ``partials_per_block`` column tiles."""
+    from repro_torch.kernels.rram_mvm import rmatmul_layout
+    dev = cuda_device
+    big = torch.empty(32768, 32768, device=dev)
+    stack = torch.empty(8, 16384, 4096, device=dev)
+    cases = [(big, big, 1, 1, True), (big, big, 8, 1, True),
+             (big[:, :16384], big[:, :16384], 1, 1, True),
+             (big[:16384], big[:16384], 1, 1, True),
+             (stack[:, :14336], stack[:, :14336], 1, 8, True),
+             (stack[:, :14336], stack[:, :14336], 8, 8, True),
+             (big[:5, :10], big[:5, :10], 3, 1, True),
+             (big[:100, 1:1001], big[:100, 1:1001], 1, 1, False)]
+    for at, da, batch, g, staged in cases:
+        lay = rmatmul_layout(at, da, batch)
+        m, k = at.shape[-2:]
+        rows = lay.rows_per_unit
+        units = g * -(-k // lay.cols_per_unit) * -(-m // rows)
+        assert lay.staged == staged
+        assert lay.units == units
+        assert lay.blocks == min(lay.blocks_per_sm * lay.sms, units)
+        assert lay.sms == torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+        ranges = _block_ranges(lay)
+        sizes = {hi - lo for lo, hi in ranges}
+        assert max(sizes) - min(sizes) <= 1
+        chunks = -(-m // rows)
+        tiles = max((hi - 1) // chunks - lo // chunks + 1 for lo, hi in ranges)
+        assert tiles <= lay.partials_per_block
+        assert lay.workspace_floats >= lay.blocks * \
+            lay.partials_per_block * lay.cols_per_unit * batch
+    # The main path's images fill whole waves: one block an SM for the
+    # staged kernel, and no more blocks than slots.
+    lay = rmatmul_layout(big, big, 1)
+    assert lay.blocks == lay.blocks_per_sm * lay.sms
+    del big, stack
+
+
+def _check_rmatmul(at, da, batch, seed, staged):
+    """ec_rmatmul (or the grouped kernel on a (g, M, K) stack) on these
+    views: the variant taken, against the plain version, run to run, and a
+    group of one against the solo call; returns the output."""
+    from repro_torch.kernels.rram_mvm import rmatmul_layout
+    dev = at.device
+    g = at.shape[0] if at.ndim == 3 else 1
+    m = at.shape[-2]
+    y, yt = randn((m, g * batch), seed, dev), randn((m, g * batch), seed + 1,
+                                                    dev)
+    assert rmatmul_layout(at, da, min(batch, 8)).staged == staged
+    if at.ndim == 2:
+        run, plain = kernels.ec_rmatmul, kernels.ec_rmatmul_plain
+    else:
+        run, plain = kernels.ec_group_rmatmul, kernels.ec_group_rmatmul_plain
+    kernels.reset_launches()
+    got = run(at, da, y, yt)
+    assert sum(kernels.LAUNCHES.values()) == -(-batch // 8)
+    assert got.shape == (at.shape[-1], g * batch)
+    assert rel(got, plain(at, da, y, yt)) <= 1e-5
+    assert torch.equal(got, run(at, da, y, yt))
+    one = (at[:1], da[:1]) if at.ndim == 3 else (at[None], da[None])
+    v, vt = y[:, :batch].contiguous(), yt[:, :batch].contiguous()
+    solo = kernels.ec_rmatmul(one[0][0], one[1][0], v, vt)
+    assert torch.equal(kernels.ec_group_rmatmul(*one, v, vt), solo)
+    if at.ndim == 3:
+        assert rel(got[:, :batch], solo) <= 1e-6
+    return got
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 11])
+def test_rmatmul_ragged_edges_both_variants(cuda_device, batch):
+    """Ragged K (1,499) and M (4,097): through the staged kernel on a view
+    of a padded image (row stride 1,504, 16-byte aligned; the tensor map's
+    zero fill covers the edges) and through the register kernel on the
+    contiguous image (row stride 1,499) and on a view whose base is one
+    float off 16 bytes."""
+    dev = cuda_device
+    m, k = 4097, 1499
+    pad = randn((m, 1504), 70, dev), randn((m, 1504), 71, dev)
+    _check_rmatmul(pad[0][:, :k], pad[1][:, :k], batch, 72, staged=True)
+    tight = pad[0][:, :k].contiguous(), pad[1][:, :k].contiguous()
+    _check_rmatmul(*tight, batch, 74, staged=False)
+    _check_rmatmul(pad[0][:, 1:1 + k], pad[1][:, 1:1 + k], batch, 76,
+                   staged=False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 11])
+@pytest.mark.parametrize("g", [3, 5, 8])
+def test_group_rmatmul_units_straddle_members(cuda_device, g, batch):
+    """Groups of 3, 5 and 8 ragged members (4,097 x 1,499 live views of
+    padded stacks, and the same stacks with an unaligned base), whose
+    blocks' unit ranges cross from one member into the next wherever the
+    block count is not a multiple of g (where it is, as for 3 members on
+    132 SMs, members start on block boundaries): against the plain version,
+    run to run, each member against its solo call to 1e-6, and a group of
+    one equal to the solo call bit for bit."""
+    from repro_torch.kernels.rram_mvm import rmatmul_layout
+    dev = cuda_device
+    m, k = 4097, 1499
+    stack = randn((g, m + 3, 1504), 80, dev), randn((g, m + 3, 1504), 81, dev)
+    views = [(stack[0][:, :m, :k], stack[1][:, :m, :k], True),
+             (stack[0][:, :m, 3:3 + k], stack[1][:, :m, 3:3 + k], False)]
+    for at, da, staged in views:
+        lay = rmatmul_layout(at, da, min(batch, 8))
+        per_member = lay.units // g
+        straddle = any(lo // per_member != (hi - 1) // per_member
+                       for lo, hi in _block_ranges(lay))
+        assert straddle == (lay.blocks % g != 0)
+        got = _check_rmatmul(at, da, batch, 82, staged)
+        y = randn((m, g * batch), 82, dev)
+        yt = randn((m, g * batch), 83, dev)
+        for i in range(g):
+            cols = slice(i * batch, (i + 1) * batch)
+            assert rel(got[:, cols], kernels.ec_rmatmul(
+                at[i], da[i], y[:, cols].contiguous(),
+                yt[:, cols].contiguous())) <= 1e-6
+    torch.cuda.synchronize()
 
 
 def test_thomas_kernel_wide_panel(cuda_device):
@@ -256,8 +368,8 @@ def test_group_kernels_match_plain_and_solo(cuda_device, batch):
     """The grouped EC kernels on 8 ragged members: against their plain
     versions; one launch per 8 columns of every member (batch 11: two);
     member g equal to the solo kernel on member g (forward bit for bit; the
-    transposed slab cut is chosen for the whole grid, so to rounding); a
-    group of one equal to the solo kernel bit for bit."""
+    transposed rows are cut for the whole group, so to rounding); a group
+    of one equal to the solo kernel bit for bit."""
     dev = cuda_device
     g = 8
     for m, k in ((1000, 1500), (4100, 300)):

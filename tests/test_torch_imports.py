@@ -1,6 +1,6 @@
-"""The port stands alone: no file under src/repro_torch/, and neither
-chip_smoke.py nor encode_probe.py, imports ``jax`` or anything of ``repro``;
-and the package imports in a fresh interpreter without them being
+"""The port stands alone: no file under src/repro_torch/, and none of
+chip_smoke.py, encode_probe.py and mvm_probe.py, imports ``jax`` or anything
+of ``repro``; and the package imports in a fresh interpreter without them being
 importable."""
 import ast
 import os
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "encode_probe.py"]
+    [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py"]
 
 
 def imported_roots(path: Path):

@@ -4,6 +4,7 @@ wrappers' argument checks; the grouped EC products, the single-pass encode
 (``rram_encode_matmul``, ``encode_matmul_rng``) and its Philox draws.  The CUDA kernels themselves are held to their
 plain versions on the card by tests/test_torch_cuda.py."""
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +191,23 @@ def test_sources_export_every_bound_symbol():
                                    "stencil_denoise", "thomas_solve",
                                    "cg_update", "richardson_update"}
 
+
+def test_build_digest_covers_sources_and_headers(tmp_path, monkeypatch):
+    """The library's name hashes every ``csrc/*.cu`` and every shared
+    ``*.cuh`` header, so an edited header is rebuilt, not loaded stale;
+    ``nvcc`` compiles the ``.cu`` sources alone."""
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    (tmp_path / "notes.txt").write_text("x\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build._sources() == [tmp_path / "a.cu"]
+    before = build._digest()
+    (tmp_path / "notes.txt").write_text("y\n")
+    assert build._digest() == before
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    assert build._digest() != before
+    assert "async_copy.cuh" in {
+        p.name for p in Path(build.__file__).parent.glob("csrc/*.cuh")}
 
 
 _PTXAS_LOG = """== encode_matmul.cu
