@@ -11,10 +11,13 @@ non-zero, printing no result, without them or without the repository's
      print what ``ptxas -v`` reports for each compiled kernel;
   2. program a 32,768 x 32,768 matrix (taox-hfox, EC on, default 8 x 8 MCAs
      of 512 x 512) and hold each kernel to its plain PyTorch version at the
-     main path's shapes, timing kernel, plain version and library call; the
-     transposed product also bit for bit run to run, and the layout its
-     launcher chose printed (it must be the staged, TMA-fed kernel here, in
-     phase 5 and in phase 6);
+     main path's shapes, timing kernel, plain version and library call; both
+     EC products also bit for bit run to run, and the layout each launcher
+     chose printed: a persistent one-wave grid over units of the image
+     (forward: 16 rows x a 4,096-column piece of K, the pieces added in
+     piece order by a second pass; transposed: 16 rows x 512 columns, the
+     blocks' partials added in block order), fed by a TMA ring -- the
+     staged kernel, which both must take here, in phase 5 and in phase 6;
   3. serve 8 single-vector requests and one batch of 8 through
      ``backend="cuda"``, against the digital ``a @ x``, the ``reference``
      backend on the same image, and -- with the input DAC off, where both
@@ -35,7 +38,7 @@ non-zero, printing no result, without them or without the repository's
      4,096 each, A ~ N(0, 1/4,096), taox-hfox, EC on) as one group, hold the
      grouped EC kernels to their plain versions, and run group_mvm /
      group_rmvm at batch 1 and 8 on both backends (a group of one equal to
-     the solo transposed kernel bit for bit): one grouped EC launch and
+     the solo kernel bit for bit, both directions): one grouped EC launch and
      one tier-2 launch per call, each member equal to its solo execute, the
      DAC-off cuda path equal to the reference pipeline (Neumann and Thomas
      at lam = 1e-2) to 1e-5;
@@ -219,14 +222,16 @@ def short_kernel_name(key: str) -> str:
 
 
 def layout_line(name: str, lay) -> str:
-    """What the transposed launcher chose (``kernels.rmatmul_layout``)."""
+    """What the forward or transposed launcher chose
+    (``kernels.matmul_layout`` / ``rmatmul_layout``)."""
     waves = lay.blocks / (lay.blocks_per_sm * lay.sms)
     kind = "staged (TMA)" if lay.staged else "register loads"
+    last = (f"{lay.pieces} pieces of K" if hasattr(lay, "pieces") else
+            f"<= {lay.partials_per_block} partials a block")
     return (f"    {name} layout: {kind}, {lay.blocks} blocks on "
             f"{lay.blocks_per_sm} x {lay.sms} resident slots ({waves:.3f} "
             f"waves), {lay.units} units of {lay.rows_per_unit} x "
-            f"{lay.cols_per_unit}, "
-            f"<= {lay.partials_per_block} partials a block, workspace "
+            f"{lay.cols_per_unit}, {last}, workspace "
             f"{lay.workspace_floats} floats")
 
 
@@ -338,7 +343,14 @@ def main() -> int:
             nbytes=4 * (2 * m * k + 2 * k * batch + m * batch),
             flops=4 * m * k * batch, iters=10,
             library_fn=lambda: torch.matmul(at, x) + torch.matmul(da, x_t))}
+        lay = kernels.matmul_layout(at, da, batch)
+        res["ec_matmul"]["layout"] = lay._asdict()
+        print(layout_line(f"ec_matmul batch {batch}", lay), flush=True)
+        check(lay.staged, "ec_matmul did not take the staged kernel on the "
+                          "main path's image")
         p = kernels.ec_matmul(at, da, x, x_t)
+        check(torch.equal(p, kernels.ec_matmul(at, da, x, x_t)),
+              "ec_matmul is not the same run to run")
         for lam in (cfg.lam, STENCIL_CHECK_LAM):
             # At the engine's lam = 1e-12 the stencil term is below fp32
             # resolution; STENCIL_CHECK_LAM checks the stencil itself.
@@ -586,11 +598,13 @@ def main() -> int:
             lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
             nbytes=4 * (2 * m * k + 2 * m + k), flops=4 * m * k, iters=10,
             library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))}
-        lay = kernels.rmatmul_layout(at, da, 1)
-        res["ec_rmatmul"]["layout"] = lay._asdict()
-        print(layout_line(f"ec_rmatmul {m}x{k}", lay), flush=True)
-        check(lay.staged, f"ec_rmatmul did not take the staged kernel on the "
-                          f"{m}x{k} image")
+        for name, query in (("ec_matmul", kernels.matmul_layout),
+                            ("ec_rmatmul", kernels.rmatmul_layout)):
+            lay = query(at, da, 1)
+            res[name]["layout"] = lay._asdict()
+            print(layout_line(f"{name} {m}x{k}", lay), flush=True)
+            check(lay.staged, f"{name} did not take the staged kernel on "
+                              f"the {m}x{k} image")
         # DAC off, A.T @ y through the kernels equals the reference
         # pipeline, with the Neumann stencil and with Thomas at lam 1e-2.
         det_err = {}
@@ -763,17 +777,23 @@ def main() -> int:
             + torch.bmm(da.transpose(1, 2), members(y_t)))
         for name in ("ec_group_matmul", "ec_group_rmatmul"):
             rows[batch][name]["shape"] = f"{g_}x{mr}x{np_} (of {mp})"
-        lay = kernels.rmatmul_layout(at, da, batch)
-        rows[batch]["ec_group_rmatmul"]["layout"] = lay._asdict()
-        print(layout_line(f"ec_group_rmatmul batch {batch}", lay), flush=True)
-        check(lay.staged, "ec_group_rmatmul did not take the staged kernel "
-                          "on the group's live views")
+        for name, query in (("ec_group_matmul", kernels.matmul_layout),
+                            ("ec_group_rmatmul", kernels.rmatmul_layout)):
+            lay = query(at, da, batch)
+            rows[batch][name]["layout"] = lay._asdict()
+            print(layout_line(f"{name} batch {batch}", lay), flush=True)
+            check(lay.staged, f"{name} did not take the staged kernel on "
+                              f"the group's live views")
         # A group of one is the solo call, bit for bit.
+        u, u_t = x[:, :batch].contiguous(), x_t[:, :batch].contiguous()
+        check(torch.equal(kernels.ec_group_matmul(at[:1], da[:1], u, u_t),
+                          kernels.ec_matmul(at[0], da[0], u, u_t)),
+              "ec_group_matmul on one member differs from ec_matmul")
         v, v_t = y[:, :batch].contiguous(), y_t[:, :batch].contiguous()
         check(torch.equal(kernels.ec_group_rmatmul(at[:1], da[:1], v, v_t),
                           kernels.ec_rmatmul(at[0], da[0], v, v_t)),
               "ec_group_rmatmul on one member differs from ec_rmatmul")
-        del x, x_t, y, y_t, v, v_t
+        del x, x_t, y, y_t, u, u_t, v, v_t
     gx = {b: torch.randn(N_EXPERTS, D_MODEL, b, generator=gen, device=dev)
           for b in (1, 8)}
     gy = {b: torch.randn(N_EXPERTS, D_FF, b, generator=gen, device=dev)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Probe the transposed EC kernels (``ec_rmatmul``, ``ec_group_rmatmul``) of
-one or more source trees on one NVIDIA GPU, in turns, at the main path's
-shapes: a 32,768^2 image at batch 1 and 8, the two least-squares / LP images
-(32,768 x 16,384 and 16,384 x 32,768) at batch 1, and the 8 experts' w1 of a
-Mixtral-8x7B layer (live 14,336 x 4,096 views of (8, 16,384, 4,096) stacks)
-at batch 1 and 8.
+"""Probe the EC kernels of one or more source trees on one NVIDIA GPU, both
+directions (forward ``ec_matmul`` / ``ec_group_matmul``, transposed
+``ec_rmatmul`` / ``ec_group_rmatmul``), in turns, at the main path's
+shapes: a 32,768^2 image at batch 1 and 8, the two least-squares / LP
+images (32,768 x 16,384 and 16,384 x 32,768) at batch 1, and the 8 experts'
+w1 of a Mixtral-8x7B layer (live 14,336 x 4,096 views of (8, 16,384, 4,096)
+stacks) at batch 1 and 8.
 
     python3 mvm_probe.py [--src DIR]... [--rounds N] [--iters N]
 
@@ -15,21 +16,24 @@ All trees are loaded into this one process, each under its own copy of the
 tree after tree, in ``--rounds`` rounds that alternate the order (A B, B A,
 ...), on the same inputs.  For each tree it prints what ``ptxas -v`` reports
 for its ``rram_mvm.cu`` kernels and, where the tree reports it
-(``rmatmul_layout``), the layout its launcher chose: kernel, blocks against
-resident slots (blocks an SM x SMs) and waves, units, partials a block.  For
-each shape and tree: rel-L2 against the plain version (must be <= 1e-5), run
-to run bit for bit, device ms per call (CUDA events) in each round, and the
+(``matmul_layout``, ``rmatmul_layout``), the layout its launcher chose:
+kernel, blocks against resident slots (blocks an SM x SMs) and waves, units,
+pieces of K (forward) or partials a block (transposed).  For each direction,
+shape and tree: rel-L2 against the plain version (must be <= 1e-5), run to
+run bit for bit, device ms per call (CUDA events) in each round, and the
 share of each CUDA kernel of a call (``torch.profiler``: the product against
 the pass that sums its partials); beside them the library call (cuBLAS
-``at.T @ y + da.T @ y_t``, or ``bmm`` on the members' transposes) and the
-bound (the images' bytes at 3.35 TB/s).  The last line is one JSON object.
-Needs a CUDA device; exits non-zero without one.
+``at @ x + da @ x_t`` / ``at.T @ y + da.T @ y_t``, or ``bmm`` on the
+members) and the bound (the images' and panels' bytes at 3.35 TB/s).  The
+last line is one JSON object.  Needs a CUDA device; exits non-zero without
+one.
 """
 from __future__ import annotations
 
 import argparse
 import importlib
 import json
+import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -61,8 +65,89 @@ def load_tree(src: Path) -> SimpleNamespace:
         sys.path.remove(str(src))
         purge()
     build.library()
-    return SimpleNamespace(rram=rram, build=build,
-                           layout=getattr(rram, "rmatmul_layout", None))
+    return SimpleNamespace(rram=rram, build=build, layout={
+        "forward": getattr(rram, "matmul_layout", None),
+        "transposed": getattr(rram, "rmatmul_layout", None)})
+
+
+def layout_text(lay) -> str:
+    if lay is None:
+        return "layout not reported"
+    last = (f"{lay['pieces']} pieces of K" if "pieces" in lay else
+            f"<= {lay['partials_per_block']} partials a block")
+    return (f"{'staged' if lay['staged'] else 'register loads'}, "
+            f"{lay['blocks']} blocks on {lay['blocks_per_sm']} x "
+            f"{lay['sms']} slots ({lay['waves']:.3f} waves), {lay['units']} "
+            f"units of {lay['rows_per_unit']} x {lay['cols_per_unit']}, "
+            f"{last}, workspace {lay['workspace_floats']} floats")
+
+
+def probe(direction, name, a, d, batch, gen, labels, trees, args):
+    """One direction at one shape: every tree against the plain version,
+    then timed in turns; returns the shape's record."""
+    dev = a.device
+    forward = direction == "forward"
+    group = a.ndim == 3
+    g = a.shape[0] if group else 1
+    m, k = a.shape[-2:]
+    rows_in = k if forward else m     # rows of the input panels
+    u = torch.randn(rows_in, g * batch, generator=gen, device=dev)
+    u_t = torch.randn(rows_in, g * batch, generator=gen, device=dev)
+
+    def members(v):    # (rows, g * b) panel -> (g, rows, b) for bmm
+        return v.view(v.shape[0], g, batch).permute(1, 0, 2)
+
+    ai, di = (a, d) if forward else (a.transpose(-2, -1), d.transpose(-2, -1))
+    if group:
+        library = (lambda: torch.bmm(ai, members(u))
+                   + torch.bmm(di, members(u_t)))
+    else:
+        library = lambda: torch.matmul(ai, u) + torch.matmul(di, u_t)
+    fn_name = ("ec_group_" if group else "ec_") + \
+        ("matmul" if forward else "rmatmul")
+    want = getattr(trees[0].rram, fn_name + "_plain")(a, d, u, u_t)
+    rows_out = m if forward else k
+    bound = 4 * (2 * g * m * k + 2 * g * rows_in * batch
+                 + g * rows_out * batch) / HBM_BYTES_PER_S * 1e3
+    shape = {"direction": direction, "shape": name, "batch": batch,
+             "bound_ms": bound, "trees": {}}
+    calls = []
+    for label, tree in zip(labels, trees):
+        run = getattr(tree.rram, fn_name)
+        fn = (lambda run=run: run(a, d, u, u_t))
+        got = fn()
+        err = rel_l2(got, want)
+        same = torch.equal(got, fn())
+        if err > EC_TOL or not same:
+            raise SystemExit(f"{label} {fn_name} {name} batch {batch}: "
+                             f"rel-L2 {err:.3e} against the plain version, "
+                             f"bit for bit run to run {same}")
+        row = {"rel_l2": err, "ms": [], "split_ms": {
+            short_kernel_name(key): ms
+            for key, ms in kernel_split(fn).items()}}
+        query = tree.layout[direction]
+        if query is not None:
+            lay = query(a, d, batch)._asdict()
+            lay["waves"] = lay["blocks"] / (lay["blocks_per_sm"] * lay["sms"])
+            row["layout"] = lay
+        shape["trees"][label] = row
+        calls.append((label, fn))
+    for r in range(args.rounds):
+        for label, fn in (calls if r % 2 == 0 else calls[::-1]):
+            shape["trees"][label]["ms"].append(device_time_ms(fn, args.iters))
+    shape["library_ms"] = device_time_ms(library, args.iters)
+    print(f"{fn_name} {name} batch {batch}: bound {bound:.4f} ms, library "
+          f"{shape['library_ms']:.4f} ms", flush=True)
+    for label, row in shape["trees"].items():
+        split = ", ".join(f"{key} {v:.4f}" for key, v in row["split_ms"]
+                          .items())
+        mean = sum(row["ms"]) / len(row["ms"])
+        print(f"  [{label}] ms {' / '.join(f'{t:.4f}' for t in row['ms'])} "
+              f"(mean {mean:.4f}, {bound / mean:.1%} of bound, "
+              f"{mean / shape['library_ms']:.3f}x library), rel-L2 "
+              f"{row['rel_l2']:.2e}; {layout_text(row.get('layout'))}; split "
+              f"{split}", flush=True)
+    return shape
 
 
 def main() -> int:
@@ -81,12 +166,16 @@ def main() -> int:
     labels = [str(s.parent.relative_to(HERE)) if s.parent.is_relative_to(HERE)
               else str(s.parent) for s in srcs]
     trees = [load_tree(s) for s in srcs]
-    result = {"device": torch.cuda.get_device_name(0), "trees": labels,
-              "ptxas": {}, "shapes": []}
-    print(f"device: {result['device']}", flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "trees": labels, "ptxas": {}, "shapes": []}
+    print(f"device: {result['device']} | {smi}", flush=True)
     for label, tree in zip(labels, trees):
         rows = {name: row for name, row in tree.build.ptxas_report().items()
-                if row["source"] == "rram_mvm.cu" and "ec_matmul" not in name}
+                if row["source"] == "rram_mvm.cu"}
         result["ptxas"][label] = rows
         for name, row in rows.items():
             print(f"[{label}] ptxas {name:32s} {row['registers']:3d} "
@@ -114,72 +203,10 @@ def main() -> int:
                reshaped(da, N // 2, N), 1),
               (f"{N_EXPERTS}x{mr}x{D_MODEL}", *stack, 1),
               (f"{N_EXPERTS}x{mr}x{D_MODEL}", *stack, 8)]
-    for name, a, d, batch in shapes:
-        g = a.shape[0] if a.ndim == 3 else 1
-        m, k = a.shape[-2:]
-        y = torch.randn(m, g * batch, generator=gen, device=dev)
-        y_t = torch.randn(m, g * batch, generator=gen, device=dev)
-        if a.ndim == 3:
-            def members(u, b=batch):
-                return u.view(m, g, b).permute(1, 0, 2)
-            library = (lambda: torch.bmm(a.transpose(1, 2), members(y))
-                       + torch.bmm(d.transpose(1, 2), members(y_t)))
-        else:
-            library = (lambda: torch.matmul(a.T, y)
-                       + torch.matmul(d.T, y_t))
-        plain = (trees[0].rram.ec_group_rmatmul_plain if a.ndim == 3
-                 else trees[0].rram.ec_rmatmul_plain)
-        want = plain(a, d, y, y_t)
-        bound = 4 * (2 * g * m * k + 2 * g * m * batch + g * k * batch) \
-            / HBM_BYTES_PER_S * 1e3
-        shape = {"shape": name, "batch": batch, "bound_ms": bound,
-                 "trees": {}}
-        calls = []
-        for label, tree in zip(labels, trees):
-            run = (tree.rram.ec_group_rmatmul if a.ndim == 3
-                   else tree.rram.ec_rmatmul)
-            fn = (lambda run=run: run(a, d, y, y_t))
-            got = fn()
-            err = rel_l2(got, want)
-            same = torch.equal(got, fn())
-            if err > EC_TOL or not same:
-                raise SystemExit(f"{label} {name} batch {batch}: rel-L2 "
-                                 f"{err:.3e} against the plain version, bit "
-                                 f"for bit run to run {same}")
-            row = {"rel_l2": err, "ms": [], "split_ms": {
-                short_kernel_name(key): ms
-                for key, ms in kernel_split(fn).items()}}
-            if tree.layout is not None:
-                lay = tree.layout(a, d, batch)._asdict()
-                lay["waves"] = lay["blocks"] / (lay["blocks_per_sm"]
-                                                * lay["sms"])
-                row["layout"] = lay
-            shape["trees"][label] = row
-            calls.append((label, fn))
-        for r in range(args.rounds):
-            for label, fn in (calls if r % 2 == 0 else calls[::-1]):
-                shape["trees"][label]["ms"].append(
-                    device_time_ms(fn, args.iters))
-        shape["library_ms"] = device_time_ms(library, args.iters)
-        print(f"{name} batch {batch}: bound {bound:.4f} ms, library "
-              f"{shape['library_ms']:.4f} ms", flush=True)
-        for label, row in shape["trees"].items():
-            lay = row.get("layout")
-            where = "layout not reported" if lay is None else (
-                f"{'staged' if lay['staged'] else 'register loads'}, "
-                f"{lay['blocks']} blocks on {lay['blocks_per_sm']} x "
-                f"{lay['sms']} slots ({lay['waves']:.3f} waves), "
-                f"{lay['units']} units of {lay['rows_per_unit']} x "
-                f"{lay['cols_per_unit']}, <= "
-                f"{lay['partials_per_block']} partials a block")
-            split = ", ".join(f"{k} {v:.4f}" for k, v in row["split_ms"]
-                              .items())
-            mean = sum(row["ms"]) / len(row["ms"])
-            print(f"  [{label}] ms {' / '.join(f'{t:.4f}' for t in row['ms'])}"
-                  f" (mean {mean:.4f}, {bound / mean:.1%} of bound), rel-L2 "
-                  f"{row['rel_l2']:.2e}; {where}; split {split}", flush=True)
-        result["shapes"].append(shape)
-        del y, y_t, want
+    for direction in ("forward", "transposed"):
+        for name, a, d, batch in shapes:
+            result["shapes"].append(probe(direction, name, a, d, batch, gen,
+                                          labels, trees, args))
     print(json.dumps(result))
     return 0
 

@@ -8,7 +8,7 @@ from .encode import (encode_matmul, encode_matmul_plain, encode_matmul_rng,
 from .rram_mvm import (ec_group_matmul, ec_group_matmul_plain,
                        ec_group_rmatmul, ec_group_rmatmul_plain, ec_matmul,
                        ec_matmul_plain, ec_rmatmul, ec_rmatmul_plain,
-                       rmatmul_layout)
+                       matmul_layout, rmatmul_layout)
 from .solver_update import (cg_update, cg_update_plain, richardson_update,
                             richardson_update_plain)
 from .tridiag import (stencil_denoise, stencil_denoise_plain, thomas_solve,
@@ -25,6 +25,7 @@ __all__ = [
     "ec_group_matmul_plain",
     "ec_group_rmatmul",
     "ec_group_rmatmul_plain",
+    "matmul_layout",
     "rmatmul_layout",
     "encode_matmul",
     "encode_matmul_plain",

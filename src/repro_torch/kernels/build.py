@@ -39,8 +39,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: C signature of every exported function (argtypes; restype is int, the
 #: cudaError_t of the call): the launchers and their size queries.
 SIGNATURES = {
-    "repro_ec_matmul": [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I,
-                        _P],
+    "repro_ec_matmul_workspace": [_P, _P, _I, _LL, _I, _I, _I, _I,
+                                  ctypes.POINTER(_LL)],
+    "repro_ec_matmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I, _I,
+                        _I, _I, _P],
     "repro_ec_rmatmul_workspace": [_P, _P, _I, _LL, _I, _I, _I, _I,
                                    ctypes.POINTER(_LL)],
     "repro_ec_rmatmul": [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I, _I, _I,
@@ -56,10 +58,11 @@ SIGNATURES = {
 }
 
 #: One count per kernel.  A count is one call of the C launcher, which may
-#: run more than one CUDA kernel: ``ec_rmatmul``'s product plus the pass that
-#: sums its blocks' partials; ``encode_matmul``'s pre-passes plus its
-#: product.  The grouped EC kernels are the solo ones with a member
-#: axis in the grid, counted under their own names.
+#: run more than one CUDA kernel: ``ec_matmul``'s product plus, when K is
+#: more than one piece, the pass that adds the pieces; ``ec_rmatmul``'s
+#: product plus the pass that sums its blocks' partials; ``encode_matmul``'s
+#: pre-passes plus its product.  The grouped EC kernels are the solo ones
+#: with a member axis in their units, counted under their own names.
 LAUNCHES: Dict[str, int] = {"ec_matmul": 0, "ec_rmatmul": 0,
                             "ec_group_matmul": 0, "ec_group_rmatmul": 0,
                             "encode_matmul": 0, "encode_matmul_rng": 0,

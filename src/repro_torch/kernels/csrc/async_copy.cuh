@@ -7,7 +7,9 @@
 //    box of a tensor described by a CUtensorMap (cp.async.bulk.tensor), each
 //    completing transaction bytes on an mbarrier;
 //  - mbarrier init, arrive (plain, or with the bytes a phase also waits
-//    for), and a wait on a phase's parity.
+//    for), and a wait on a phase's parity;
+//  - the proxy fence a consumer of a TMA-filled stage needs before it
+//    releases the stage.
 #pragma once
 
 #include <cuda.h>
@@ -88,6 +90,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// Copy `bytes` contiguous bytes by the TMA engine, completing them on bar,
+// whose phase must expect them (mbar_expect).
+__device__ __forceinline__ void bulk_copy_tx(void* dst, const void* src,
+                                             unsigned bytes,
+                                             unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // The box at element coordinates (c0, c1, c2) of the tensor map (innermost
 // first) into dst, by the TMA engine; elements outside the tensor are zeros.
 // The map must be a __grid_constant__ kernel parameter.
@@ -101,6 +115,15 @@ __device__ __forceinline__ void tensor_copy_3d(void* dst,
       "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1),
       "r"(c2), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Orders this thread's generic-proxy accesses of shared memory (its reads
+// of a stage) before later async-proxy ones (the TMA writes that refill the
+// stage once it is released).  Without it a producer's refill can overwrite
+// a stage under a consumer that is still reading it: the mbarrier's
+// release and acquire order the generic proxy only.
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar,

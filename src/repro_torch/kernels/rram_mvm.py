@@ -16,10 +16,11 @@ fp32 accumulation, fp32 out.  The images are row-major with unit column
 stride and may have a row stride larger than their width, so one capacity
 block of a padded image runs as a view without a copy; the panels are
 contiguous.  On CUDA tensors the wrappers launch the hand-written kernels in
-``csrc/rram_mvm.cu`` (memory-bound GEMVs: each reads the images once; a solo
-product is the grouped launcher with one member; the transposed one stages
-the images by the TMA engine where they are 16-byte aligned, see
-:func:`rmatmul_layout`); on CPU tensors they run the ``*_plain`` versions.
+``csrc/rram_mvm.cu`` (memory-bound GEMVs: each reads the images once over a
+persistent one-wave grid, staging them by the TMA engine where they are
+16-byte aligned; a solo product is the grouped launcher with one member;
+see :func:`matmul_layout` and :func:`rmatmul_layout`); on CPU tensors they
+run the ``*_plain`` versions.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ from ._checks import check_images, check_panels, on_cpu, row_stride
 
 __all__ = ["ec_matmul", "ec_matmul_plain", "ec_rmatmul", "ec_rmatmul_plain",
            "ec_group_matmul", "ec_group_matmul_plain", "ec_group_rmatmul",
-           "ec_group_rmatmul_plain", "rmatmul_layout", "RmatmulLayout",
-           "MAX_KERNEL_BATCH"]
+           "ec_group_rmatmul_plain", "matmul_layout", "MatmulLayout",
+           "rmatmul_layout", "RmatmulLayout", "MAX_KERNEL_BATCH"]
 
 #: Widest panel one launch takes; wider panels are split into launches of
 #: this many columns (each re-reads the images).
@@ -115,30 +116,52 @@ def _launch_ec(kernel: str, at, da, u, u_t, transpose: bool,
     out = torch.empty(k if transpose else m, u.shape[1], dtype=torch.float32,
                       device=u.device)
     ld = u.shape[1]
+    query = rmatmul_layout if transpose else matmul_layout
     for c0 in range(0, batch, MAX_KERNEL_BATCH):
         cols = min(MAX_KERNEL_BATCH, batch - c0)
-        ptrs = (at.data_ptr(), da.data_ptr(), u[:, c0:].data_ptr(),
-                u_t[:, c0:].data_ptr(), out[:, c0:].data_ptr())
-        if not transpose:
-            build.launch(kernel, "repro_ec_matmul", u.device, *ptrs, g,
-                         img_stride, member_ld, m, k, row_stride(img), cols,
-                         ld)
-            continue
-        floats = rmatmul_layout(at, da, cols).workspace_floats
+        floats = query(at, da, cols).workspace_floats
         ws = torch.empty(floats, dtype=torch.float32, device=u.device)
-        build.launch(kernel, "repro_ec_rmatmul", u.device, *ptrs,
-                     ws.data_ptr(), floats, g, img_stride, member_ld, m, k,
-                     row_stride(img), cols, ld, ld)
+        args = (at.data_ptr(), da.data_ptr(), u[:, c0:].data_ptr(),
+                u_t[:, c0:].data_ptr(), out[:, c0:].data_ptr(),
+                ws.data_ptr() if floats else None, floats, g, img_stride,
+                member_ld, m, k, row_stride(img), cols, ld)
+        if transpose:
+            build.launch(kernel, "repro_ec_rmatmul", u.device, *args, ld)
+        else:
+            build.launch(kernel, "repro_ec_matmul", u.device, *args)
     return out
 
 
 def ec_matmul(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
               x_t: torch.Tensor) -> torch.Tensor:
-    """``at @ x + da @ x_t`` for (M, K) images and (K, batch) panels."""
+    """``at @ x + da @ x_t`` for (M, K) images and (K, batch) panels.  Each
+    row is summed over 4,096-column pieces of K in a fixed order and the
+    pieces are added in order, so the result depends on K alone: the same
+    run to run, whatever the grid (:func:`matmul_layout`)."""
     _check("ec_matmul", at, da, x, x_t, at.shape[-1])
     if on_cpu(x):
         return ec_matmul_plain(at, da, x, x_t)
     return _launch_ec("ec_matmul", at, da, x, x_t, transpose=False)
+
+
+class MatmulLayout(NamedTuple):
+    """How the forward launcher runs a call (``repro_ec_matmul_workspace``
+    in ``csrc/rram_mvm.cu``): the staged (TMA) kernel or register loads, a
+    persistent grid of ``blocks`` = ``blocks_per_sm`` x ``sms`` (or one
+    block a unit, if fewer), ``units`` of ``rows_per_unit`` rows x
+    ``cols_per_unit`` columns (a piece of K) cut among them in order, K in
+    ``pieces`` pieces, and the workspace floats: the pieces' partial sums
+    when there is more than one, and for the staged kernel x and x_tilde
+    packed."""
+    workspace_floats: int
+    staged: bool
+    blocks: int
+    blocks_per_sm: int
+    sms: int
+    units: int
+    rows_per_unit: int
+    cols_per_unit: int
+    pieces: int
 
 
 class RmatmulLayout(NamedTuple):
@@ -160,26 +183,39 @@ class RmatmulLayout(NamedTuple):
     partials_per_block: int
 
 
-_LAYOUTS: Dict[tuple, RmatmulLayout] = {}
+_LAYOUTS: Dict[tuple, tuple] = {}
+
+
+def _layout(kind, symbol: str, at: torch.Tensor, da: torch.Tensor,
+            batch: int):
+    """Ask the launcher's query ``symbol`` for its layout, once per key."""
+    img = at[0] if at.ndim == 3 else at
+    g, img_stride = (at.shape[0], at.stride(0)) if at.ndim == 3 else (1, 0)
+    (m, k), lda = img.shape, row_stride(img)
+    key = (symbol, g, m, k, lda, img_stride, batch, at.data_ptr() % 16,
+           da.data_ptr() % 16, at.device)
+    if key not in _LAYOUTS:
+        got = (ctypes.c_longlong * len(kind._fields))()
+        build.query(symbol, at.device, at.data_ptr(), da.data_ptr(), g,
+                    img_stride, m, k, lda, batch, got)
+        _LAYOUTS[key] = kind(got[0], bool(got[1]), *got[2:])
+    return _LAYOUTS[key]
+
+
+def matmul_layout(at: torch.Tensor, da: torch.Tensor,
+                  batch: int) -> MatmulLayout:
+    """The layout of one forward launch on CUDA images ``at``/``da`` ((M,
+    K), or a (g, M, K) stack) at ``batch`` (1..8) columns a member.  The
+    launcher decides it alone, from the shapes, strides, batch, the device
+    and the images' 16-byte alignment; it is asked once per such key."""
+    return _layout(MatmulLayout, "repro_ec_matmul_workspace", at, da, batch)
 
 
 def rmatmul_layout(at: torch.Tensor, da: torch.Tensor,
                    batch: int) -> RmatmulLayout:
-    """The layout of one transposed launch on CUDA images ``at``/``da``
-    ((M, K), or a (g, M, K) stack) at ``batch`` (1..8) columns a member.
-    The launcher decides it alone, from the shapes, strides, batch, the
-    device and the images' 16-byte alignment; it is asked once per such key."""
-    img = at[0] if at.ndim == 3 else at
-    g, img_stride = (at.shape[0], at.stride(0)) if at.ndim == 3 else (1, 0)
-    (m, k), lda = img.shape, row_stride(img)
-    key = (g, m, k, lda, img_stride, batch, at.data_ptr() % 16,
-           da.data_ptr() % 16, at.device)
-    if key not in _LAYOUTS:
-        got = (ctypes.c_longlong * len(RmatmulLayout._fields))()
-        build.query("repro_ec_rmatmul_workspace", at.device, at.data_ptr(),
-                    da.data_ptr(), g, img_stride, m, k, lda, batch, got)
-        _LAYOUTS[key] = RmatmulLayout(got[0], bool(got[1]), *got[2:])
-    return _LAYOUTS[key]
+    """The layout of one transposed launch, as :func:`matmul_layout`."""
+    return _layout(RmatmulLayout, "repro_ec_rmatmul_workspace", at, da,
+                   batch)
 
 
 def ec_rmatmul(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
@@ -199,7 +235,8 @@ def ec_group_matmul(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
     """``at[g] @ x_g + da[g] @ x_t_g`` for every member g of (g, M, K)
     image stacks in one launch; ``x``/``x_t`` are (K, g * batch) panels with
     member g's columns at ``g * batch``; returns the (M, g * batch) panel
-    laid out the same way."""
+    laid out the same way.  Member g's columns equal the solo
+    :func:`ec_matmul` on member g bit for bit."""
     batch = _check_group("ec_group_matmul", at, da, x, x_t, at.shape[-1])
     if on_cpu(x):
         return ec_group_matmul_plain(at, da, x, x_t)

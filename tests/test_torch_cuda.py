@@ -91,7 +91,7 @@ def test_transposed_and_thomas_kernels_match_plain_versions(cuda_device,
 
 
 def _block_ranges(lay):
-    """Each block's units [begin, end) under a transposed layout."""
+    """Each block's units [begin, end) under a layout."""
     return [(b * lay.units // lay.blocks, (b + 1) * lay.units // lay.blocks)
             for b in range(lay.blocks)]
 
@@ -217,6 +217,135 @@ def test_group_rmatmul_units_straddle_members(cuda_device, g, batch):
             assert rel(got[:, cols], kernels.ec_rmatmul(
                 at[i], da[i], y[:, cols].contiguous(),
                 yt[:, cols].contiguous())) <= 1e-6
+    torch.cuda.synchronize()
+
+
+def test_matmul_layout_is_one_wave_and_covers_the_pieces(cuda_device):
+    """The forward launcher runs at most one wave of the resident slots it
+    reports (one block a unit when there are fewer units), cuts the units
+    -- (member, 16 rows, a 4,096-column piece of K) -- in equal shares,
+    takes the staged kernel on 16-byte aligned images and register loads
+    otherwise, and asks for a workspace that holds every unit's partial
+    panel when K is more than one piece (none when it is one) and, for the
+    staged kernel, x and x_tilde of every column packed."""
+    from repro_torch.kernels.rram_mvm import matmul_layout
+    dev = cuda_device
+    big = torch.empty(32768, 32768, device=dev)
+    stack = torch.empty(8, 16384, 4096, device=dev)
+    cases = [(big, big, 1, 1, True), (big, big, 8, 1, True),
+             (big[:, :16384], big[:, :16384], 1, 1, True),
+             (big[:16384], big[:16384], 1, 1, True),
+             (stack[:, :14336], stack[:, :14336], 1, 8, True),
+             (stack[:, :14336], stack[:, :14336], 8, 8, True),
+             (big[:5, :10], big[:5, :10], 3, 1, True),
+             (big[:100, :4097], big[:100, :4097], 2, 1, True),
+             (big[:100, 1:1001], big[:100, 1:1001], 1, 1, False),
+             (big[:100, 1:8193], big[:100, 1:8193], 5, 1, False)]
+    for at, da, batch, g, staged in cases:
+        lay = matmul_layout(at, da, batch)
+        m, k = at.shape[-2:]
+        assert (lay.rows_per_unit, lay.cols_per_unit) == (16, 4096)
+        pieces = max(1, -(-k // lay.cols_per_unit))
+        assert lay.pieces == pieces
+        assert lay.staged == staged
+        assert lay.units == g * -(-m // lay.rows_per_unit) * pieces
+        assert lay.blocks == min(lay.blocks_per_sm * lay.sms, lay.units)
+        assert lay.sms == torch.cuda.get_device_properties(dev) \
+            .multi_processor_count
+        sizes = {hi - lo for lo, hi in _block_ranges(lay)}
+        assert max(sizes) - min(sizes) <= 1
+        partials = 0 if pieces == 1 else \
+            lay.units * lay.rows_per_unit * batch
+        assert lay.workspace_floats >= partials + \
+            (2 * g * batch * k if staged else 0)
+        if not staged:
+            assert lay.workspace_floats == partials
+    # The main path's images fill whole waves of the resident slots.
+    lay = matmul_layout(big, big, 1)
+    assert lay.blocks == lay.blocks_per_sm * lay.sms
+    del big, stack
+
+
+def _check_matmul(at, da, batch, seed, staged):
+    """ec_matmul (or the grouped kernel on a (g, M, K) stack) on these
+    views: the variant taken, against the plain version, run to run (20
+    runs), a group of one against the solo call and, on a stack, every
+    member against its solo call, bit for bit; returns the output."""
+    from repro_torch.kernels.rram_mvm import matmul_layout
+    dev = at.device
+    g = at.shape[0] if at.ndim == 3 else 1
+    k = at.shape[-1]
+    x, xt = randn((k, g * batch), seed, dev), randn((k, g * batch), seed + 1,
+                                                    dev)
+    assert matmul_layout(at, da, min(batch, 8)).staged == staged
+    if at.ndim == 2:
+        run, plain = kernels.ec_matmul, kernels.ec_matmul_plain
+    else:
+        run, plain = kernels.ec_group_matmul, kernels.ec_group_matmul_plain
+    kernels.reset_launches()
+    got = run(at, da, x, xt)
+    assert sum(kernels.LAUNCHES.values()) == -(-batch // 8)
+    assert got.shape == (at.shape[-2], g * batch)
+    assert rel(got, plain(at, da, x, xt)) <= 1e-5
+    for _ in range(20):   # a stage refilled under a reader shows as a change
+        assert torch.equal(got, run(at, da, x, xt))
+    one = (at[:1], da[:1]) if at.ndim == 3 else (at[None], da[None])
+    u, ut = x[:, :batch].contiguous(), xt[:, :batch].contiguous()
+    assert torch.equal(kernels.ec_group_matmul(*one, u, ut),
+                       kernels.ec_matmul(one[0][0], one[1][0], u, ut))
+    for i in range(g if at.ndim == 3 else 0):
+        cols = slice(i * batch, (i + 1) * batch)
+        assert torch.equal(got[:, cols], kernels.ec_matmul(
+            at[i], da[i], x[:, cols].contiguous(), xt[:, cols].contiguous()))
+    return got
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 11])
+@pytest.mark.parametrize("k", [1499, 4097])
+def test_matmul_ragged_edges_both_variants(cuda_device, k, batch):
+    """Ragged K (1,499; 4,097, which crosses a piece boundary: a sum pass
+    adds two pieces) and M (4,097): through the staged kernel on a view of
+    a padded image (row stride 1,504 or 4,104, 16-byte aligned; the tensor
+    map's zero fill covers the edges) and through the register kernel on
+    the contiguous image (row stride K) and on a view whose base is one
+    float off 16 bytes.  The two kernels sum every row in the same order:
+    on the same image they agree bit for bit."""
+    dev = cuda_device
+    m, lda = 4097, -(-k // 4) * 4 + 4
+    pad = randn((m, lda), 70, dev), randn((m, lda), 71, dev)
+    staged = _check_matmul(pad[0][:, :k], pad[1][:, :k], batch, 72,
+                           staged=True)
+    tight = pad[0][:, :k].contiguous(), pad[1][:, :k].contiguous()
+    assert torch.equal(_check_matmul(*tight, batch, 72, staged=False),
+                       staged)
+    _check_matmul(pad[0][:, 1:1 + k], pad[1][:, 1:1 + k], batch, 76,
+                  staged=False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 11])
+@pytest.mark.parametrize("g", [3, 5, 8])
+def test_group_matmul_units_straddle_members(cuda_device, g, batch):
+    """Groups of 3, 5 and 8 ragged members (1,001 x 4,097 live views of
+    padded stacks, two pieces of K each, and the same stacks with an
+    unaligned base), whose blocks' unit ranges cross from one member into
+    the next where the block count is not a multiple of g (where it is,
+    members start on block boundaries): against the plain version, run to
+    run, each member equal to its solo call bit for bit, and a group of one
+    equal to the solo call bit for bit."""
+    from repro_torch.kernels.rram_mvm import matmul_layout
+    dev = cuda_device
+    m, k = 1001, 4097
+    stack = randn((g, m + 3, 4104), 80, dev), randn((g, m + 3, 4104), 81, dev)
+    views = [(stack[0][:, :m, :k], stack[1][:, :m, :k], True),
+             (stack[0][:, :m, 3:3 + k], stack[1][:, :m, 3:3 + k], False)]
+    for at, da, staged in views:
+        lay = matmul_layout(at, da, min(batch, 8))
+        per_member = lay.units // g
+        straddle = any(lo // per_member != (hi - 1) // per_member
+                       for lo, hi in _block_ranges(lay))
+        assert not (straddle and lay.blocks % g == 0)
+        _check_matmul(at, da, batch, 82, staged)
     torch.cuda.synchronize()
 
 

@@ -81,3 +81,26 @@ def test_package_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
                          capture_output=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_forward_layout_query_imports_alone():
+    """The forward launcher's layout query and its record are exported
+    beside the transposed ones and import with ``jax`` and ``repro``
+    blocked; the records differ in their last field."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.kernels import matmul_layout, rmatmul_layout\n"
+        "from repro_torch.kernels.rram_mvm import (MatmulLayout,\n"
+        "    RmatmulLayout)\n"
+        "print(len(MatmulLayout._fields), MatmulLayout._fields[-1],\n"
+        "      RmatmulLayout._fields[-1])\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["9", "pieces", "partials_per_block"]
