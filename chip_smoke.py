@@ -18,6 +18,13 @@ non-zero, printing no result, without them or without the repository's
      piece order by a second pass; transposed: 16 rows x 512 columns, the
      blocks' partials added in block order), fed by a TMA ring -- the
      staged kernel, which both must take here, in phase 5 and in phase 6;
+     thomas_solve held and timed at lam 1e-2 (the Thomas engines'), also
+     timed at 1e-12 and 1e3, held at lam 10 to its plain version and at lam
+     1e3 to a float64 solve (within twice the plain version's error), bit
+     for bit run to run, with each CUDA kernel's share of a call (the
+     transposes of a panel wider than one column); and the launch floor
+     (500 back-to-back launches of stencil_denoise on a 1 x 1 panel),
+     recorded beside the four small kernels;
   3. serve 8 single-vector requests and one batch of 8 through
      ``backend="cuda"``, against the digital ``a @ x``, the ``reference``
      backend on the same image, and -- with the input DAC off, where both
@@ -91,10 +98,15 @@ D_MODEL, D_FF, N_EXPERTS, N_LAYERS = 4096, 14336, 8, 32
 CHAIN_TOL = 1e-4        # cuda vs reference after N_LAYERS chained layers
 ENCODE_ROWS = 256       # rows of x in phase 7
 ENCODE_SEED = 2024
-# Thomas: each row is a dependent FMA + multiply forward and an FMA backward,
-# about 12 cycles in all; at the H100 SXM's 1.98 GHz boost clock.
-THOMAS_CYCLES_PER_ROW = 12
+# Thomas, a block scan (csrc/tridiag.cu): in each of its two passes a thread
+# composes and replays its 64 rows (2 x 64 dependent FMAs, 4 cycles each)
+# around an 11-level shuffle scan (5 over lanes, 5 over warp totals, 1 shift;
+# about 30 cycles a level with its barriers), at the 1.98 GHz boost clock.
+THOMAS_ROWS_PER_THREAD = 64
+THOMAS_SCAN_LEVELS = 11
+THOMAS_CHECK_LAMS = (10.0, 1e3)  # |c'| ~ 0.92 and ~ 0.97: long carries
 SM_CLOCK_HZ = 1.98e9
+LAUNCH_FLOOR_ITERS = 500
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than queueing a run
 # Instructions a draw of encode_matmul_rng's generator issues at the least,
 # counted from the source (philox_normal in csrc/encode_matmul.cu):
@@ -330,6 +342,15 @@ def main() -> int:
           flush=True)
     check(A.at_pad.shape == (N, N), "unexpected padded image shape")
 
+    # The least a separate launch takes: a one-element stencil, back to back.
+    one = torch.ones(1, 1, device=dev)
+    floor_ms = device_time_ms(lambda: kernels.stencil_denoise(one, cfg.lam,
+                                                              cfg.h),
+                              LAUNCH_FLOOR_ITERS)
+    print(f"[2] launch floor: {floor_ms * 1e3:.3f} us a launch "
+          f"(stencil_denoise on a 1 x 1 panel, {LAUNCH_FLOOR_ITERS} launches "
+          f"back to back, CUDA events)", flush=True)
+
     rows = {}
     for batch in (1, 8):
         x = torch.randn(N, batch, generator=gen, device=dev)
@@ -384,25 +405,62 @@ def main() -> int:
         check(torch.equal(kernels.ec_rmatmul(at, da, y, y_t),
                           kernels.ec_rmatmul(at, da, y, y_t)),
               "ec_rmatmul is not the same run to run")
-        # Thomas: checked at STENCIL_CHECK_LAM (the identity in fp32 at the
-        # engine's lam), timed at the engine's lam (the same work).  The
-        # plain version is 2n small steps from the host: 1 warmup, 1 timed.
-        checked = compare(
-            f"thomas_solve {m}x{batch} lam {STENCIL_CHECK_LAM:g} (check)",
+        # Thomas: held to its plain version and timed at STENCIL_CHECK_LAM,
+        # the lam of the main path's Thomas engines ([3t], [5], [6]; the
+        # identity in fp32 at the default engine's 1e-12), and also timed
+        # there and at 1e3; checked at THOMAS_CHECK_LAMS -- at 1e3 against a
+        # float64 solve, where the kernel's error must stay within twice the
+        # plain version's (a scan that cut a carry short misses by far
+        # more) -- and bit for bit run to run.  The plain version is 2n
+        # small steps from the host: timed once.  Bytes: p read, y written,
+        # and the coefficient rows before their fixed point (thomas_tail),
+        # the only ones the kernel reads.
+        head = kernels.tridiag.thomas_tail(m, STENCIL_CHECK_LAM, cfg.h)[0]
+        res["thomas_solve"] = compare(
+            f"thomas_solve {m}x{batch} lam {STENCIL_CHECK_LAM:g}",
             lambda: kernels.thomas_solve(p, STENCIL_CHECK_LAM, cfg.h),
             lambda: kernels.thomas_solve_plain(p, STENCIL_CHECK_LAM, cfg.h),
-            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * m),
-            flops=5 * m * batch, iters=3, plain_iters=1, plain_warmup=0)
-        res["thomas_solve"] = compare(
-            f"thomas_solve {m}x{batch} lam {cfg.lam:g}",
-            lambda: kernels.thomas_solve(p, cfg.lam, cfg.h),
-            lambda: kernels.thomas_solve_plain(p, cfg.lam, cfg.h),
-            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * m),
-            flops=5 * m * batch, iters=20, plain_iters=1, plain_warmup=1)
+            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * head),
+            flops=5 * m * batch, iters=50, plain_iters=1, plain_warmup=0)
+        lam10, lam_big = THOMAS_CHECK_LAMS
+        got = kernels.thomas_solve(p, lam10, cfg.h)
+        err10 = rel_l2(got, kernels.thomas_solve_plain(p, lam10, cfg.h))
+        want64 = kernels.tridiag.thomas_solve_fp64(p, lam_big, cfg.h)
+        got = kernels.thomas_solve(p, lam_big, cfg.h)
+        fp64_err = rel_l2(got, want64)
+        fp64_err_plain = rel_l2(
+            kernels.thomas_solve_plain(p, lam_big, cfg.h), want64)
+        same = torch.equal(got, kernels.thomas_solve(p, lam_big, cfg.h))
+        lam_ms = {f"{lam:g}": device_time_ms(
+            lambda: kernels.thomas_solve(p, lam, cfg.h), 50)
+            for lam in (cfg.lam, lam_big)}
+        print(f"    thomas_solve {m}x{batch}: rel-L2 against plain "
+              f"{err10:.2e} at lam {lam10:g}; against float64 at lam "
+              f"{lam_big:g} {fp64_err:.3e} (plain {fp64_err_plain:.3e}, "
+              f"ratio {fp64_err / fp64_err_plain:.3f}); bit for bit run to "
+              f"run: {same}; kernel ms by lam: " + ", ".join(
+                  f"{lam} {ms:.5f}" for lam, ms in lam_ms.items()),
+              flush=True)
+        check(err10 <= ELEMENTWISE_TOL, f"thomas_solve: rel-L2 {err10:.3e} "
+              f"against its plain version at lam {lam10:g}")
+        check(fp64_err <= 2 * fp64_err_plain,
+              f"thomas_solve: error against float64 at lam {lam_big:g} "
+              f"above twice the plain version's")
+        check(same, "thomas_solve is not the same run to run")
+        del got, want64
+        steps = 2 * (2 * THOMAS_ROWS_PER_THREAD + THOMAS_SCAN_LEVELS)
         res["thomas_solve"].update(
-            rel_l2=checked["rel_l2"], max_abs_err=checked["max_abs_err"],
-            err_lam=STENCIL_CHECK_LAM, ms_lam=cfg.lam,
-            chain_ms=THOMAS_CYCLES_PER_ROW * m / SM_CLOCK_HZ * 1e3)
+            err_lam=STENCIL_CHECK_LAM, ms_lam=STENCIL_CHECK_LAM,
+            lam_ms=lam_ms, rel_l2_lam10=err10, fp64_err=fp64_err,
+            fp64_err_plain=fp64_err_plain, coef_head_rows=head,
+            scan_steps=steps,
+            scan_ms=2 * (2 * THOMAS_ROWS_PER_THREAD * 4
+                         + THOMAS_SCAN_LEVELS * 30) / SM_CLOCK_HZ * 1e3,
+            split_ms=kernel_split(
+                lambda: kernels.thomas_solve(p, STENCIL_CHECK_LAM, cfg.h)))
+        print(f"    thomas_solve {m}x{batch} per call: " + ", ".join(
+            f"{short_kernel_name(key)} {ms:.4f} ms" for key, ms in
+            res["thomas_solve"]["split_ms"].items()), flush=True)
         v = [torch.randn(m, batch, generator=gen, device=dev)
              for _ in range(4)]
         alpha = torch.rand(batch, generator=gen, device=dev)
@@ -419,6 +477,9 @@ def main() -> int:
             lambda: kernels.richardson_update_plain(*v[:3], omega),
             ELEMENTWISE_TOL, nbytes=4 * (5 * m * batch + 1),
             flops=3 * m * batch, iters=50)
+        for name in ("stencil_denoise", "thomas_solve", "cg_update",
+                     "richardson_update"):
+            res[name]["launch_floor_ms"] = floor_ms
         rows[batch] = res
     torch.cuda.synchronize()
 
@@ -1073,7 +1134,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "rel_l2": row["rel_l2"],
-            **{k: row[k] for k in ("err_lam", "ms_lam", "chain_ms", "shape",
+            **{k: row[k] for k in ("err_lam", "ms_lam", "lam_ms",
+                                   "rel_l2_lam10", "fp64_err",
+                                   "fp64_err_plain", "coef_head_rows",
+                                   "scan_steps", "scan_ms",
+                                   "launch_floor_ms", "shape",
                                    "layout", "group_call_ms", "ptxas",
                                    "sm_mhz", "watts", "tflops", "split_ms",
                                    "bound_gen_ms", "bound_gen_by")
@@ -1085,7 +1150,9 @@ def main() -> int:
             "batch": 1,
             "batch8": ({k: rows[8][name][k] for k in
                         ("ms", "call_ms", "plain_ms", "bound_ms",
-                         "library_ms", "group_call_ms", "layout")
+                         "library_ms", "group_call_ms", "layout",
+                         "lam_ms", "rel_l2_lam10", "fp64_err",
+                         "fp64_err_plain", "split_ms")
                         if k in rows[8][name]}
                        if name in rows[8] else None),
             # The phase-5 images: other M, K and layouts, batch 1.

@@ -52,7 +52,8 @@ SIGNATURES = {
     "repro_encode_matmul": [_P, _P, _P, _P, _P, _LL, _P, _LL, _I, _I, _I, _I,
                             _I, _F, _I, ctypes.c_ulonglong, _I, _P],
     "repro_stencil_denoise": [_P, _P, _LL, _I, _F, _F, _P],
-    "repro_thomas_solve": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "repro_thomas_solve": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _P,
+                           _P],
     "repro_cg_update": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     "repro_richardson_update": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
 }

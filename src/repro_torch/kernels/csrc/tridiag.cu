@@ -23,31 +23,54 @@
 // Replaces src/repro/kernels/tridiag.py::thomas_solve (_thomas_kernel).  The
 // matrix is constant, so the elimination coefficients c' and the pivots come
 // precomputed (the wrapper's fp32 recurrence, as the JAX wrapper does) and
-// the kernel runs the two right-hand-side recurrences of each column:
+// the kernel solves the two right-hand-side recurrences of each column:
 //
-//   forward   d'_i = (p_i - a d'_{i-1}) piv_i       (d'_{-1} = 0)
-//   backward  y_i  = d'_i - c'_i y_{i+1}             (c'_{n-1} = 0, y_n = 0)
+//   forward   d'_i = alpha_i d'_{i-1} + beta_i  alpha_i = -a piv_i,
+//                                               beta_i = piv_i p_i, d'_{-1} = 0
+//   backward  y_i  = gamma_i y_{i+1} + d'_i     gamma_i = -c'_i, y_n = 0
 //
-// with a = lam * h.  d' is written into the output and overwritten in place
-// by the backward pass, as the Pallas kernel does with its VMEM scratch.
+// with a = lam * h (c'_{n-1} = 0).  Both are affine, and affine maps compose
+// associatively, (A2, B2) o (A1, B1) = (A2 A1, A2 B1 + B2), so each runs as
+// a scan: exact, with no truncation that leans on |alpha| being small (at
+// lam = 1e3, |c'| is about 0.97).
 //
-// Bound: 4*(2*n*batch + 2*n) bytes (p, c', piv read, y written) and 5 flops
-// an element: about 0.3 us at n = 32768, batch 1.  What limits it is the
-// chain: each column is 2n dependent steps (FMA + multiply forward, FMA
-// backward, about 8 and 4 cycles), one thread per column, so at batch 1 a
-// single thread takes roughly 12 * 32768 cycles, 0.2 ms at 1.98 GHz.
+// Bound: p read and y written, 8*n*batch bytes (the coefficients reach a
+// fixed point within a few hundred rows, below), and a few flops an element:
+// about 0.08 us at n = 32768, batch 1.  A sequential recurrence is 2n
+// dependent steps on one thread; here a thread's chain is 2 * (2R + 11)
+// steps (R = kSR rows, 11 shuffle levels of the block scan), and the rest is
+// getting one column through one SM.
 //
-// Design: the Pallas kernel keeps the whole (n, block_b) panel in VMEM; an SM
-// has 227 KB, so here the panel is staged through shared memory in chunks of
-// rows.  A block of kTThreads threads owns up to kTCols columns; lane c < cols
-// of warp 0 runs column c's recurrence, reading p (or d') and piv (or c')
-// from shared memory, never from device memory, so no global-load latency
-// sits in the chain.  All threads of the block copy the next chunk with
-// cp.async (double-buffered) while warp 0 works on the current one, so the
-// copies overlap the chain.  Chunks hold kTBuf panel elements, at most
-// kTMaxRows rows.
-#include <cuda_pipeline_primitives.h>
+// Design: one block of T <= kSMaxThreads threads per column (grid = batch),
+// thread t owning rows [t R, t R + R) of a tile of T R rows, held in
+// registers (512 threads of 64 rows leave 128 registers a thread; 1,024
+// threads would leave 64, too few for 32 rows and the scan without spills).  For each pass and tile: the thread
+// composes its chunk's map, an exclusive block scan of the T maps (warp
+// shuffles, then one warp over the warp totals) gives each chunk its
+// carry-in, and the thread replays its chunk from it.  The tile's carry-out
+// (the last replayed value) enters the next tile, so an n above T R walks
+// tiles in order; d' goes to y between the passes, except for the last
+// tile, whose d' stays in registers (a one-tile column never writes it).
+//
+// Memory: a column comes in and goes out through padded shared memory by
+// 16-byte copies (cp.async in, vector stores out), so loads and stores are
+// coalesced and the thread's 16-byte reads of its own rows are free of bank
+// conflicts.  The columns of a panel with batch > 1 are strided (4 useful
+// bytes a 32-byte sector), so the launcher first transposes the panel into
+// a workspace of contiguous, 16-byte aligned columns, solves there in place,
+// and transposes back.  The coefficients: from row `head` on c' and the
+// pivot repeat one value each (the recurrence's fixed point; head is 0 to
+// 168 rows for lam in 1e-12 .. 1e3, 1,846 at 1e6), so a chunk past head
+// runs on the two values in registers and only the head rows are read,
+// through the read-only cache.  (Every thread reading its own rows of both
+// columns by 16-byte loads, in the composing and the replaying step, took
+// 26 us a column against 15 us on an H100 at n = 32768 and spilled.)
+//
+// Deterministic: no atomics, the association depends on (n, lam) alone.
+// fp32 throughout, one FMA a step.
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -70,99 +93,279 @@ stencil_kernel(const float* __restrict__ p, float* __restrict__ y,
   }
 }
 
-constexpr int kTThreads = 128;
-constexpr int kTCols = 32;      // columns per block: the lanes of warp 0
-constexpr int kTBuf = 4096;     // staged panel elements per buffer
-constexpr int kTMaxRows = 1024; // rows per staged chunk
+constexpr int kSR = 64;             // rows a thread owns in a tile
+constexpr int kSMaxThreads = 512;   // threads of a block: one column
+constexpr int kTile = 32;           // transpose tile (kTile x 8 threads)
+constexpr unsigned kFull = 0xffffffffu;
 
-// Copy rows [i0, i0 + rc) of columns [c0, c0 + cols) of the (n, batch)
-// panel src into panel (as [row][col]) and coefficient rows [i0, i0 + rc)
-// into coef, asynchronously; commits one cp.async group.
-__device__ __forceinline__ void stage(float* panel, float* coef,
-                                      const float* src, const float* csrc,
-                                      int i0, int rc, int cols, int batch,
-                                      int c0) {
-  for (int e = threadIdx.x; e < rc * cols; e += kTThreads) {
-    const int i = e / cols, c = e - i * cols;
-    __pipeline_memcpy_async(panel + e,
-                            src + (size_t)(i0 + i) * batch + c0 + c, 4);
-  }
-  for (int i = threadIdx.x; i < rc; i += kTThreads)
-    __pipeline_memcpy_async(coef + i, csrc + i0 + i, 4);
-  __pipeline_commit();
+// Shared-memory word of tile row e: 4 words of padding every kSR rows.
+// Thread t's rows start at word (kSR + 4) t, so its 16-byte reads (8
+// threads a phase) fall on 8 distinct 16-byte bank groups, and the tile's
+// row-order copies (consecutive words) on distinct banks.
+__device__ __forceinline__ int padded(int e) { return e + 4 * (e / kSR); }
+
+// cp.async of the first `bytes` of 16 (zero-filling the rest).
+__device__ __forceinline__ void copy16_part(float* dst, const float* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kTThreads)
-thomas_kernel(const float* __restrict__ p, const float* __restrict__ cp,
-              const float* __restrict__ piv, float* __restrict__ y, int n,
-              int batch, float a) {
-  __shared__ float panel[2][kTBuf];
-  __shared__ float coef[2][kTMaxRows];
-  const int c0 = blockIdx.x * kTCols;
-  const int cols = min(kTCols, batch - c0);
-  const int rows = min(kTMaxRows, kTBuf / cols);
-  const int chunks = (n + rows - 1) / rows;
-  const int lane = threadIdx.x;
-  const bool runs = lane < cols;  // lanes of warp 0 only (cols <= 32)
+// cp.async rows [i0, i0 + T R) of a contiguous, 16-byte aligned column into
+// the tile s, zeros past row n, and waits for them.
+__device__ __forceinline__ void stage(float* s, const float* col, int i0,
+                                      int n) {
+#pragma unroll 4
+  for (int k = 0; k < kSR / 4; ++k) {
+    const int e = 4 * (k * blockDim.x + threadIdx.x), left = n - i0 - e;
+    copy16_part(s + padded(e), col + (left > 0 ? i0 + e : 0),
+                left >= 4 ? 16 : left > 0 ? 4 * left : 0);
+  }
+  copy_commit();
+  copy_wait<0>();
+  __syncthreads();
+}
 
-  // Forward: chunk t covers rows [t * rows, ...).
-  float d = 0.f;
-  stage(panel[0], coef[0], p, piv, 0, min(rows, n), cols, batch, c0);
-  for (int t = 0; t < chunks; ++t) {
-    const int i0 = t * rows, rc = min(rows, n - i0), s = t & 1;
-    if (t + 1 < chunks) {
-      const int j0 = i0 + rows;
-      stage(panel[s ^ 1], coef[s ^ 1], p, piv, j0, min(rows, n - j0), cols,
-            batch, c0);
-      __pipeline_wait_prior(1);
+// Store tile s as rows [i0, i0 + T R) of the column, the rows below n.
+__device__ __forceinline__ void unstage(float* col, const float* s, int i0,
+                                        int n) {
+#pragma unroll 4
+  for (int k = 0; k < kSR / 4; ++k) {
+    const int e = 4 * (k * blockDim.x + threadIdx.x), i = i0 + e;
+    const float4 w = *reinterpret_cast<const float4*>(s + padded(e));
+    if (i + 4 <= n) {
+      *reinterpret_cast<float4*>(col + i) = w;
     } else {
-      __pipeline_wait_prior(0);
+      if (i < n) col[i] = w.x;
+      if (i + 1 < n) col[i + 1] = w.y;
+      if (i + 2 < n) col[i + 2] = w.z;
     }
-    __syncthreads();  // chunk t has landed for every thread
-    if (runs) {
-      const float* pv = panel[s] + lane;
-      const float* pw = coef[s];
-      float* out = y + (size_t)i0 * batch + c0 + lane;
-#pragma unroll 8
-      for (int i = 0; i < rc; ++i) {
-        d = fmaf(-a, d, pv[i * cols]) * pw[i];
-        out[(size_t)i * batch] = d;
+  }
+}
+
+// A thread's R rows between the tile and registers (16-byte accesses).
+__device__ __forceinline__ void load_chunk(float* v, const float* mine) {
+#pragma unroll
+  for (int q = 0; q < kSR / 4; ++q) {
+    const float4 w = reinterpret_cast<const float4*>(mine)[q];
+    v[4 * q] = w.x, v[4 * q + 1] = w.y, v[4 * q + 2] = w.z,
+    v[4 * q + 3] = w.w;
+  }
+}
+
+__device__ __forceinline__ void store_chunk(float* mine, const float* v) {
+#pragma unroll
+  for (int q = 0; q < kSR / 4; ++q)
+    reinterpret_cast<float4*>(mine)[q] =
+        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// The coefficients of row i: from row head on, the tail values (c' up to
+// row n - 2); below it the rows themselves.  Past the last row both are 0:
+// the padding maps keep 0 and pass nothing into row n - 1, as c'_{n-1} = 0
+// does.
+struct Coefs {
+  const float* piv;
+  const float* cp;
+  int head, n;
+  float piv_tail, cp_tail;
+
+  __device__ __forceinline__ float pivot(int i) const {
+    if (i >= n) return 0.f;
+    return i >= head ? piv_tail : __ldg(piv + i);
+  }
+  __device__ __forceinline__ float upper(int i) const {
+    if (i >= n - 1) return 0.f;
+    return i >= head ? cp_tail : __ldg(cp + i);
+  }
+};
+
+// Forward over a chunk starting at row r0: kCompose builds its map (v: p ->
+// beta), else it replays from d (v: beta -> d').  kTail: every row of the
+// chunk takes the tail pivot.
+template <bool kTail, bool kCompose>
+__device__ __forceinline__ float forward_rows(float* v, const Coefs& c,
+                                             int r0, float a, float d,
+                                             float* A) {
+#pragma unroll
+  for (int j = 0; j < kSR; ++j) {
+    const float pv = kTail ? c.piv_tail : c.pivot(r0 + j), al = -a * pv;
+    if (kCompose) {
+      v[j] = pv * v[j];
+      *A *= al;
+    }
+    d = fmaf(al, d, v[j]);
+    if (!kCompose) v[j] = d;
+  }
+  return d;
+}
+
+// Backward over a chunk, from its last row: kCompose builds its map, else
+// it replays from u (v: d' -> y).  kTail: every row takes the tail c'.
+template <bool kTail, bool kCompose>
+__device__ __forceinline__ float backward_rows(float* v, const Coefs& c,
+                                               int r0, float u, float* A) {
+#pragma unroll
+  for (int j = kSR - 1; j >= 0; --j) {
+    const float g = -(kTail ? c.cp_tail : c.upper(r0 + j));
+    if (kCompose) *A *= g;
+    u = fmaf(g, u, v[j]);
+    if (!kCompose) v[j] = u;
+  }
+  return u;
+}
+
+// The value entering this thread's chunk.  Chunk maps x -> A x + B apply in
+// the order of q (q = thread forward, T - 1 - thread with kReverse); x0
+// enters the first.  An inclusive scan over the lanes of each warp by
+// shuffles, one warp over the warp totals, then the lanes before this one:
+// a fixed association for a given T.
+template <bool kReverse>
+__device__ __forceinline__ float chunk_carry(float A, float B, float x0,
+                                             float2* warp_map,
+                                             float* warp_in) {
+  const int nw = blockDim.x >> 5, phys = threadIdx.x & 31;
+  const int lane = kReverse ? 31 - phys : phys;
+  const int warp = kReverse ? nw - 1 - (int)(threadIdx.x >> 5)
+                            : (int)(threadIdx.x >> 5);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float pa = kReverse ? __shfl_down_sync(kFull, A, off)
+                              : __shfl_up_sync(kFull, A, off);
+    const float pb = kReverse ? __shfl_down_sync(kFull, B, off)
+                              : __shfl_up_sync(kFull, B, off);
+    if (lane >= off) {
+      B = fmaf(A, pb, B);
+      A *= pa;
+    }
+  }
+  float ea = kReverse ? __shfl_down_sync(kFull, A, 1)
+                      : __shfl_up_sync(kFull, A, 1);
+  float eb = kReverse ? __shfl_down_sync(kFull, B, 1)
+                      : __shfl_up_sync(kFull, B, 1);
+  if (lane == 0) ea = 1.f, eb = 0.f;
+  if (lane == 31) warp_map[warp] = make_float2(A, B);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int w = threadIdx.x;
+    float wa = 1.f, wb = 0.f;
+    if (w < nw) wa = warp_map[w].x, wb = warp_map[w].y;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float pa = __shfl_up_sync(kFull, wa, off);
+      const float pb = __shfl_up_sync(kFull, wb, off);
+      if (w >= off) {
+        wb = fmaf(wa, pb, wb);
+        wa *= pa;
       }
     }
-    __syncthreads();  // buffer s is free before it is staged again
+    const float before = __shfl_up_sync(kFull, fmaf(wa, x0, wb), 1);
+    if (w < nw) warp_in[w] = w == 0 ? x0 : before;
+  }
+  __syncthreads();
+  return fmaf(ea, warp_in[warp], eb);
+}
+
+__global__ void __launch_bounds__(kSMaxThreads, 1)
+thomas_kernel(const float* p, float* y, long long col_stride,
+              const float* __restrict__ cp, const float* __restrict__ piv,
+              int n, float a, int head, float piv_tail, float cp_tail) {
+  extern __shared__ __align__(16) float tile[];  // T R rows, padded
+  __shared__ float2 warp_map[32];
+  __shared__ float warp_in[32];
+  __shared__ float carry;
+  const int T = blockDim.x, rows = T * kSR, tiles = (n + rows - 1) / rows;
+  const Coefs c{piv, cp, head, n, piv_tail, cp_tail};
+  const float* pc = p + blockIdx.x * col_stride;
+  float* yc = y + blockIdx.x * col_stride;
+  const int base = threadIdx.x * kSR;  // this thread's first row in a tile
+  float* mine = tile + padded(base);
+  float v[kSR];
+
+  // Forward: v = p, then beta, then d'.
+  float x0 = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const int i0 = t * rows, r0 = i0 + base;
+    const bool tail = r0 >= head && r0 + kSR <= n;
+    __syncthreads();  // the tile is free
+    stage(tile, pc, i0, n);
+    load_chunk(v, mine);
+    float A = 1.f;
+    const float B = tail ? forward_rows<true, true>(v, c, r0, a, 0.f, &A)
+                         : forward_rows<false, true>(v, c, r0, a, 0.f, &A);
+    float d = chunk_carry<false>(A, B, x0, warp_map, warp_in);
+    d = tail ? forward_rows<true, false>(v, c, r0, a, d, &A)
+             : forward_rows<false, false>(v, c, r0, a, d, &A);
+    if (t + 1 < tiles) {  // d' of this tile waits in y
+      if (threadIdx.x == T - 1) carry = d;
+      store_chunk(mine, v);  // every chunk was read before the scan
+      __syncthreads();
+      unstage(yc, tile, i0, n);
+      x0 = carry;
+    }
   }
 
-  // Backward, over d' in y: chunk t covers rows [(chunks-1-t) * rows, ...),
-  // walked from its last row.  The forward stores are visible to the block
-  // after the barrier above.
-  float v = 0.f;
-  {
-    const int q0 = (chunks - 1) * rows;
-    stage(panel[0], coef[0], y, cp, q0, n - q0, cols, batch, c0);
-  }
-  for (int t = 0; t < chunks; ++t) {
-    const int i0 = (chunks - 1 - t) * rows, rc = min(rows, n - i0);
-    const int s = t & 1;
-    if (t + 1 < chunks) {
-      stage(panel[s ^ 1], coef[s ^ 1], y, cp, i0 - rows, rows, cols, batch,
-            c0);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
+  // Backward, from the last tile (its d' still in v) down: v = y.
+  x0 = 0.f;
+  for (int t = tiles - 1; t >= 0; --t) {
+    const int i0 = t * rows, r0 = i0 + base;
+    const bool tail = r0 >= head && r0 + kSR <= n - 1;
+    if (t + 1 < tiles) {
+      __syncthreads();  // the tile is free
+      stage(tile, yc, i0, n);
+      load_chunk(v, mine);
     }
+    float A = 1.f;
+    const float B = tail ? backward_rows<true, true>(v, c, r0, 0.f, &A)
+                         : backward_rows<false, true>(v, c, r0, 0.f, &A);
+    float u = chunk_carry<true>(A, B, x0, warp_map, warp_in);
+    u = tail ? backward_rows<true, false>(v, c, r0, u, &A)
+             : backward_rows<false, false>(v, c, r0, u, &A);
+    if (threadIdx.x == 0) carry = u;
+    store_chunk(mine, v);
     __syncthreads();
-    if (runs) {
-      const float* pv = panel[s] + lane;
-      const float* pw = coef[s];
-      float* out = y + (size_t)i0 * batch + c0 + lane;
-#pragma unroll 8
-      for (int i = rc - 1; i >= 0; --i) {
-        v = fmaf(-pw[i], v, pv[i * cols]);
-        out[(size_t)i * batch] = v;
-      }
-    }
-    __syncthreads();
+    unstage(yc, tile, i0, n);
+    x0 = carry;
   }
+}
+
+// dst[c * ld_dst + r] = src[r * ld_src + c] for r < rows, c < cols, through
+// a padded kTile x kTile tile: reads and writes both along rows.
+__global__ void __launch_bounds__(kTile * 8)
+transpose_kernel(const float* __restrict__ src, long long ld_src,
+                 float* __restrict__ dst, long long ld_dst, int rows,
+                 int cols) {
+  __shared__ float t[kTile][kTile + 1];
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+#pragma unroll
+  for (int k = threadIdx.y; k < kTile; k += 8) {
+    const int r = r0 + k, col = c0 + threadIdx.x;
+    if (r < rows && col < cols) t[k][threadIdx.x] = src[r * ld_src + col];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = threadIdx.y; k < kTile; k += 8) {
+    const int col = c0 + k, r = r0 + threadIdx.x;
+    if (r < rows && col < cols) dst[col * ld_dst + r] = t[threadIdx.x][k];
+  }
+}
+
+// Whether thomas_solve runs on the panel in place of a transposed copy:
+// one contiguous column, 16-byte aligned in and out.
+bool direct(const float* p, const float* y, int batch) {
+  return batch == 1 && ((reinterpret_cast<size_t>(p) |
+                         reinterpret_cast<size_t>(y)) % 16) == 0;
+}
+
+cudaError_t transpose(const float* src, long long ld_src, float* dst,
+                      long long ld_dst, int rows, int cols,
+                      cudaStream_t stream) {
+  const dim3 grid((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile);
+  transpose_kernel<<<grid, dim3(kTile, 8), 0, stream>>>(src, ld_src, dst,
+                                                        ld_dst, rows, cols);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -184,15 +387,45 @@ int repro_stencil_denoise(const float* p, float* y, long long n, int batch,
 }
 
 // p and y are distinct contiguous (n, batch) float32 panels; cp and piv hold
-// the n elimination coefficients and pivots; a = lam * h.  Returns the
-// cudaError_t of the launch.
+// the n elimination coefficients and pivots; a = lam * h.  Rows head <= i
+// < n - 1 have c' = cp_tail, and rows head <= i < n the pivot piv_tail, bit
+// for bit (head = n describes any coefficients).  Unless batch is 1 and p
+// and y are 16-byte aligned, work holds batch columns of n rounded up to 4
+// floats, 16-byte aligned (else it may be null).  One block per column, of
+// T threads: as many warps as chunks of kSR rows need, at most
+// kSMaxThreads.  Returns the cudaError_t of the launch.
 int repro_thomas_solve(const float* p, const float* cp, const float* piv,
-                       float* y, int n, int batch, float a, void* stream) {
+                       float* y, int n, int batch, float a, int head,
+                       float piv_tail, float cp_tail, float* work,
+                       void* stream) {
   if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
-  const unsigned blocks = static_cast<unsigned>((batch + kTCols - 1) / kTCols);
-  thomas_kernel<<<blocks, kTThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, cp, piv, y, n, batch, a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool in_place = direct(p, y, batch);
+  if (!in_place && (work == nullptr ||
+                    reinterpret_cast<size_t>(work) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (n + kSR - 1) / kSR;
+  const int warps = (chunks + 31) / 32;
+  const int threads =
+      warps < kSMaxThreads / 32 ? 32 * warps : kSMaxThreads;
+  const int rows = threads * kSR;
+  const size_t smem = sizeof(float) * (rows + 4 * (rows / kSR));
+  cudaError_t rc = cudaFuncSetAttribute(
+      thomas_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (in_place) {
+    thomas_kernel<<<1, threads, smem, st>>>(p, y, 0, cp, piv, n, a, head,
+                                            piv_tail, cp_tail);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long ld = (n + 3) / 4 * 4;
+  rc = transpose(p, batch, work, ld, n, batch, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  thomas_kernel<<<static_cast<unsigned>(batch), threads, smem, st>>>(
+      work, work, ld, cp, piv, n, a, head, piv_tail, cp_tail);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(transpose(work, ld, y, batch, batch, n, st));
 }
 
 }  // extern "C"

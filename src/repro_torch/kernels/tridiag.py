@@ -5,7 +5,9 @@
     engine's default tier-2;
   * ``thomas_solve(p, lam, h) = (I + lam L^T L)^{-1} p`` exactly, by the
     Thomas algorithm with the elimination coefficients precomputed once per
-    ``(n, lam, h, device)`` (:func:`thomas_coeffs`), as the JAX wrapper does.
+    ``(n, lam, h, device)`` (:func:`thomas_coeffs`), as the JAX wrapper does;
+    the kernel runs its two recurrences as a block-parallel scan and reads
+    the coefficients only below their fixed point (:func:`thomas_tail`).
 
 On CUDA tensors the wrappers launch ``csrc/tridiag.cu``; on CPU tensors they
 run the ``*_plain`` versions.
@@ -22,9 +24,10 @@ from . import build
 from ._checks import check_panels, on_cpu
 
 __all__ = ["stencil_denoise", "stencil_denoise_plain", "thomas_solve",
-           "thomas_solve_plain", "thomas_coeffs"]
+           "thomas_solve_plain", "thomas_coeffs", "thomas_tail"]
 
 _COEFFS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_TAILS: Dict[tuple, Tuple[int, float, float]] = {}
 
 
 def stencil_denoise_plain(p: torch.Tensor, lam: float,
@@ -81,6 +84,24 @@ def thomas_coeffs(n: int, lam: float, h: float,
     return _COEFFS[key]
 
 
+def thomas_tail(n: int, lam: float, h: float) -> Tuple[int, float, float]:
+    """``(head, piv_tail, cp_tail)`` of :func:`thomas_coeffs`: from row
+    ``head`` on the recurrence sits at its fixed point, so rows ``head <= i
+    < n - 1`` have ``c' = cp_tail`` and rows ``head <= i < n`` the pivot
+    ``piv_tail``, bit for bit; the kernel reads only the rows below
+    ``head``.  Cached per ``(n, lam, h)``."""
+    key = (int(n), float(lam), float(h))
+    if key not in _TAILS:
+        cp, piv = (t.numpy() for t in thomas_coeffs(n, lam, h, "cpu"))
+        if n < 2:
+            _TAILS[key] = (n, 0.0, 0.0)
+        else:
+            off = np.flatnonzero((cp[:-1] != cp[-2]) | (piv[:-1] != piv[-1]))
+            _TAILS[key] = (int(off[-1]) + 1 if off.size else 0,
+                           float(piv[-1]), float(cp[-2]))
+    return _TAILS[key]
+
+
 def thomas_solve_plain(p: torch.Tensor, lam: float,
                        h: float = -1.0) -> torch.Tensor:
     """The plain PyTorch version: the kernel's two recurrences as a loop
@@ -101,6 +122,28 @@ def thomas_solve_plain(p: torch.Tensor, lam: float,
     return y
 
 
+def thomas_solve_fp64(p: torch.Tensor, lam: float,
+                      h: float = -1.0) -> torch.Tensor:
+    """``(I + lam L^T L)^{-1} p`` in float64 on the host, with the
+    elimination's own float64 coefficients: the yardstick the fp32 kernel
+    and plain version are held to where lam is large.  Returns float64 on
+    ``p``'s device."""
+    q = p.double().cpu().numpy()
+    n = q.shape[0]
+    a, body = lam * h, 1.0 + lam * (1.0 + h * h)
+    c = np.zeros(n)
+    d = np.empty_like(q)
+    c_prev, d_prev = 0.0, np.zeros(q.shape[1:])
+    for i in range(n):
+        pv = 1.0 / ((1.0 + lam if i == 0 else body) - a * c_prev)
+        c_prev = a * pv
+        c[i] = c_prev
+        d_prev = d[i] = (q[i] - a * d_prev) * pv
+    for i in range(n - 2, -1, -1):
+        d[i] -= c[i] * d[i + 1]
+    return torch.from_numpy(d).to(p.device)
+
+
 def thomas_solve(p: torch.Tensor, lam: float, h: float = -1.0) -> torch.Tensor:
     """Exact tier-2 solve ``(I + lam L^T L) y = p`` of an (n, batch) float32
     panel."""
@@ -112,8 +155,16 @@ def thomas_solve(p: torch.Tensor, lam: float, h: float = -1.0) -> torch.Tensor:
         return thomas_solve_plain(p, lam, h)
     n, batch = p.shape
     cp, piv = thomas_coeffs(n, lam, h, p.device)
+    head, piv_tail, cp_tail = thomas_tail(n, lam, h)
     y = torch.empty_like(p)
+    # The kernel reads contiguous 16-byte aligned columns: a panel of more
+    # than one (or an unaligned one) goes through a transposed workspace.
+    work = None
+    if batch > 1 or p.data_ptr() % 16 or y.data_ptr() % 16:
+        work = torch.empty(batch * (-(-n // 4) * 4), dtype=torch.float32,
+                           device=p.device)
     build.launch("thomas_solve", "repro_thomas_solve", p.device,
                  p.data_ptr(), cp.data_ptr(), piv.data_ptr(), y.data_ptr(),
-                 n, batch, float(np.float32(lam * h)))
+                 n, batch, float(np.float32(lam * h)), head, piv_tail,
+                 cp_tail, None if work is None else work.data_ptr())
     return y

@@ -356,6 +356,66 @@ def test_thomas_kernel_wide_panel(cuda_device):
                kernels.thomas_solve_plain(p, 0.5)) <= 1e-5
 
 
+@pytest.mark.parametrize("n", [1, 2, 1000, 32768, 65025])
+def test_thomas_scan_kernel_matches_plain(cuda_device, n):
+    """The block-scan kernel against the sequential plain version at
+    rel-L2 <= 1e-6 for lam in {1e-12, 1e-2, 0.5, 10} and batch in {1, 3,
+    8, 64} (one block a column; 65,025 rows walk two tiles of 32,768), bit
+    for bit run to run, one launch a call; the plain version runs once per
+    lam on the widest panel (its columns are independent)."""
+    p = randn((n, 64), 26, cuda_device)
+    for lam in (1e-12, 1e-2, 0.5, 10.0):
+        want = kernels.thomas_solve_plain(p, lam)
+        for batch in (1, 3, 8, 64):
+            q = p[:, :batch].contiguous()
+            kernels.reset_launches()
+            got = kernels.thomas_solve(q, lam)
+            assert kernels.LAUNCHES["thomas_solve"] == 1
+            assert got.shape == (n, batch)
+            assert rel(got, want[:, :batch]) <= 1e-6
+            assert torch.equal(got, kernels.thomas_solve(q, lam))
+        if lam >= 0.5 and n > 1:
+            assert rel(got, q) > 1e-2
+    torch.cuda.synchronize()
+
+
+def test_thomas_kernel_unaligned_column(cuda_device):
+    """A one-column panel that starts 4 bytes past a 16-byte boundary goes
+    through the transposed workspace, as a wider panel does: equal to the
+    aligned call bit for bit."""
+    p = randn((1001, 1), 28, cuda_device)
+    q = torch.cat([p.new_zeros(1), p[:, 0]])[1:, None]
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    assert torch.equal(kernels.thomas_solve(q, 0.5),
+                       kernels.thomas_solve(p, 0.5))
+
+
+@pytest.mark.parametrize("n,batch", [(5000, 3), (32768, 8), (65025, 1)])
+def test_thomas_scan_kernel_at_large_lam_against_fp64(cuda_device, n, batch):
+    """At lam = 1e3 (|c'| ~ 0.97) the kernel's error against a float64
+    solve is at most twice the plain version's: a scan that cut a carry
+    short would miss by orders of magnitude."""
+    p = randn((n, batch), 27, cuda_device)
+    want = kernels.tridiag.thomas_solve_fp64(p, 1e3)
+    got = kernels.thomas_solve(p, 1e3)
+    assert torch.equal(got, kernels.thomas_solve(p, 1e3))
+    assert rel(got, want) <= 2 * rel(kernels.thomas_solve_plain(p, 1e3), want)
+
+
+@pytest.mark.parametrize("n,batch", [(5000, 3), (32768, 1)])
+def test_thomas_kernel_with_a_long_coefficient_head(cuda_device, n, batch):
+    """At lam = 1e6 the coefficients reach their fixed point only after
+    1,846 rows, so 29 chunks of 64 rows (across warps) read theirs from
+    memory: the error against a float64 solve stays within twice the plain
+    version's, bit for bit run to run."""
+    assert kernels.tridiag.thomas_tail(n, 1e6, -1.0)[0] > 1800
+    p = randn((n, batch), 29, cuda_device)
+    want = kernels.tridiag.thomas_solve_fp64(p, 1e6)
+    got = kernels.thomas_solve(p, 1e6)
+    assert torch.equal(got, kernels.thomas_solve(p, 1e6))
+    assert rel(got, want) <= 2 * rel(kernels.thomas_solve_plain(p, 1e6), want)
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_ec_kernels_on_a_block_view(cuda_device, transpose):
     """One capacity block of a padded image as a view (row stride > width),

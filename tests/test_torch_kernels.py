@@ -110,6 +110,180 @@ def test_thomas_coeffs_match_the_reference_recurrence():
     assert cp[-1] == 0.0
 
 
+@pytest.mark.parametrize("lam", [1e-12, 1e-2, 0.5, 10.0, 1e3])
+@pytest.mark.parametrize("n", [1, 2, 3, 40, 5000])
+def test_thomas_coeffs_early_stop_is_exact(n, lam):
+    """thomas_coeffs stops its recurrence where a step repeats the previous
+    one and fills the rest with that step: bit for bit the recurrence run
+    over every row (c'_{n-1} = 0), at lams from the identity to |c'| ~
+    0.97."""
+    f32 = np.float32
+    a = f32(lam * -1.0)
+    body, row0 = f32(1.0 + lam * 2.0), f32(1.0 + lam)
+    want_cp, want_piv = np.empty(n, f32), np.empty(n, f32)
+    c = f32(0.0)
+    for i in range(n):
+        want_piv[i] = f32(1.0) / ((row0 if i == 0 else body) - a * c)
+        c = want_cp[i] = a * want_piv[i]
+    want_cp[-1] = 0.0
+    cp, piv = kernels.tridiag.thomas_coeffs(n, lam, -1.0, "cpu")
+    assert np.array_equal(cp.numpy(), want_cp)
+    assert np.array_equal(piv.numpy(), want_piv)
+
+
+@pytest.mark.parametrize("lam", [1e-12, 1e-2, 0.5, 10.0, 1e3])
+@pytest.mark.parametrize("n", [1, 2, 3, 40, 5000])
+def test_thomas_tail_describes_the_coefficients(n, lam):
+    """The kernel reads c' and the pivots below ``head`` only: the rows from
+    ``head`` on, rebuilt from the two tail values (and c'_{n-1} = 0), are
+    the cached coefficients bit for bit."""
+    cp, piv = (t.numpy() for t in kernels.tridiag.thomas_coeffs(n, lam, -1.0,
+                                                                "cpu"))
+    head, piv_tail, cp_tail = kernels.tridiag.thomas_tail(n, lam, -1.0)
+    assert 0 <= head <= n
+    rows = np.arange(n)
+    rebuilt_piv = np.where(rows < head, piv, np.float32(piv_tail))
+    rebuilt_cp = np.where(rows < head, cp, np.float32(cp_tail))
+    if head < n:
+        rebuilt_cp[-1] = 0.0
+    assert np.array_equal(rebuilt_piv, piv) and np.array_equal(rebuilt_cp, cp)
+    if n == 5000:
+        assert head < 200        # the fixed point comes early
+
+
+def _carry_in(A, B, x0):
+    """The value entering each chunk of a tile: chunk maps ``x -> A x + B``
+    ((T,) and (T, b)) applied in index order, ``x0`` (b,) entering chunk 0.
+    The kernel's association: an inclusive scan over the 32 lanes of each
+    warp (shuffle offsets 1, 2, ..., 16), the same over the warp totals,
+    then each lane's exclusive map applied to its warp's carry-in."""
+    T, b = B.shape
+    nw = -(-T // 32)
+    Ap = torch.ones(nw * 32)
+    Bp = torch.zeros(nw * 32, b)
+    Ap[:T], Bp[:T] = A, B
+
+    def scan(A, B):                      # along dim 1 of (w, 32[, b])
+        for off in (1, 2, 4, 8, 16):
+            A2, B2 = A.clone(), B.clone()
+            B2[:, off:] = A[:, off:, None] * B[:, :-off] + B[:, off:]
+            A2[:, off:] = A[:, off:] * A[:, :-off]
+            A, B = A2, B2
+        return A, B
+
+    A, B = scan(Ap.view(nw, 32), Bp.view(nw, 32, b))
+    ea = torch.cat([torch.ones(nw, 1), A[:, :-1]], 1)
+    eb = torch.cat([torch.zeros(nw, 1, b), B[:, :-1]], 1)
+    wa, wb = torch.ones(1, 32), torch.zeros(1, 32, b)
+    wa[0, :nw], wb[0, :nw] = A[:, 31], B[:, 31]
+    wa, wb = scan(wa, wb)
+    after = wa[0, :nw, None] * x0 + wb[0, :nw]
+    warp_in = torch.cat([x0[None], after[:-1]])
+    carry = ea[:, :, None] * warp_in[:, None] + eb
+    return carry.reshape(nw * 32, b)[:T]
+
+
+def _affine_scan(alpha, beta, threads, rows):
+    """``x_i = alpha_i x_{i-1} + beta_i`` (x_{-1} = 0) over a length that is a
+    whole number of tiles of ``threads * rows``, as the kernel runs it: per
+    tile, chunk maps, the carry into each chunk, the replay from it; the
+    tile's last replayed value enters the next tile."""
+    T, R = threads, rows
+    x0 = torch.zeros(beta.shape[1])
+    out = torch.empty_like(beta)
+    for t0 in range(0, beta.shape[0], T * R):
+        al = alpha[t0:t0 + T * R].view(T, R)
+        be = beta[t0:t0 + T * R].view(T, R, -1)
+        A, B = torch.ones(T), torch.zeros(T, be.shape[2])
+        for j in range(R):
+            B = al[:, j, None] * B + be[:, j]
+            A = al[:, j] * A
+        x = _carry_in(A, B, x0)
+        for j in range(R):
+            x = al[:, j, None] * x + be[:, j]
+            out[t0:t0 + T * R].view(T, R, -1)[:, j] = x
+        x0 = x[-1]
+    return out
+
+
+def thomas_scan_mirror(p, lam, h=-1.0, threads=None, rows=64):
+    """An fp32 mirror of the thomas_solve kernel's block scan (its
+    association, not its bits: a multiply and an add here where the kernel
+    has one FMA).  ``threads`` defaults to the launcher's choice: whole
+    warps for the chunks of ``rows`` rows, at most 512."""
+    n, b = p.shape
+    if threads is None:
+        threads = min(512, -(-n // (rows * 32)) * 32)
+    cp, piv = kernels.tridiag.thomas_coeffs(n, lam, h, "cpu")
+    a = torch.tensor(float(np.float32(lam * h)))
+    span = -(-n // (threads * rows)) * threads * rows
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros((span - n,) + t.shape[1:])])
+
+    pv = pad(piv)
+    d = _affine_scan(-a * pv, pv[:, None] * pad(p), threads, rows)
+    y = _affine_scan(-pad(cp).flip(0), d.flip(0), threads, rows).flip(0)
+    return y[:n]
+
+
+@pytest.mark.parametrize("lam", [1e-12, 1e-2, 0.5, 10.0])
+@pytest.mark.parametrize("n,b,threads,rows", [
+    (1000, 3, None, 64),      # the launcher's choice: one warp, one tile
+    (5000, 2, None, 64),      # 79 chunks: 3 warps, ragged last warp
+    (1000, 3, 64, 4),         # four tiles
+    (777, 2, 40, 3),          # a partial warp, a ragged last tile
+])
+def test_thomas_scan_mirror_matches_plain(lam, n, b, threads, rows):
+    """The kernel's association (chunk maps, the block scan, the replay,
+    tile carries) is the sequential recurrence to rel-L2 <= 1e-6, also at
+    lam = 10 where |c'| ~ 0.9 carries far down the column."""
+    p = torch.from_numpy(rng_array((n, b), 60))
+    got = thomas_scan_mirror(p, lam, threads=threads, rows=rows)
+    assert got.shape == (n, b) and got.dtype == torch.float32
+    assert rel(got, kernels.thomas_solve_plain(p, lam)) <= 1e-6
+    if lam >= 0.5:
+        assert rel(got, p) > 1e-2
+
+
+@pytest.mark.parametrize("n,b", [(16, 8), (64, 16), (128, 8), (33, 5)])
+@pytest.mark.parametrize("lam", [1e-12, 1e-3, 0.5])
+def test_thomas_scan_mirror_matches_jax_reference(n, b, lam):
+    """The mirror against the JAX Thomas kernel (interpret mode) at
+    test_thomas_solve_matches_reference's shapes, lams and tolerances, on
+    tiles of 32 x 2 rows so that every shape spans more than one tile."""
+    p = rng_array((n, b), 61)
+    want = np.asarray(denoise_thomas(jnp.asarray(p), lam=lam, h=-1.0))
+    got = thomas_scan_mirror(torch.from_numpy(p), lam, threads=32, rows=2)
+    assert rel(got, want) <= (1e-6 if lam <= 1e-3 else 1e-5)
+
+
+@pytest.mark.parametrize("threads,rows", [(None, 64), (32, 8), (96, 5)])
+def test_thomas_scan_mirror_at_large_lam_against_fp64(threads, rows):
+    """At lam = 1e3 (|c'| ~ 0.97, so a carry decays over hundreds of rows)
+    the scan's error against a float64 solve is at most twice the
+    sequential fp32 recurrence's: a scan that cut its carries short would
+    miss by orders of magnitude."""
+    p = torch.from_numpy(rng_array((3000, 3), 62))
+    want = kernels.tridiag.thomas_solve_fp64(p, 1e3)
+    err_scan = rel(thomas_scan_mirror(p, 1e3, threads=threads, rows=rows),
+                   want)
+    err_plain = rel(kernels.thomas_solve_plain(p, 1e3), want)
+    assert err_scan <= 2 * err_plain
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 1000, 5000])
+def test_thomas_scan_mirror_ragged(n):
+    """Columns shorter than a warp's chunks (n < threads), one row, and a
+    ragged last chunk, at the launcher's choice of threads and at a tile
+    that n does not fill."""
+    p = torch.from_numpy(rng_array((n, 2), 63))
+    want = kernels.thomas_solve_plain(p, 0.5)
+    for threads, rows in ((None, 64), (64, 7)):
+        got = thomas_scan_mirror(p, 0.5, threads=threads, rows=rows)
+        assert rel(got, want) <= 1e-6
+
+
 @pytest.mark.parametrize("lam", [1e-12, 1e-2])
 def test_stencil_denoise_matches_reference(lam):
     p = rng_array((65, 3), 4)
