@@ -32,8 +32,11 @@ non-zero, printing no result, without them or without the repository's
   3t. the same for ``A.T @ y`` on the same image, and, DAC off, an engine
      with the exact Thomas tier-2 (lam = 1e-2) in both directions against
      the reference pipeline to 1e-5;
-  4. solve an SPD system (epiram, EC on) with CG and Richardson through
-     ``backend="cuda"`` to x error <= 1e-3;
+  4. solve an SPD system (epiram, EC on) through ``backend="cuda"`` with CG,
+     Richardson, BiCGSTAB and GMRES(20) to x error <= 1e-3, and with
+     iterative refinement (inner CG) to a digital relative residual <=
+     1e-5, below the printed one-MVM noise floor; each cold and warm, with
+     one ec_matmul and one stencil_denoise launch an MVM;
   5. solve a consistent 32,768 x 16,384 least-squares problem with LSQR and
      LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
      feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
@@ -60,10 +63,20 @@ non-zero, printing no result, without them or without the repository's
      product kernels the ptxas report (registers, stack frame, spills), the
      SM clock and power sampled while they run, the rate reached and each
      CUDA kernel's share of a call, and for the rng kernel a second bound
-     that counts its generator.
+     that counts its generator;
+  8. the paper's Table 1 on the card (benchmarks/table1_ec.py's full mode):
+     bcsstk02 and Iperturb (66^2, one 66 x 66 MCA) on every device, raw and
+     with EC, programmed once a cell on the cuda backend and run 100 times;
+     the paper's claims asserted at tests/test_paper_claims.py's bounds,
+     DAC off cuda equal to reference in every cell, ec_matmul held to its
+     plain version on that image (a 264-byte row stride: the register-load
+     layout), the one-shot corrected_mvm equal to the reference engine bit
+     for bit, and corrected_matmul at one Mixtral expert's width (fused
+     against faithful, EC against raw; the two forms timed in turn, with
+     the SM clock sampled while they run).
 
 Launch counts are zeroed just before each solve of phases 4 and 5, and
-before phases 3, 3t, 6, 6c and 7's main calls, and read just after: every
+before phases 3, 3t, 6, 6c, 7 and 8's main calls, and read just after: every
 kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
@@ -90,6 +103,8 @@ FP32_FLOPS_PER_S = 67e12
 EC_TOL = 1e-5          # ec_(r)matmul vs its plain version (fp32 sums, other order)
 ELEMENTWISE_TOL = 1e-6  # the one-pass kernels, and thomas_solve (a contraction)
 SOLVE_TOL = 1e-3
+REFINE_TOL = 1e-5      # refine's digital residual: below the one-MVM noise floor
+GMRES_RESTART = 20
 LSTSQ_SHAPE = (N, N // 2)   # rows, columns of the least-squares matrix
 LP_SHAPE = (N // 2, N)      # constraints, variables of the LP
 PDHG_MAXITER = 5000
@@ -115,6 +130,10 @@ SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than queueing a
 # the clamp (7); logf's branch-free fast path as CUDA 12.9 compiles it (28);
 # sqrt_fast (5); cos_small (20).
 GEN_INSTRUCTIONS_PER_DRAW = 100
+# Paper Table 1 (benchmarks/table1_ec.py, full mode): its devices in order
+# (the index keys a cell) and MVMs a cell.
+TABLE1_DEVICES = ("epiram", "ag-si", "alox-hfo2", "taox-hfox")
+TABLE1_REPS = 100
 
 
 class SmokeFailure(RuntimeError):
@@ -160,6 +179,27 @@ def call_time_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def alternating_ms(fns, rounds: int, warmup: int = 2):
+    """Device time of one call of each of ``fns``, called in turn for
+    ``rounds`` rounds, each call between its own CUDA events, so that a
+    change of clock falls on every form alike: (median, min, max) a form."""
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    events = [[(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(rounds)]
+              for _ in fns]
+    for r in range(rounds):
+        for fn, ev in zip(fns, events):
+            ev[r][0].record()
+            fn()
+            ev[r][1].record()
+    torch.cuda.synchronize()
+    times = [[s.elapsed_time(e) for s, e in ev] for ev in events]
+    return [(statistics.median(t), min(t), max(t)) for t in times]
 
 
 def clock_under_load(fn, seconds: float = 1.5):
@@ -290,9 +330,13 @@ def main() -> int:
               "False); nothing was run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import numpy as np
     from repro_torch import kernels, solvers
-    from repro_torch.core import CrossbarConfig, get_device
+    from repro_torch.core import (CrossbarConfig, MCAGeometry,
+                                  corrected_matmul, corrected_mvm, encode,
+                                  get_device, rel_linf)
     from repro_torch.core import crossbar
+    from repro_torch.core.matrices import make_iperturb, paper_matrix
     from repro_torch.core.devices import effective_sigma_py
     from repro_torch.core.prng import fold_in, generator
     from repro_torch.engine import (AnalogEngine, AnalogMatrix,
@@ -607,30 +651,63 @@ def main() -> int:
     A = AnalogEngine(scfg, backend="cuda", device=dev).program(a, 2)
     del a
     torch.cuda.empty_cache()
+    # The one-MVM noise floor: a bare analog solve stalls near it, refinement
+    # (digital outer residual) goes below it.
+    noise_floor = rel_l2(A @ x_true, b)
     kernels.reset_launches()
     solved = {}
-    for name, solve in (("cg", solvers.cg), ("richardson", solvers.richardson)):
+    runs = (
+        ("cg", lambda: solvers.cg(A, b, tol=SOLVE_TOL, maxiter=50,
+                                  backend="cuda")),
+        ("richardson", lambda: solvers.richardson(A, b, tol=SOLVE_TOL,
+                                                  maxiter=50, backend="cuda")),
+        ("bicgstab", lambda: solvers.bicgstab(A, b, tol=SOLVE_TOL,
+                                              maxiter=50)),
+        ("gmres", lambda: solvers.gmres(A, b, restart=GMRES_RESTART,
+                                        tol=SOLVE_TOL, maxiter=100)),
+        ("refine[cg]", lambda: solvers.refine(A, b, inner="cg",
+                                              tol=REFINE_TOL, maxiter=20,
+                                              backend="cuda")))
+    print(f"[4] {N}^2 SPD image (epiram, EC on): one-MVM noise floor "
+          f"rel-L2(A @ x_true, b) {noise_floor:.3e}", flush=True)
+    for name, solve in runs:
         for run in ("cold", "warm"):   # cold: first use of its ops' kernels
             before = dict(kernels.LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = solve(A, b, tol=SOLVE_TOL, maxiter=50, backend="cuda")
+            res = solve()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             err = rel_l2(res.x, x_true)
-            mvms = res.ledger.mvms + res.ledger.mvms_single
+            led = res.ledger
+            mvms = led.mvms + led.mvms_single
             used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
             solved[name] = used
             print(f"[4] {name} ({run}): {res.iterations} iterations, {mvms} "
                   f"MVMs, converged={res.converged}, x err {err:.3e}, "
-                  f"{wall * 1e3:.1f} ms = "
+                  f"residual {res.final_residual:.3e}, {wall * 1e3:.1f} ms = "
                   f"{wall * 1e3 / max(res.iterations, 1):.3f} ms/iteration "
-                  f"({wall * 1e3 / mvms:.3f} ms/MVM); launches {used}",
+                  f"({wall * 1e3 / mvms:.3f} ms/MVM); energy: write "
+                  f"{led.write_energy_j:.4e} J, iterations "
+                  f"{led.iteration_energy_j:.4e} J; launches {used}",
                   flush=True)
-            check(res.converged and err <= SOLVE_TOL,
-                  f"{name} did not reach x error <= {SOLVE_TOL}")
+            check(used["ec_matmul"] == mvms and used["stencil_denoise"] == mvms,
+                  f"{name}: not one ec_matmul + one stencil_denoise launch "
+                  f"an MVM ({mvms} MVMs): {used}")
+            if name.startswith("refine"):
+                print(f"    {name}: digital relative residual "
+                      f"{res.final_residual:.3e} against the one-MVM noise "
+                      f"floor {noise_floor:.3e}", flush=True)
+                check(res.converged and res.final_residual <= REFINE_TOL
+                      and res.final_residual < noise_floor,
+                      f"{name} did not reach a digital residual <= "
+                      f"{REFINE_TOL} below the noise floor")
+            else:
+                check(res.converged and err <= SOLVE_TOL,
+                      f"{name} did not reach x error <= {SOLVE_TOL}")
     check(solved["cg"]["cg_update"] > 0 and
-          solved["richardson"]["richardson_update"] > 0,
+          solved["richardson"]["richardson_update"] > 0 and
+          solved["refine[cg]"]["cg_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
     del A, b, x_true
@@ -1097,6 +1174,160 @@ def main() -> int:
     del x, wt, eps, q, w_rng, y, y_rng, eta, eye, ones
     torch.cuda.synchronize()
 
+    # ---------------------------- 8. the paper's Table 1 on the card (main)
+    # M1 = bcsstk02 and M2 = Iperturb (66^2, one 66 x 66 MCA), x from seed
+    # 42: every device of benchmarks/table1_ec.py, programmed once per cell
+    # on the cuda backend, TABLE1_REPS MVMs a cell (its full mode), cell
+    # keys fold_in(0, device index) and rep r's fold_in(cell key, r).
+    x66 = torch.from_numpy(np.random.default_rng(42).standard_normal(66)
+                           .astype(np.float32)).to(dev)
+    geom66 = MCAGeometry(1, 1, 66, 66)
+    mats = {"M1_bcsstk02": paper_matrix("bcsstk02"),
+            "M2_iperturb": make_iperturb(66)}
+    grid = [("epiram", False)] + [(d, ec) for d in TABLE1_DEVICES[1:]
+                                  for ec in (False, True)]
+    table1 = {}
+    table1_counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    t0 = time.perf_counter()
+    for mname, mat in mats.items():
+        a66 = torch.from_numpy(mat.astype(np.float32)).to(dev)
+        b66 = torch.matmul(a66, x66)
+        for dname, ec in grid:
+            tcfg = CrossbarConfig(device=get_device(dname), geom=geom66,
+                                  k_iters=5, ec=ec)
+            ckey = fold_in(0, TABLE1_DEVICES.index(dname))
+            teng = AnalogEngine(tcfg, backend="cuda", device=dev)
+            T = teng.program(a66, ckey)
+            tcfg_exact = dataclasses.replace(tcfg, encode_inputs=False)
+
+            def view(c, be):    # the cell's image under another engine
+                return AnalogMatrix(
+                    engine=AnalogEngine(c, backend=be, device=dev),
+                    shape=T.shape, base_key=ckey, write_stats=T.write_stats,
+                    at_pad=T.at_pad, da_pad=T.da_pad)
+
+            kernels.reset_launches()
+            ys = [teng.mvm(T, x66, key=fold_in(ckey, r))
+                  for r in range(TABLE1_REPS)]
+            torch.cuda.synchronize()
+            for k_, v_ in kernels.LAUNCHES.items():
+                table1_counts[k_] += v_
+            ref = view(tcfg, "reference")
+            check(all(bool(torch.isfinite(y).all()) and tuple(y.shape) ==
+                      (66,) for y in ys), f"table 1 {mname} {dname}: output")
+            per_call = T.input_write_stats(batch=1)
+            det = rel_l2(view(tcfg_exact, "cuda") @ x66,
+                         view(tcfg_exact, "reference") @ x66)
+            cell = {
+                "eps_l2": statistics.fmean(rel_l2(y, b66) for y in ys),
+                "eps_linf": statistics.fmean(float(rel_linf(y, b66))
+                                             for y in ys),
+                "E_w": T.write_stats.energy_j + per_call.energy_j,
+                "L_w": T.write_stats.latency_s + per_call.latency_s,
+                "E_program": T.write_stats.energy_j,
+                "E_per_mvm": per_call.energy_j,
+                "ms_cuda": call_time_ms(lambda: teng.mvm(T, x66, key=1), 20),
+                "ms_reference": call_time_ms(
+                    lambda: ref.engine.mvm(ref, x66, key=1), 20),
+                "dac_off_rel_l2": det}
+            table1[(mname, dname, ec)] = cell
+            print(f"[8] {mname} {dname:9s} {'ec ' if ec else 'raw'}: eps_l2 "
+                  f"{cell['eps_l2']:.4f}, eps_linf "
+                  f"{cell['eps_linf']:.4f}, E_w {cell['E_w']:.4e} J, L_w "
+                  f"{cell['L_w']:.4e} s, E_program {cell['E_program']:.4e} "
+                  f"J, E_per_mvm {cell['E_per_mvm']:.4e} J; per call cuda "
+                  f"{cell['ms_cuda']:.4f} ms, reference "
+                  f"{cell['ms_reference']:.4f} ms; DAC off cuda vs "
+                  f"reference {det:.2e}", flush=True)
+            check(det <= EC_TOL, f"table 1 {mname} {dname}: DAC off, the "
+                                 f"cuda backend differs from reference")
+            if mname == "M1_bcsstk02" and dname == "taox-hfox" and ec:
+                m1_image, m1_cfg, m1_a = T, tcfg, a66
+        get = {k[1:]: v for k, v in table1.items() if k[0] == mname}
+        epi, raw = get[("epiram", False)], get[("taox-hfox", False)]
+        tao = get[("taox-hfox", True)]
+        print(f"[8] {mname} claims: EC keeps {tao['eps_l2'] / raw['eps_l2']:.3f}"
+              f" of the raw TaOx-HfOx error (< 0.2), TaOx-HfOx + EC / EpiRAM "
+              f"{tao['eps_l2'] / epi['eps_l2']:.3f} (< 1.5), write energy "
+              f"ratio {epi['E_w'] / tao['E_w']:.1f} (> 300), latency ratio "
+              f"{epi['L_w'] / tao['L_w']:.1f} (> 50)", flush=True)
+        check(tao["eps_l2"] < 0.2 * raw["eps_l2"]
+              and tao["eps_l2"] < 1.5 * epi["eps_l2"]
+              and epi["E_w"] / tao["E_w"] > 300
+              and epi["L_w"] / tao["L_w"] > 50,
+              f"table 1 {mname}: a paper claim fails")
+    n_ec = sum(1 for k in table1 if k[2])
+    print(f"[8] {len(table1)} cells x {TABLE1_REPS} MVMs in "
+          f"{time.perf_counter() - t0:.1f} s; launches (cuda backend) "
+          f"{table1_counts}", flush=True)
+    check(table1_counts["ec_matmul"] == n_ec * TABLE1_REPS
+          and table1_counts["stencil_denoise"] == n_ec * TABLE1_REPS,
+          f"table 1: not one ec_matmul + one stencil_denoise launch per EC "
+          f"MVM: {table1_counts}")
+    # The 66-wide image has a 264-byte row stride: the forward launcher
+    # must take its register-load layout, held here against the plain
+    # version on the engine's own image.
+    at, da = m1_image.at_pad, m1_image.da_pad
+    lay = kernels.matmul_layout(at, da, 1)
+    print(layout_line("ec_matmul 66x66 batch 1", lay), flush=True)
+    check(not lay.staged and at.stride(0) * 4 == 264,
+          "the 66^2 image did not take the register-load layout")
+    u = x66[:, None].contiguous()
+    u_t = crossbar._encode_vec(u, m1_cfg, gen=generator(66, dev))
+    row66 = compare("ec_matmul 66x66 batch 1",
+                    lambda: kernels.ec_matmul(at, da, u, u_t),
+                    lambda: kernels.ec_matmul_plain(at, da, u, u_t), EC_TOL,
+                    nbytes=4 * (2 * 66 * 66 + 2 * 66 + 66),
+                    flops=4 * 66 * 66, iters=200,
+                    library_fn=lambda: torch.matmul(at, u)
+                    + torch.matmul(da, u_t))
+    row66.update(shape="66x66", batch=1, layout=lay._asdict())
+    check(torch.equal(kernels.ec_matmul(at, da, u, u_t),
+                      kernels.ec_matmul(at, da, u, u_t)),
+          "ec_matmul on the 66^2 image is not the same run to run")
+    more_shapes.append({"ec_matmul": row66})
+    # The one-shot shim (plain PyTorch on the card) is the reference-backend
+    # engine's program + first MVM under the same key, bit for bit.
+    y_once, stats_once = corrected_mvm(m1_a, x66, 7, m1_cfg)
+    y_eng = AnalogEngine(m1_cfg, backend="reference", device=dev) \
+        .program(m1_a, 7) @ x66
+    print(f"[8] corrected_mvm on M1 (taox-hfox, EC): rel-L2 vs digital "
+          f"{rel_l2(y_once, torch.matmul(m1_a, x66)):.4f}, equal to the "
+          f"reference engine bit for bit: {torch.equal(y_once, y_eng)}; "
+          f"E_w {stats_once.energy_j:.4e} J", flush=True)
+    check(torch.equal(y_once, y_eng),
+          "corrected_mvm differs from the reference engine")
+    # corrected_matmul, row-major, at one Mixtral expert's width: x (256,
+    # 4,096) @ W (4,096, 14,336), both encoded (taox-hfox, k = 5).
+    m, k, n = ENCODE_ROWS, D_MODEL, D_FF
+    xm = torch.randn(m, k, generator=gen, device=dev)
+    wm = torch.randn(k, n, generator=gen, device=dev).div_(k ** 0.5)
+    xm_t = encode(xm, taox, cfg.k_iters, gen=generator(fold_in(8, 0), dev))
+    wm_t = encode(wm, taox, cfg.k_iters, gen=generator(fold_in(8, 1), dev))
+    fused = corrected_matmul(xm, wm, xm_t, wm_t, ec_mode="fused")
+    faithful = corrected_matmul(xm, wm, xm_t, wm_t, ec_mode="faithful")
+    digital = torch.matmul(xm, wm)
+    mm_err = {"fused_vs_faithful": rel_l2(fused, faithful),
+              "ec": rel_l2(fused, digital),
+              "raw": rel_l2(torch.matmul(xm_t, wm_t), digital)}
+    forms = [lambda mode=mode: corrected_matmul(xm, wm, xm_t, wm_t,
+                                                ec_mode=mode)
+             for mode in ("fused", "faithful")]
+    (f_ms, f_lo, f_hi), (a_ms, a_lo, a_hi) = alternating_ms(forms, 50)
+    mhz, watts, samples = clock_under_load(lambda: [f() for f in forms])
+    print(f"[8] corrected_matmul x {m}x{k} @ W {k}x{n} (taox-hfox): fused vs "
+          f"faithful rel-L2 {mm_err['fused_vs_faithful']:.2e}; vs digital "
+          f"x @ W: EC {mm_err['ec']:.4e}, raw x~ @ W~ {mm_err['raw']:.4e}; "
+          f"device ms a call over 50 alternating rounds (median, min-max): "
+          f"fused {f_ms:.3f} ({f_lo:.3f}-{f_hi:.3f}), faithful {a_ms:.3f} "
+          f"({a_lo:.3f}-{a_hi:.3f}); both forms in turn at SM {mhz} MHz, "
+          f"{watts} W ({samples} nvidia-smi samples)", flush=True)
+    check(mm_err["fused_vs_faithful"] <= EC_TOL
+          and mm_err["ec"] < mm_err["raw"],
+          "corrected_matmul: fused != faithful, or EC no better than raw")
+    del xm, wm, xm_t, wm_t, fused, faithful, digital, m1_image, at, da
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
@@ -1127,7 +1358,7 @@ def main() -> int:
         launches = sum(counts[name] for counts in
                        (served, served_t, solve_counts, lstsq_counts,
                         lp_counts, group_counts, chain_counts,
-                        encode_counts))
+                        encode_counts, table1_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({

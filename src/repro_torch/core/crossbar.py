@@ -6,7 +6,8 @@ plus residual programming noise) and keeps ``A_tilde`` and ``dA = A - A_tilde``;
 :func:`programmed_block_mvm` executes a corrected MVM against that image with
 only the input vector passing through the DAC, and
 :func:`programmed_block_rmvm` the transposed ``A.T @ y`` against the same
-image.  The grouped stages (:func:`group_program_blocks`,
+image; :func:`corrected_mvm` is the one-shot composition of the two, with
+its write cost.  The grouped stages (:func:`group_program_blocks`,
 :func:`grouped_block_mvm`, :func:`grouped_block_rmvm`) run a stack of
 same-shape members, member ``g`` exactly as its solo stage under ``keys[g]``.
 
@@ -47,6 +48,7 @@ __all__ = [
     "group_program_blocks",
     "grouped_block_mvm",
     "grouped_block_rmvm",
+    "corrected_mvm",
 ]
 
 
@@ -380,3 +382,33 @@ def grouped_block_rmvm(at: torch.Tensor, da: torch.Tensor, yb: torch.Tensor,
     ``eta`` (g, mb, nb, cap_m, batch); returns (g, n, batch)."""
     return _grouped(programmed_block_rmvm, at, da, yb, keys, cfg, m, n, tier2,
                     use_kernel, eta)
+
+
+# --------------------------------------------------------------------------- #
+# One-shot entry point: program, execute once, bill
+# --------------------------------------------------------------------------- #
+
+def corrected_mvm(a: torch.Tensor, x: torch.Tensor, key: int,
+                  cfg: CrossbarConfig, *,
+                  eta: Optional[torch.Tensor] = None,
+                  dac_eta: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, WriteStats]:
+    """``y ~= A @ x`` on the simulated multi-MCA system in one shot (paper
+    Algorithm 6 + 4): :func:`program_blocks` under ``key``, one
+    :func:`programmed_block_mvm` under the same ``key`` (per-block DAC,
+    tier-2 on the assembled output) and the analytic :func:`write_cost` of
+    the whole thing, matrix and inputs.
+
+    It re-programs ``a`` on every call; a matrix used more than once belongs
+    in :class:`repro_torch.engine.AnalogEngine`.  ``x`` is (n,) or (n,
+    batch), and ``y`` has its rank.  ``eta`` ((mb, nb, cap_m, cap_n))
+    replaces the programming draws and ``dac_eta`` ((mb, nb, cap_n, batch))
+    the DAC draws.
+    """
+    m, n = a.shape
+    squeeze = x.ndim == 1
+    xb = x[:, None] if squeeze else x
+    at, da = program_blocks(a, key, cfg, eta=eta)
+    p = programmed_block_mvm(at, da, xb, key, cfg, m=m, n=n, eta=dac_eta)
+    stats = write_cost(m, n, cfg, batch=xb.shape[1])
+    return (p[:, 0] if squeeze else p), stats

@@ -9,6 +9,9 @@ Tier 2 -- second-order denoising (paper Eq. 8-10, Algorithm 5):
 ``dense`` (the paper's explicit inverse), ``thomas`` (exact O(n) tridiagonal
 solve) and ``neumann`` (``p - lam (L^T L) p``, exact to O(lam^2), a 3-point
 stencil; the default and what the ``cuda`` backend runs as a kernel).
+
+End to end on pre-encoded operands: :func:`corrected_matvecmul` (``A @ x``)
+and :func:`corrected_matmul` (row-major ``x @ W``, the LM layers' form).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ __all__ = [
     "tridiag_coeffs",
     "stencil_apply",
     "denoise_least_square",
+    "corrected_matvecmul",
+    "corrected_matmul",
 ]
 
 
@@ -117,3 +122,38 @@ def denoise_least_square(p: torch.Tensor, lam: float = 1e-12, h: float = -1.0,
     if method == "neumann":
         return _neumann_apply(p, lam, h)
     raise ValueError(f"unknown denoise method {method!r}")
+
+
+# --------------------------------------------------------------------------- #
+# End-to-end corrected products on pre-encoded operands (paper Algorithm 6)
+# --------------------------------------------------------------------------- #
+
+def corrected_matvecmul(a, x, a_tilde, x_tilde, *, lam: float = 1e-12,
+                        h: float = -1.0, ec_mode: str = "fused",
+                        denoise_method: str = "neumann") -> torch.Tensor:
+    """correctedMatVecMul: tier-1 then tier-2 on pre-encoded operands."""
+    p = first_order_correct(a, a_tilde, x, x_tilde, mode=ec_mode)
+    return denoise_least_square(p, lam=lam, h=h, method=denoise_method)
+
+
+def corrected_matmul(x, w, x_tilde, w_tilde, *, lam: float = 1e-12,
+                     h: float = -1.0, ec_mode: str = "fused",
+                     denoise_method: str = "neumann") -> torch.Tensor:
+    """Row-major ``y = x @ W`` with EC over both operands (the LM layers').
+
+    ``faithful``: ``x~W + xW~ - x~W~`` (= ``xW - dx dW``); ``fused``:
+    ``xW~ + x~(W - W~)``.  ``x`` may have any leading axes.  Tier-2 runs
+    along the last (output-feature) axis, the analog column lines: the
+    product is flattened to (-1, n_out), the feature axis moved to the front
+    for :func:`denoise_least_square`, and moved back.
+    """
+    if ec_mode == "faithful":
+        p = x_tilde @ w + x @ w_tilde - x_tilde @ w_tilde
+    elif ec_mode == "fused":
+        p = x @ w_tilde + x_tilde @ (w - w_tilde)
+    else:
+        raise ValueError(f"unknown first-order EC mode {ec_mode!r}")
+    shape = p.shape
+    pt = torch.movedim(p.reshape(-1, shape[-1]), -1, 0)   # (n_out, rows)
+    yt = denoise_least_square(pt, lam=lam, h=h, method=denoise_method)
+    return torch.movedim(yt, 0, -1).reshape(shape)

@@ -1,22 +1,26 @@
 """Analog iterative solvers on the program-once engine (port of
-:mod:`repro.solvers`, subset: CG, Richardson, Jacobi; LSQR and LSMR least
-squares; PDHG linear programming).
+:mod:`repro.solvers`): CG, BiCGSTAB and restarted GMRES (Krylov);
+Richardson and Jacobi (stationary); iterative refinement with a digital
+outer residual; LSQR and LSMR least squares; PDHG linear programming.
+Lanczos, LOBPCG and ADMM are not ported yet (ROADMAP Queue A9).
 
 Every method is matvec-only (plus ``rmatvec``, the transposed MVM against the
-same image, for LSQR, LSMR and PDHG) and takes ``(n,)`` or ``(n, batch)``
-right-hand sides; ``backend="cuda"`` fuses CG's and Richardson's update
-step into a hand-written kernel.  An operand that carries no device (a numpy
-array, a bare matvec) runs on ``device=``, default ``"cuda"``; a tensor
-keeps its own device.
+same image, for LSQR, LSMR and PDHG; refinement also reads the digital
+matrix) and takes ``(n,)`` or ``(n, batch)`` right-hand sides;
+``backend="cuda"`` fuses CG's and Richardson's update step into a
+hand-written kernel, also inside refinement.  An operand that carries no
+device (a numpy array, a bare matvec) runs on ``device=``, default
+``"cuda"``; a tensor keeps its own device.
 """
 from .base import (LinearOperator, SolveLedger, SolveResult, as_operator,
                    col_norms, pack_result)
-from .krylov import cg
+from .krylov import bicgstab, cg, gmres
 from .lstsq import lsmr, lsqr
 from .pdhg import pdhg, random_feasible_lp
+from .refinement import refine
 from .stationary import estimate_omega, jacobi, richardson, spectral_bounds
 
 __all__ = ["LinearOperator", "SolveLedger", "SolveResult", "as_operator",
-           "col_norms", "pack_result", "cg", "richardson", "jacobi",
-           "spectral_bounds", "estimate_omega", "lsqr", "lsmr", "pdhg",
-           "random_feasible_lp"]
+           "col_norms", "pack_result", "cg", "bicgstab", "gmres", "refine",
+           "richardson", "jacobi", "spectral_bounds", "estimate_omega",
+           "lsqr", "lsmr", "pdhg", "random_feasible_lp"]

@@ -798,3 +798,105 @@ def test_chain_on_card_is_a_loop_of_block_launches(cuda_device):
     assert kernels.LAUNCHES["ec_matmul"] == 4 * 2 * 2
     assert rel(got.cpu(), cpu.chain_mvm(G, h, activation="relu",
                                         eta=eta)) <= 1e-5
+
+
+def _card_copy(A, engine):
+    """The CPU handle ``A``'s image on ``engine``'s card."""
+    return AnalogMatrix(engine=engine, shape=A.shape, base_key=A.base_key,
+                        write_stats=A.write_stats,
+                        at_pad=A.at_pad.to(engine.device),
+                        da_pad=A.da_pad.to(engine.device))
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+def test_krylov_and_refine_on_card_match_cpu(cuda_device, method):
+    """BiCGSTAB, GMRES(5) and refine (CG and Richardson inner) on one image,
+    DAC off (so each MVM is a function of the image alone): ``backend=
+    "cuda"`` on the card takes the iterations of the same solve on CPU
+    tensors, x within 1e-5; every MVM is one ``ec_matmul`` and one tier-2
+    launch, and refine's inner loops launch their update kernels."""
+    from repro_torch.core import rel_l2
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 64, 64), encode_inputs=False,
+                         denoise_method=method, lam=1e-2)
+    n = 200
+    r = randn((n, n), 70, "cpu") / n ** 0.5
+    nonsym = 2.0 * torch.eye(n) + 0.6 * r
+    spd = (r + r.T) / n ** 0.5 + 2.0 * torch.eye(n)
+    b = randn((n, 3), 71, "cpu")
+    cpu = AnalogEngine(cfg, backend="cuda", device="cpu")
+    gpu = AnalogEngine(cfg, backend="cuda", device=cuda_device)
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    runs = [
+        (nonsym, lambda A, u: solvers.bicgstab(A, u, tol=1e-5, maxiter=60),
+         None),
+        (nonsym, lambda A, u: solvers.gmres(A, u, restart=5, tol=1e-5,
+                                            maxiter=40), None),
+        (spd, lambda A, u: solvers.refine(A, u, inner="cg", tol=1e-5,
+                                          backend="cuda"), "cg_update"),
+        (spd, lambda A, u: solvers.refine(A, u, inner="richardson",
+                                          omega=0.5, tol=1e-5,
+                                          backend="cuda"),
+         "richardson_update")]
+    for a, solve, update in runs:
+        A = cpu.program(a, 9)
+        want = solve(A, b)
+        kernels.reset_launches()
+        got = solve(_card_copy(A, gpu), b.to(cuda_device))
+        torch.cuda.synchronize()
+        assert got.converged and want.converged, (got, want)
+        assert got.iterations == want.iterations
+        assert got.ledger.mvms == want.ledger.mvms
+        assert float(rel_l2(got.x.cpu(), want.x)) <= 1e-5
+        assert kernels.LAUNCHES["ec_matmul"] == got.ledger.mvms
+        assert kernels.LAUNCHES[tier2] == got.ledger.mvms
+        if update is not None:
+            assert kernels.LAUNCHES[update] > 0
+
+
+def test_quickstart_image_takes_the_register_load_layout(cuda_device):
+    """The 66^2 image of the quickstart (MCAGeometry(1, 1, 66, 66): a
+    264-byte row stride, not 16-byte aligned) runs ``ec_matmul`` on the
+    register-load layout, equal to its plain version at batch 1 and 8 and
+    the same run to run; the engine's MVM on it launches once."""
+    from repro_torch.core.matrices import paper_matrix
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(1, 1, 66, 66))
+    eng = AnalogEngine(cfg, backend="cuda", device=cuda_device)
+    a = torch.from_numpy(paper_matrix("bcsstk02").astype(np.float32))
+    A = eng.program(a.to(cuda_device), 1)
+    at, da = A.at_pad, A.da_pad
+    assert at.shape == (66, 66) and at.stride(0) * 4 == 264
+    for batch in (1, 8):
+        lay = kernels.matmul_layout(at, da, batch)
+        assert not lay.staged
+        x = randn((66, batch), 72, cuda_device)
+        xt = x * (1 + 0.01 * randn((66, batch), 73, cuda_device))
+        got = kernels.ec_matmul(at, da, x, xt)
+        assert rel(got, kernels.ec_matmul_plain(at, da, x, xt)) <= 1e-5
+        assert torch.equal(got, kernels.ec_matmul(at, da, x, xt))
+    kernels.reset_launches()
+    y = A @ randn((66,), 74, cuda_device)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_matmul"] == 1 and y.shape == (66,)
+
+
+@pytest.mark.parametrize("batch", [None, 4])
+def test_corrected_mvm_on_card_is_the_reference_engine(cuda_device, batch):
+    """The one-shot ``corrected_mvm`` on CUDA tensors equals the
+    ``reference``-backend engine's program + first mvm under the same key,
+    bit for bit, and bills program + one input write."""
+    from repro_torch.core import corrected_mvm
+    from repro_torch.core.matrices import paper_matrix
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(1, 1, 66, 66))
+    a = torch.from_numpy(paper_matrix("bcsstk02").astype(np.float32)) \
+        .to(cuda_device)
+    x = randn((66,) if batch is None else (66, batch), 75, cuda_device)
+    y, stats = corrected_mvm(a, x, 11, cfg)
+    A = AnalogEngine(cfg, backend="reference", device=cuda_device) \
+        .program(a, 11)
+    assert y.device.type == "cuda" and torch.equal(y, A @ x)
+    assert stats.energy_j == pytest.approx(
+        A.write_stats.energy_j + A.input_write_stats(batch or 1).energy_j,
+        rel=1e-12)

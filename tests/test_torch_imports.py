@@ -1,7 +1,7 @@
 """The port stands alone: no file under src/repro_torch/, and none of
-chip_smoke.py, encode_probe.py and mvm_probe.py, imports ``jax`` or anything
-of ``repro``; and the package imports in a fresh interpreter without them being
-importable."""
+chip_smoke.py, encode_probe.py, mvm_probe.py and the port's examples, imports
+``jax`` or anything of ``repro``; and the package imports in a fresh
+interpreter without them being importable."""
 import ast
 import os
 import subprocess
@@ -12,7 +12,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py"]
+    [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py",
+     REPO / "examples" / "quickstart_torch.py",
+     REPO / "examples" / "meliso_solver_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -34,6 +36,16 @@ def test_port_file_list_covers_the_transposed_slice():
                 "src/repro_torch/kernels/tridiag.py",
                 "src/repro_torch/kernels/rram_mvm.py",
                 "src/repro_torch/engine.py", "chip_smoke.py"):
+        assert rel in names, rel
+
+
+def test_port_file_list_covers_the_main_path_slice():
+    """The import scan reaches the refinement solver and the examples."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/solvers/refinement.py",
+                "src/repro_torch/solvers/krylov.py",
+                "examples/quickstart_torch.py",
+                "examples/meliso_solver_torch.py"):
         assert rel in names, rel
 
 
@@ -76,6 +88,9 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.engine import AnalogMatrixGroup, CHAIN_ACTIVATIONS\n"
         "from repro_torch.core import group_program_blocks, grouped_block_mvm\n"
         "from repro_torch.interop import group_from_numpy\n"
+        "from repro_torch.solvers import bicgstab, gmres, refine\n"
+        "from repro_torch.core import (corrected_mvm, corrected_matmul,\n"
+        "    corrected_matvecmul)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
