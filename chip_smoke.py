@@ -73,10 +73,24 @@ non-zero, printing no result, without them or without the repository's
      layout), the one-shot corrected_mvm equal to the reference engine bit
      for bit, and corrected_matmul at one Mixtral expert's width (fused
      against faithful, EC against raw; the two forms timed in turn, with
-     the SM clock sampled while they run).
+     the SM clock sampled while they run);
+  9. streamed execution (a ``block_fn(i, j)`` producer, only A_tilde kept,
+     dA derived again per block): [9a] phase 2's matrix sliced into 4,096^2
+     blocks, its streamed image equal to the local one bit for bit, one EC
+     launch per block and one tier-2 launch per call in both directions,
+     DAC off cuda equal to reference to 1e-5 (Neumann, Thomas at lam
+     1e-2), and the EC kernels on one block of the stack against their
+     plain versions; [9b] the paper's dubcova2 (65,025^2, the implicit
+     banded producer on 8 x 8 MCAs of 1,024^2, taox-hfox, k = 5, EC on):
+     3 A @ x and 1 A.T @ y against the producer's ground truth, the peak at
+     or under the image + 12 capacity blocks, where a call's time goes, the
+     8,192^2 block's EC kernels, and the one-shot streamed_corrected_mvm
+     under 12 blocks with no image; [9c] CG (tol 1e-3, at most 12
+     iterations) on an epiram image of the same producer to x error <=
+     1e-3, one cg_update an iteration.
 
 Launch counts are zeroed just before each solve of phases 4 and 5, and
-before phases 3, 3t, 6, 6c, 7 and 8's main calls, and read just after: every
+before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and read just after: every
 kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
@@ -324,6 +338,327 @@ def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
     return row
 
 
+def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
+    """Phase 9, streamed execution: a ``block_fn(i, j)`` producer programs
+    the image, which is kept as one contiguous block stack, and every
+    execute derives ``dA = block_fn(i, j) - A_tilde[i, j]`` again per block
+    (one ec_matmul / ec_rmatmul launch a capacity block on the cuda backend,
+    one tier-2 launch a call).  [9a] the n^2 matrix of phase 2 (``cfg``,
+    ``engine``, key 1) through a slicing producer, against the local image;
+    [9b] the paper's dubcova2 (``n_dub``^2, ``dub_geom``) from the implicit
+    banded producer: MVMs, peak memory, the one-shot form; [9c] CG on it.
+    Appends the EC kernels' rows at both block shapes to ``more_shapes``;
+    returns the launches of the phase's main runs."""
+    from repro_torch import kernels, solvers
+    from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
+                                  get_device, streamed_corrected_mvm)
+    from repro_torch.core import crossbar
+    from repro_torch.core.prng import fold_in, generator
+    from repro_torch.engine import AnalogEngine, AnalogMatrix
+    gib = 2.0 ** 30
+    # A block_fn(i, j) producer programs the image, which is kept as one
+    # contiguous block stack; every execute derives dA = block_fn(i, j) -
+    # A_tilde[i, j] again per block: one ec_matmul / ec_rmatmul launch per
+    # capacity block on the cuda backend, one tier-2 launch per call.
+    streamed_counts = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def tally(counts):
+        for k_, v_ in counts.items():
+            streamed_counts[k_] += v_
+
+    def streamed_view(S, c, be):
+        """A streamed handle's image under another engine (no copy)."""
+        return AnalogMatrix(
+            engine=AnalogEngine(c, execution="streamed", backend=be,
+                                device=dev),
+            shape=S.shape, base_key=S.base_key, write_stats=S.write_stats,
+            at_stack=S.at_stack, block_fn=S.block_fn)
+
+    def block_rows(tag, c, at_blk, da_blk, seed):
+        """ec_matmul / ec_rmatmul at batch 1 on one capacity block of a
+        streamed image and its derived dA (row stride cap_n, as the engine
+        passes them), against their plain versions and cuBLAS."""
+        cm, cn = at_blk.shape
+        u = torch.randn(cn, 1, generator=gen, device=dev)
+        u_t = crossbar._encode_vec(u, c, gen=generator(seed, dev))
+        v = torch.randn(cm, 1, generator=gen, device=dev)
+        v_t = crossbar._encode_vec(v, c, gen=generator(seed + 1, dev))
+        res = {
+            "ec_matmul": compare(
+                f"ec_matmul {cm}x{cn} block ({tag}) batch 1",
+                lambda: kernels.ec_matmul(at_blk, da_blk, u, u_t),
+                lambda: kernels.ec_matmul_plain(at_blk, da_blk, u, u_t),
+                EC_TOL, nbytes=4 * (2 * cm * cn + 2 * cn + cm),
+                flops=4 * cm * cn, iters=20,
+                library_fn=lambda: torch.matmul(at_blk, u)
+                + torch.matmul(da_blk, u_t)),
+            "ec_rmatmul": compare(
+                f"ec_rmatmul {cm}x{cn} block ({tag}) batch 1",
+                lambda: kernels.ec_rmatmul(at_blk, da_blk, v, v_t),
+                lambda: kernels.ec_rmatmul_plain(at_blk, da_blk, v, v_t),
+                EC_TOL, nbytes=4 * (2 * cm * cn + 2 * cm + cn),
+                flops=4 * cm * cn, iters=20,
+                library_fn=lambda: torch.matmul(at_blk.T, v)
+                + torch.matmul(da_blk.T, v_t))}
+        for name, row in res.items():
+            row.update(shape=f"{cm}x{cn} streamed block ({tag})", batch=1,
+                       layout=(kernels.rmatmul_layout if name == "ec_rmatmul"
+                               else kernels.matmul_layout)(
+                                   at_blk, da_blk, 1)._asdict())
+        return res
+
+    # 9a. Streamed equals local at n^2: phase [2]'s matrix (the first draw
+    # of a generator seeded SEED) and key, sliced into 4,096^2 blocks.
+    cap = cfg.geom.capacity[0]
+    a = torch.randn(n, n, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED), device=dev)
+
+    def slicer(src, c_m, c_n):
+        def block_fn(i, j):
+            blk = src[i * c_m:(i + 1) * c_m, j * c_n:(j + 1) * c_n]
+            if tuple(blk.shape) != (c_m, c_n):   # the zero-padded edge
+                blk = torch.nn.functional.pad(
+                    blk, (0, c_n - blk.shape[1], 0, c_m - blk.shape[0]))
+            return blk
+        return block_fn
+
+    producer = slicer(a, cap, cap)
+    A = engine.program(a, 1)
+    t0 = time.perf_counter()
+    S = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                     device=dev).program(producer, 1, shape=(n, n))
+    torch.cuda.synchronize()
+    prog_s = time.perf_counter() - t0
+    same_image = torch.equal(S.at_blocks, A.at_blocks)
+    grid9a = S.at_stack.shape[:2]
+    print(f"[9a] streamed program of {n}^2 from a slicing producer "
+          f"({grid9a[0]} x {grid9a[1]} blocks of {cap}^2) in {prog_s:.2f} "
+          f"s; image {S.image_nbytes / gib:.0f} GiB (local: "
+          f"{A.image_nbytes / gib:.0f}); equal to the local image bit for "
+          f"bit: {same_image}", flush=True)
+    check(same_image, "the streamed image differs from the local one")
+    del A
+    torch.cuda.empty_cache()
+    n_blocks = grid9a[0] * grid9a[1]
+    x1 = torch.randn(n, 1, generator=gen, device=dev)
+    y1 = torch.randn(n, 1, generator=gen, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fwd = S @ x1
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    bwd = S.T @ y1
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    bwd_counts = dict(kernels.LAUNCHES)
+    tally(fwd_counts)
+    tally(bwd_counts)
+    print(f"[9a] streamed A @ x: {fwd_ms:.1f} ms, rel-L2 vs digital "
+          f"{rel_l2(fwd, torch.matmul(a, x1)):.4e}, launches {fwd_counts}; "
+          f"A.T @ y: {bwd_ms:.1f} ms, rel-L2 "
+          f"{rel_l2(bwd, torch.matmul(a.T, y1)):.4e}, launches "
+          f"{bwd_counts}", flush=True)
+    check(fwd_counts["ec_matmul"] == n_blocks
+          and fwd_counts["stencil_denoise"] == 1
+          and bwd_counts["ec_rmatmul"] == n_blocks
+          and bwd_counts["stencil_denoise"] == 1,
+          f"not one EC launch per block ({n_blocks}) and one tier-2 launch "
+          f"per streamed MVM: {fwd_counts} / {bwd_counts}")
+    check(bool(torch.isfinite(fwd).all() & torch.isfinite(bwd).all()),
+          "non-finite streamed MVM output")
+    det9 = {}
+    for method, lam in (("neumann", cfg.lam), ("thomas", STENCIL_CHECK_LAM)):
+        c = dataclasses.replace(cfg, encode_inputs=False,
+                                denoise_method=method, lam=lam)
+        kernels.reset_launches()
+        got = (streamed_view(S, c, "cuda") @ x1,
+               streamed_view(S, c, "cuda").T @ y1)
+        torch.cuda.synchronize()
+        tally(kernels.LAUNCHES)
+        want = (streamed_view(S, c, "reference") @ x1,
+                streamed_view(S, c, "reference").T @ y1)
+        det9[method] = [rel_l2(g_, w_) for g_, w_ in zip(got, want)]
+    print(f"[9a] DAC off, streamed cuda vs streamed reference rel-L2 "
+          f"(A @ x, A.T @ y): Neumann {det9['neumann'][0]:.3e} / "
+          f"{det9['neumann'][1]:.3e}; Thomas at lam {STENCIL_CHECK_LAM:g} "
+          f"{det9['thomas'][0]:.3e} / {det9['thomas'][1]:.3e}", flush=True)
+    check(max(max(v) for v in det9.values()) <= 1e-5,
+          "the streamed cuda path disagrees with the streamed reference")
+    at_blk = S.at_blocks[0, 0]
+    da_blk = torch.sub(producer(0, 0), at_blk)
+    more_shapes.append(block_rows("9a", cfg, at_blk, da_blk, 90))
+    del S, a, producer, at_blk, da_blk, fwd, bwd, got, want
+    torch.cuda.empty_cache()
+
+    # 9b. The paper's dubcova2 (65,025^2): the implicit banded producer on
+    # 8 x 8 MCAs of 1,024^2 (benchmarks/strong_scaling.py's streamed row),
+    # taox-hfox, k = 5, EC on.  The matrix never exists on the card.
+    dcfg = CrossbarConfig(device=get_device("taox-hfox"), geom=dub_geom,
+                          k_iters=5, ec=True)
+    dcap = dcfg.geom.capacity[0]
+    block_bytes = dcap * dcap * 4
+    imp = ImplicitBandedMatrix(n=n_dub, cap_m=dcap, cap_n=dcap, seed=n_dub,
+                               device=dev)
+    xd = torch.randn(n_dub, generator=gen, device=dev)
+    yd = torch.randn(n_dub, generator=gen, device=dev)
+    bd, bdt = imp.matvec(xd), imp.rmatvec(yd)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    deng = AnalogEngine(dcfg, execution="streamed", backend="cuda",
+                        device=dev)
+    t0 = time.perf_counter()
+    D = deng.program(imp.block, fold_in(11, 3 * n_dub), shape=(n_dub, n_dub))
+    torch.cuda.synchronize()
+    dprog_s = time.perf_counter() - t0
+    dgrid = D.at_stack.shape[0] * D.at_stack.shape[1]
+    kernels.reset_launches()
+    dms, dys = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dys.append(D @ xd)
+        torch.cuda.synchronize()
+        dms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    dz = D.T @ yd
+    torch.cuda.synchronize()
+    dms_t = (time.perf_counter() - t0) * 1e3
+    dub_counts = dict(kernels.LAUNCHES)
+    tally(dub_counts)
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = D.image_nbytes + 12 * block_bytes
+    eps = [rel_l2(y_, bd) for y_ in dys]
+    eps_t = rel_l2(dz, bdt)
+    print(f"[9b] dubcova2 {n_dub}^2 ({dgrid} blocks of {dcap}^2, "
+          f"{dcfg.device.name}, k = {dcfg.k_iters}, EC on): programmed in "
+          f"{dprog_s:.2f} s, image {D.image_nbytes / 1e9:.2f} GB; 3 A @ x: "
+          f"{', '.join(f'{v:.1f}' for v in dms)} ms, eps_l2 vs "
+          f"imp.matvec {', '.join(f'{v:.4e}' for v in eps)}; A.T @ y "
+          f"{dms_t:.1f} ms, eps_l2 vs imp.rmatvec {eps_t:.4e}; launches "
+          f"{dub_counts}", flush=True)
+    print(f"[9b] peak over program + 4 MVMs: "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB allocated, "
+          f"{peak / gib:.2f} GiB over the start (image "
+          f"{D.image_nbytes / gib:.2f} GiB + "
+          f"{(peak - D.image_nbytes) / block_bytes:.2f} capacity "
+          f"blocks; limit image + 12 blocks = {limit / gib:.2f} GiB; a dense "
+          f"program would hold A, A_tilde and dA: "
+          f"{3 * n_dub * n_dub * 4 / 1e9:.1f} GB)", flush=True)
+    check(dub_counts["ec_matmul"] == 3 * dgrid
+          and dub_counts["ec_rmatmul"] == dgrid
+          and dub_counts["stencil_denoise"] == 4,
+          f"dubcova2: not {dgrid} EC launches per streamed MVM: {dub_counts}")
+    check(peak <= limit, f"dubcova2: peak {peak / gib:.2f} GiB over the "
+                         f"image plus 12 capacity blocks")
+    check(all(bool(torch.isfinite(y_).all()) for y_ in dys + [dz])
+          and max(eps + [eps_t]) < 0.1,
+          "dubcova2: non-finite output or error above 0.1")
+    # DAC off, the cuda path against the reference pipeline at this size.
+    dexact = dataclasses.replace(dcfg, encode_inputs=False)
+    det_dub = rel_l2(streamed_view(D, dexact, "cuda") @ xd,
+                     streamed_view(D, dexact, "reference") @ xd)
+    print(f"[9b] DAC off, cuda vs reference pipeline, A @ x: rel-L2 "
+          f"{det_dub:.3e}", flush=True)
+    check(det_dub <= 1e-5, "dubcova2: cuda path disagrees with reference")
+    # Where a streamed MVM's time goes: the producer's sweep, dA's
+    # derivation, the EC kernel and the DAC pass, each timed alone for one
+    # block (x blocks) or one sweep; the device's busy time in one call
+    # (torch.profiler) against its wall time.
+    dat, dda = D.at_blocks[3, 3], torch.sub(imp.block(3, 3), D.at_blocks[3, 3])
+    dblock = block_rows("9b dubcova2", dcfg, dat, dda, 91)
+    more_shapes.append(dblock)
+
+    def sweep():
+        for i_ in range(D.at_stack.shape[0]):
+            for j_ in range(D.at_stack.shape[1]):
+                imp.block(i_, j_)
+
+    xb_blk = xd[:dcap, None].contiguous()
+    split = {
+        "producer sweep": device_time_ms(sweep, 2, warmup=1),
+        "derive dA (x blocks)": dgrid * device_time_ms(
+            lambda: torch.sub(dat, dda), 10),
+        "ec_matmul (x blocks)": dgrid * dblock["ec_matmul"]["ms"],
+        "DAC pass (x blocks)": dgrid * device_time_ms(
+            lambda: crossbar._encode_vec(
+                xb_blk, dcfg, gen=generator(5, dev)), 20),
+        "tier-2 stencil": device_time_ms(
+            lambda: kernels.stencil_denoise(bd[:, None].contiguous(),
+                                            dcfg.lam, dcfg.h), 20)}
+    busy = sum(kernel_split(lambda: D @ xd, iters=2).values())
+    wall = statistics.median(dms)
+    bound9 = 3 * D.image_nbytes / HBM_BYTES_PER_S * 1e3
+    print("[9b] a streamed A @ x, device ms: " + ", ".join(
+        f"{k_} {v_:.3f}" for k_, v_ in split.items())
+        + f"; wall {wall:.1f}, device busy {busy:.1f} (idle share "
+        f"{1 - busy / wall:.3f}); byte bound {bound9:.2f} ms (image read + "
+        f"each producer block written and read once), wall / bound "
+        f"{wall / bound9:.2f}", flush=True)
+    del D, dys, dz, dat, dda
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    y_once, _ = streamed_corrected_mvm(imp.block, xd, n_dub, n_dub,
+                                       fold_in(11, 3 * n_dub), dcfg)
+    torch.cuda.synchronize()
+    once_s = time.perf_counter() - t0
+    peak_once = torch.cuda.max_memory_allocated() - base
+    print(f"[9b] one-shot streamed_corrected_mvm (plain PyTorch, no image): "
+          f"{once_s * 1e3:.1f} ms, eps_l2 {rel_l2(y_once, bd):.4e}, peak "
+          f"{peak_once / gib:.2f} GiB over the start = "
+          f"{peak_once / block_bytes:.2f} capacity blocks (limit 12)",
+          flush=True)
+    check(peak_once < 12 * block_bytes,
+          "one-shot streamed MVM above 12 capacity blocks")
+    check(rel_l2(y_once, bd) < 0.1, "one-shot streamed MVM error above 0.1")
+    del y_once
+    torch.cuda.empty_cache()
+
+    # 9c. A solve at that size: CG on an epiram image of the same producer.
+    ecfg = dataclasses.replace(dcfg, device=get_device("epiram"))
+    E = AnalogEngine(ecfg, execution="streamed", backend="cuda",
+                     device=dev).program(imp.block, fold_in(11, 4 * n_dub),
+                                         shape=(n_dub, n_dub))
+    x_true = torch.randn(n_dub, generator=gen, device=dev)
+    b_true = imp.matvec(x_true)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solvers.cg(E, b_true, tol=SOLVE_TOL, maxiter=12, backend="cuda")
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    cg_counts = dict(kernels.LAUNCHES)
+    tally(cg_counts)
+    led = res.ledger
+    mvms = led.mvms + led.mvms_single
+    err = rel_l2(res.x, x_true)
+    print(f"[9c] CG on the {n_dub}^2 epiram image: {res.iterations} "
+          f"iterations, {mvms} MVMs, converged={res.converged}, x err "
+          f"{err:.3e}, residual {res.final_residual:.3e}; {cg_s * 1e3:.1f} "
+          f"ms = {cg_s * 1e3 / max(res.iterations, 1):.1f} ms/iteration; "
+          f"energy: write {led.write_energy_j:.4e} J, per MVM "
+          f"{E.input_write_stats(1).energy_j:.4e} J, iterations "
+          f"{led.iteration_energy_j:.4e} J; launches {cg_counts}",
+          flush=True)
+    check(res.converged and err <= SOLVE_TOL and res.iterations <= 12,
+          f"dubcova2 CG did not reach x error <= {SOLVE_TOL} in 12 "
+          f"iterations")
+    check(cg_counts["cg_update"] == res.iterations
+          and cg_counts["ec_matmul"] == dgrid * mvms
+          and cg_counts["stencil_denoise"] == mvms,
+          f"dubcova2 CG: not one cg_update an iteration and {dgrid} "
+          f"ec_matmul + 1 stencil an MVM: {cg_counts}")
+    print(f"[9] streamed launches {streamed_counts}", flush=True)
+    del E, res, imp
+    torch.cuda.empty_cache()
+    return streamed_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -336,7 +671,8 @@ def main() -> int:
                                   corrected_matmul, corrected_mvm, encode,
                                   get_device, rel_linf)
     from repro_torch.core import crossbar
-    from repro_torch.core.matrices import make_iperturb, paper_matrix
+    from repro_torch.core.matrices import (PAPER_MATRICES, make_iperturb,
+                                           paper_matrix)
     from repro_torch.core.devices import effective_sigma_py
     from repro_torch.core.prng import fold_in, generator
     from repro_torch.engine import (AnalogEngine, AnalogMatrix,
@@ -1328,6 +1664,11 @@ def main() -> int:
     del xm, wm, xm_t, wm_t, fused, faithful, digital, m1_image, at, da
     torch.cuda.empty_cache()
 
+    # ------------------------------------------ 9. streamed execution (main)
+    streamed_counts = streamed_phase(dev, gen, cfg, engine, more_shapes, N,
+                                     PAPER_MATRICES["dubcova2"][0],
+                                     MCAGeometry(8, 8, 1024, 1024))
+
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
@@ -1358,7 +1699,7 @@ def main() -> int:
         launches = sum(counts[name] for counts in
                        (served, served_t, solve_counts, lstsq_counts,
                         lp_counts, group_counts, chain_counts,
-                        encode_counts, table1_counts))
+                        encode_counts, table1_counts, streamed_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({
@@ -1386,7 +1727,7 @@ def main() -> int:
                          "fp64_err_plain", "split_ms")
                         if k in rows[8][name]}
                        if name in rows[8] else None),
-            # The phase-5 images: other M, K and layouts, batch 1.
+            # The phase-5, 8 and 9 images: other M, K and layouts, batch 1.
             "shapes": [res[name] for res in more_shapes if name in res],
         })
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",

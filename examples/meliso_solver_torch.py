@@ -1,5 +1,5 @@
-"""MELISO+ solve through the PyTorch/CUDA port's solvers, local placement
-(the twin of examples/meliso_solver.py).
+"""MELISO+ solve through the PyTorch/CUDA port's solvers, local or streamed
+placement (the twin of examples/meliso_solver.py).
 
 A diagonally dominant SPD matrix is programmed ONCE, then reused by
 matvec-only iterative solvers:
@@ -15,10 +15,14 @@ the one-time write cost amortizes across the whole solve, and each
 the per-iteration input-write cost.
 
 The image lives on one device (local placement, the JAX example's
-``--mesh 1,1``).  The JAX example's ``--mesh`` (distributed placement,
-ROADMAP Queue A11) and ``--producer`` (producer-driven streamed
-programming, Queue A7) are not ported yet, and this example does not take
-them.  ``--device`` names the RRAM device, as in the JAX example;
+``--mesh 1,1``).  ``--producer`` programs through the streamed engine from
+a ``block_fn(i, j)`` producer instead of the dense array, as the JAX
+example's ``--mesh 1,1 --producer`` does (here the producer reads the dense
+copy kept for the ground truth, so this shows the producer-driven path,
+not the memory saving of a procedural producer).  The JAX example's
+``--mesh`` (distributed placement, ROADMAP Queue A11) is not ported, and
+this example does not take it.  ``--device`` names the RRAM device, as in
+the JAX example;
 ``--torch-device`` says where the tensors live: ``cuda`` (the default, an
 error where there is no GPU) or ``cpu``, only when asked for.  The image
 and the solvers run on the ``cuda`` backend: the hand-written kernels on
@@ -26,6 +30,7 @@ the GPU, their plain versions on the CPU.
 
     PYTHONPATH=src python examples/meliso_solver_torch.py
     PYTHONPATH=src python examples/meliso_solver_torch.py --n 2048 --tol 1e-3
+    PYTHONPATH=src python examples/meliso_solver_torch.py --producer
     PYTHONPATH=src python examples/meliso_solver_torch.py --torch-device cpu --n 1024
 """
 import argparse
@@ -50,6 +55,10 @@ def main(argv=None):
     ap.add_argument("--device", default="epiram")
     ap.add_argument("--cell", type=int, default=256)
     ap.add_argument("--no-ec", action="store_true")
+    ap.add_argument("--producer", action="store_true",
+                    help="program through the streamed engine from a "
+                         "block_fn(i, j) producer (here over the dense "
+                         "copy kept for the ground truth)")
     ap.add_argument("--torch-device", default="cuda",
                     help="where images and solves live (default cuda)")
     args = ap.parse_args(argv)
@@ -72,10 +81,21 @@ def main(argv=None):
                        cell_rows=args.cell, cell_cols=args.cell)
     cfg = CrossbarConfig(device=get_device(args.device), geom=geom,
                          k_iters=5, ec=not args.no_ec)
-    engine = AnalogEngine(cfg, backend="cuda", device=dev)
-    A = engine.program(a, 0)                   # programmed ONCE
-    print(f"n={n} device={args.device} ec={not args.no_ec} placement=local "
-          f"torch_device={dev}")
+    if args.producer:
+        engine = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                              device=dev)
+        cap_m, cap_n = geom.capacity
+        mb, nb = -(-n // cap_m), -(-n // cap_n)
+        a_pad = torch.zeros(mb * cap_m, nb * cap_n, device=dev)
+        a_pad[:n, :n] = a
+        blocks = a_pad.view(mb, cap_m, nb, cap_n).permute(0, 2, 1, 3)
+        A = engine.program(lambda i, j: blocks[i, j], 0,
+                           shape=(n, n))       # programmed ONCE
+    else:
+        engine = AnalogEngine(cfg, backend="cuda", device=dev)
+        A = engine.program(a, 0)               # programmed ONCE
+    print(f"n={n} device={args.device} ec={not args.no_ec} "
+          f"placement={engine.execution} torch_device={dev}")
     print(f"one-time write energy = {A.write_stats.energy_j:.3e} J, "
           f"latency = {A.write_stats.latency_s:.4f} s\n")
 

@@ -1,4 +1,4 @@
-"""Multi-MCA crossbar simulation, local stages (port of :mod:`repro.core.crossbar`).
+"""Multi-MCA crossbar simulation (port of :mod:`repro.core.crossbar`).
 
 The program-once dataflow in two stages: :func:`program_blocks` encodes the
 zero-padded matrix one capacity block at a time (per-MCA-tile quantization
@@ -10,10 +10,18 @@ image; :func:`corrected_mvm` is the one-shot composition of the two, with
 its write cost.  The grouped stages (:func:`group_program_blocks`,
 :func:`grouped_block_mvm`, :func:`grouped_block_rmvm`) run a stack of
 same-shape members, member ``g`` exactly as its solo stage under ``keys[g]``.
+The streamed stages (:func:`streamed_program_blocks`,
+:func:`streamed_block_mvm`, :func:`streamed_block_rmvm`, their grouped forms
+and the one-shot :func:`streamed_corrected_mvm`) take a ``block_fn(i, j)``
+producer in place of the matrix and keep only ``A_tilde``; ``dA`` is derived
+again per block at execute time.
 
-Layout: the image lives as two dense padded ``(Mp, Np)`` float32 tensors;
-the ``(mb, nb, cap_m, cap_n)`` block layout of the reference is a view
-(:func:`repro_torch.core.virtualization.blocks_view`), never a second copy.
+Layout: a local image lives as two dense padded ``(Mp, Np)`` float32
+tensors, and the ``(mb, nb, cap_m, cap_n)`` block layout of the reference is
+a view (:func:`repro_torch.core.virtualization.blocks_view`), never a second
+copy; a streamed image is one contiguous ``(mb, nb, cap_m, cap_n)`` block
+stack, as the reference keeps it.  All stages run through one block loop
+(:func:`_sweep`).
 Keys and generators follow :mod:`repro_torch.core.prng`.  Every noisy stage
 takes an optional pre-drawn ``eta`` so tests can inject the reference's
 draws.
@@ -48,7 +56,15 @@ __all__ = [
     "group_program_blocks",
     "grouped_block_mvm",
     "grouped_block_rmvm",
+    "produce_blocks",
+    "streamed_program_blocks",
+    "streamed_block_mvm",
+    "streamed_block_rmvm",
+    "grouped_streamed_program_blocks",
+    "grouped_streamed_block_mvm",
+    "grouped_streamed_block_rmvm",
     "corrected_mvm",
+    "streamed_corrected_mvm",
 ]
 
 
@@ -186,6 +202,17 @@ def assemble_blocks(image: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return image[:m, :n]
 
 
+def _encode_block(blk: torch.Tensor, key: int, i: int, j: int,
+                  cfg: CrossbarConfig,
+                  eta: Optional[torch.Tensor]) -> torch.Tensor:
+    """Program capacity block (i, j) (GLOBAL indices): :func:`encode_tiled`
+    with ``fold_in(block_key(key, i, j), 0)``, or ``eta`` when given."""
+    if eta is not None:
+        return encode_tiled(blk, cfg, eta=eta)
+    gen = generator(fold_in(block_key(key, i, j), 0), blk.device)
+    return encode_tiled(blk, cfg, gen=gen)
+
+
 def program_blocks(a: torch.Tensor, key: int, cfg: CrossbarConfig, *,
                    eta: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,11 +238,8 @@ def program_blocks(a: torch.Tensor, key: int, cfg: CrossbarConfig, *,
             blk = torch.zeros(cap_m, cap_n, dtype=torch.float32,
                               device=a.device)
             blk[:src.shape[0], :src.shape[1]] = src
-            if eta is None:
-                gen = generator(fold_in(block_key(key, i, j), 0), a.device)
-                enc = encode_tiled(blk, cfg, gen=gen)
-            else:
-                enc = encode_tiled(blk, cfg, eta=eta[i, j])
+            enc = _encode_block(blk, key, i, j, cfg,
+                                None if eta is None else eta[i, j])
             at_b[i, j] = enc
             da_b[i, j] = blk.sub_(enc)
     return at, da
@@ -242,17 +266,25 @@ def _block_product(at_blk: torch.Tensor, da_blk: torch.Tensor,
     return at_blk @ u + da_blk @ u_t
 
 
-def _block_execute(at, da, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
-                   transpose):
-    """The execute stage in either direction: the input is chunked along
-    the contraction axis (columns forward, rows transposed), block (I, J)'s
-    chunk passes the DAC with ``fold_in(block_key(key, I, J), 1)`` (or
-    ``eta[I, J]``) in both directions, partials are summed over the
-    contraction blocks and tier-2 runs on the assembled output."""
+def _sweep(block, grid, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
+           transpose, block_offset=(0, 0)):
+    """The execute stage in either direction, over any block source: the
+    one block loop of the port.
+
+    ``block(i, j)`` gives local block (i, j)'s ``(A_tilde, dA)`` (``dA``
+    may be None with ``ec=False``) and ``grid`` is ``(mb, nb, cap_m,
+    cap_n)``.  The input is chunked along the contraction axis (columns
+    forward, rows transposed); block (I, J)'s chunk passes the DAC with
+    ``fold_in(block_key(key, I, J), 1)`` at the GLOBAL index ``(I, J) =
+    block_offset + (i, j)`` (``eta[i, j]`` replaces the draw) in both
+    directions; partials are summed over the contraction blocks in fp32,
+    each block's operands dropped before the next is made, and tier-2 runs
+    on the assembled output.
+    """
     if cfg.ec and cfg.ec_mode not in ("fused", "faithful"):
         raise ValueError(f"unknown first-order EC mode {cfg.ec_mode!r}")
-    at_b, da_b = blocks_view(at, cfg.geom), blocks_view(da, cfg.geom)
-    mb, nb, cap_m, cap_n = at_b.shape
+    mb, nb, cap_m, cap_n = grid
+    i0, j0 = block_offset
     # (output blocks, contraction blocks, their sizes, true lengths)
     if transpose:
         n_out, n_in, cap_out, cap_in, len_out, len_in = nb, mb, cap_n, cap_m, n, m
@@ -260,30 +292,43 @@ def _block_execute(at, da, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
         n_out, n_in, cap_out, cap_in, len_out, len_in = mb, nb, cap_m, cap_n, m, n
     batch = ub.shape[1]
     u_pad = torch.zeros(n_in * cap_in, batch, dtype=torch.float32,
-                        device=at.device)
+                        device=ub.device)
     u_pad[:len_in] = ub
     chunks = u_pad.view(n_in, cap_in, batch)
     outs = []
     for o in range(n_out):
-        acc = torch.zeros(cap_out, batch, dtype=torch.float32, device=at.device)
+        acc = torch.zeros(cap_out, batch, dtype=torch.float32,
+                          device=ub.device)
         for c in range(n_in):
             i, j = (c, o) if transpose else (o, c)
             u_blk = chunks[c]
             if not cfg.encode_inputs:
                 u_t = u_blk
             elif eta is None:
-                gen = generator(fold_in(block_key(key, i, j), 1), at.device)
+                gen = generator(fold_in(block_key(key, i0 + i, j0 + j), 1),
+                                ub.device)
                 u_t = _encode_vec(u_blk, cfg, gen=gen)
             else:
                 u_t = _encode_vec(u_blk, cfg, eta=eta[i, j])
-            acc += _block_product(at_b[i, j], da_b[i, j], u_blk, u_t, cfg,
+            at_blk, da_blk = block(i, j)
+            acc += _block_product(at_blk, da_blk, u_blk, u_t, cfg,
                                   use_kernel, transpose)
+            del at_blk, da_blk
         outs.append(acc)
     p = torch.cat(outs)[:len_out]
     if cfg.ec and tier2:
         p = denoise_least_square(p, lam=cfg.lam, h=cfg.h,
                                  method=cfg.denoise_method)
     return p
+
+
+def _block_execute(at, da, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
+                   transpose):
+    """:func:`_sweep` over the block views of a padded local image."""
+    at_b, da_b = blocks_view(at, cfg.geom), blocks_view(da, cfg.geom)
+    return _sweep(lambda i, j: (at_b[i, j], da_b[i, j]), at_b.shape, ub,
+                  key, cfg, m=m, n=n, tier2=tier2, use_kernel=use_kernel,
+                  eta=eta, transpose=transpose)
 
 
 def programmed_block_mvm(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
@@ -385,6 +430,234 @@ def grouped_block_rmvm(at: torch.Tensor, da: torch.Tensor, yb: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
+# Streamed stages: a block producer instead of a resident source matrix
+# --------------------------------------------------------------------------- #
+# A producer ``block_fn(i, j)`` returns capacity block (i, j) of the padded
+# source, (cap_m, cap_n), for GLOBAL block indices.  Any callable is taken:
+# eager PyTorch has no trace to fuse, so every producer runs in the one block
+# loop of :func:`_sweep`, once per block per sweep.  The programmed image is
+# a contiguous (mb, nb, cap_m, cap_n) block stack, so every block of it and
+# every derived ``dA = block_fn(i, j) - A_tilde[i, j]`` share the row stride
+# cap_n that the EC kernels require of their two images.  Block (I, J) is
+# keyed as in :func:`program_blocks` / :func:`_sweep` (fold 0 programs,
+# fold 1 drives its DAC), so a streamed image and its MVMs equal the local
+# ones under the same key.
+
+def _produce(block_fn, i: int, j: int, cfg: CrossbarConfig,
+             device) -> torch.Tensor:
+    """Producer block (i, j) as a float32 tensor on ``device``, checked
+    against the capacity."""
+    blk = torch.as_tensor(block_fn(i, j), dtype=torch.float32, device=device)
+    if tuple(blk.shape) != cfg.geom.capacity:
+        raise ValueError(f"block_fn({i}, {j}) returned {tuple(blk.shape)}, "
+                         f"not a capacity block {cfg.geom.capacity}")
+    return blk
+
+
+def _check_window(mb: int, nb: int, block_offset, grid) -> Tuple[int, int]:
+    i0, j0 = (int(v) for v in block_offset)
+    if i0 < 0 or j0 < 0 or grid is not None and (
+            i0 + mb > grid[0] or j0 + nb > grid[1]):
+        raise ValueError(f"window {(mb, nb)} at {(i0, j0)} does not fit the "
+                         f"global block grid {grid}")
+    return i0, j0
+
+
+def produce_blocks(block_fn, mb: int, nb: int, *, device) -> torch.Tensor:
+    """All (mb, nb) producer blocks as one (mb, nb, cap_m, cap_n) stack on
+    ``device``, the materializing sweep behind the streamed ``da`` /
+    ``dense()`` views."""
+    out = None
+    for i in range(mb):
+        for j in range(nb):
+            blk = torch.as_tensor(block_fn(i, j), dtype=torch.float32,
+                                  device=device)
+            if out is None:
+                out = torch.empty((mb, nb) + tuple(blk.shape),
+                                  dtype=torch.float32, device=device)
+            out[i, j] = blk
+            del blk
+    return out
+
+
+def _stream_encode(out: torch.Tensor, block_fn, key: int,
+                   cfg: CrossbarConfig, i0: int, j0: int,
+                   eta: Optional[torch.Tensor]) -> None:
+    """Encode every block of the (mb, nb) window at ``(i0, j0)`` into the
+    stack ``out``, one producer block live at a time."""
+    mb, nb = out.shape[:2]
+    for i in range(mb):
+        for j in range(nb):
+            blk = _produce(block_fn, i0 + i, j0 + j, cfg, out.device)
+            out[i, j] = _encode_block(blk, key, i0 + i, j0 + j, cfg,
+                                      None if eta is None else eta[i, j])
+            del blk
+
+
+def streamed_program_blocks(block_fn, key: int, cfg: CrossbarConfig,
+                            mb: int, nb: int, *, block_offset=(0, 0),
+                            grid: Optional[Tuple[int, int]] = None,
+                            eta: Optional[torch.Tensor] = None,
+                            device) -> torch.Tensor:
+    """Program stage over a producer: returns the programmed image as a
+    contiguous (mb, nb, cap_m, cap_n) block stack on ``device``, where the
+    producer's blocks are moved to.  ``dA`` is NOT kept: streamed executes
+    derive it again per block, so the source is never resident twice.
+
+    ``grid=(MB, NB)`` / ``block_offset=(i0, j0)`` program only the (mb, nb)
+    window of a larger global grid at that origin: the producer and the keys
+    see GLOBAL block indices, so the window equals the matching blocks of
+    the full sweep.  ``eta`` ((mb, nb, cap_m, cap_n), the window's) replaces
+    the programming draws.
+    """
+    i0, j0 = _check_window(mb, nb, block_offset, grid)
+    out = torch.empty((mb, nb) + cfg.geom.capacity, dtype=torch.float32,
+                      device=device)
+    _stream_encode(out, block_fn, key, cfg, i0, j0, eta)
+    return out
+
+
+def _streamed_execute(block_fn, at_blocks, ub, key, cfg, *, m, n,
+                      use_kernel, tier2, block_offset, grid, eta,
+                      program_eta, transpose):
+    if not isinstance(ub, torch.Tensor):
+        raise TypeError(f"the streamed execute takes a torch.Tensor input, "
+                        f"not {type(ub).__name__}: it runs on the input's "
+                        f"device")
+    cap_m, cap_n = cfg.geom.capacity
+    if at_blocks is None:
+        mb, nb = -(-m // cap_m), -(-n // cap_n)
+    else:
+        mb, nb = at_blocks.shape[:2]
+        if tuple(at_blocks.shape[2:]) != (cap_m, cap_n):
+            raise ValueError(f"image blocks {tuple(at_blocks.shape)} do not "
+                             f"match the capacity {(cap_m, cap_n)}")
+    i0, j0 = _check_window(mb, nb, block_offset, grid)
+
+    def block(i, j):
+        if at_blocks is not None:
+            at_blk = at_blocks[i, j]
+            if not cfg.ec:
+                return at_blk, None
+            # Out of place: a producer may hand out views of its source.
+            return at_blk, torch.sub(_produce(block_fn, i0 + i, j0 + j, cfg,
+                                              ub.device), at_blk)
+        # One-shot: encode here with the block's programming draw and
+        # consume at once; no image is ever resident.
+        a_blk = _produce(block_fn, i0 + i, j0 + j, cfg, ub.device)
+        at_blk = _encode_block(a_blk, key, i0 + i, j0 + j, cfg,
+                               None if program_eta is None
+                               else program_eta[i, j])
+        return at_blk, (torch.sub(a_blk, at_blk) if cfg.ec else None)
+
+    return _sweep(block, (mb, nb, cap_m, cap_n), ub, key, cfg, m=m, n=n,
+                  tier2=tier2, use_kernel=use_kernel, eta=eta,
+                  transpose=transpose, block_offset=(i0, j0))
+
+
+def streamed_block_mvm(block_fn, at_blocks: Optional[torch.Tensor],
+                       xb: torch.Tensor, key: int, cfg: CrossbarConfig, *,
+                       m: int, n: int, use_kernel: bool = False,
+                       tier2: bool = True, block_offset=(0, 0),
+                       grid: Optional[Tuple[int, int]] = None,
+                       eta: Optional[torch.Tensor] = None,
+                       program_eta: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Execute stage over a producer: ``dA = block_fn(i, j) - A_tilde[i,
+    j]`` is derived per block and dropped before the next, so the extra
+    memory is O(one capacity block) over the image.  Keys and draws are
+    those of :func:`programmed_block_mvm` (``eta`` (mb, nb, cap_n, batch)
+    replaces the DAC draws); ``use_kernel=True`` runs each block's tier-1
+    product through :func:`~repro_torch.kernels.ec_matmul`.  ``xb`` is
+    (n, batch); returns (m, batch).
+
+    ``at_blocks`` is the resident (mb, nb, cap_m, cap_n) image from
+    :func:`streamed_program_blocks`; ``at_blocks=None`` selects the one-shot
+    variant, where each block is encoded in the loop with its programming
+    draw (``program_eta`` (mb, nb, cap_m, cap_n) replaces them) and consumed
+    at once, so no image is ever resident.  ``grid`` / ``block_offset``
+    select a window of a global grid as in :func:`streamed_program_blocks`;
+    ``m`` / ``n`` / ``xb`` are then the window's own footprint, and tier-2
+    belongs to the caller (``tier2=False``).
+    """
+    return _streamed_execute(block_fn, at_blocks, xb, key, cfg, m=m, n=n,
+                             use_kernel=use_kernel, tier2=tier2,
+                             block_offset=block_offset, grid=grid, eta=eta,
+                             program_eta=program_eta, transpose=False)
+
+
+def streamed_block_rmvm(block_fn, at_blocks: Optional[torch.Tensor],
+                        yb: torch.Tensor, key: int, cfg: CrossbarConfig, *,
+                        m: int, n: int, use_kernel: bool = False,
+                        tier2: bool = True, block_offset=(0, 0),
+                        grid: Optional[Tuple[int, int]] = None,
+                        eta: Optional[torch.Tensor] = None,
+                        program_eta: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Transposed execute over a producer, the mirror of
+    :func:`streamed_block_mvm`: ``yb`` (m, batch) chunked by row blocks,
+    block (I, J)'s chunk with the same fold-1 DAC draw as forward (``eta``
+    (mb, nb, cap_m, batch)), ``A_tilde^T y + dA^T y_tilde`` through
+    :func:`~repro_torch.kernels.ec_rmatmul` when ``use_kernel``; returns
+    (n, batch)."""
+    return _streamed_execute(block_fn, at_blocks, yb, key, cfg, m=m, n=n,
+                             use_kernel=use_kernel, tier2=tier2,
+                             block_offset=block_offset, grid=grid, eta=eta,
+                             program_eta=program_eta, transpose=True)
+
+
+def grouped_streamed_program_blocks(block_fns, keys, cfg: CrossbarConfig,
+                                    mb: int, nb: int, *,
+                                    eta: Optional[torch.Tensor] = None,
+                                    device) -> torch.Tensor:
+    """Program a group of producers, member by member: member ``g`` is
+    :func:`streamed_program_blocks` of ``block_fns[g]`` under ``keys[g]``
+    (``eta[g]`` replaces its draws).  Returns (g, mb, nb, cap_m, cap_n) on
+    ``device``."""
+    out = torch.empty((len(block_fns), mb, nb) + cfg.geom.capacity,
+                      dtype=torch.float32, device=device)
+    for g, fn in enumerate(block_fns):
+        _stream_encode(out[g], fn, keys[g], cfg, 0, 0,
+                       None if eta is None else eta[g])
+    return out
+
+
+def _grouped_streamed(run, block_fns, at_blocks, ub, keys, cfg, m, n,
+                      use_kernel, tier2, eta):
+    return torch.stack([
+        run(block_fns[g], at_blocks[g], ub[g], keys[g], cfg, m=m, n=n,
+            use_kernel=use_kernel, tier2=tier2,
+            eta=None if eta is None else eta[g])
+        for g in range(len(block_fns))])
+
+
+def grouped_streamed_block_mvm(block_fns, at_blocks: torch.Tensor,
+                               xb: torch.Tensor, keys, cfg: CrossbarConfig,
+                               *, m: int, n: int, use_kernel: bool = False,
+                               tier2: bool = True,
+                               eta: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Grouped streamed execute, member by member and block by block:
+    member ``g`` is :func:`streamed_block_mvm` of ``block_fns[g]`` on
+    ``at_blocks[g]`` under ``keys[g]`` (``eta[g]`` replaces its DAC draws).
+    ``xb`` is (g, n, batch); returns (g, m, batch)."""
+    return _grouped_streamed(streamed_block_mvm, block_fns, at_blocks, xb,
+                             keys, cfg, m, n, use_kernel, tier2, eta)
+
+
+def grouped_streamed_block_rmvm(block_fns, at_blocks: torch.Tensor,
+                                yb: torch.Tensor, keys, cfg: CrossbarConfig,
+                                *, m: int, n: int, use_kernel: bool = False,
+                                tier2: bool = True,
+                                eta: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Transposed grouped streamed execute: member ``g`` is
+    :func:`streamed_block_rmvm`; ``yb`` (g, m, batch) -> (g, n, batch)."""
+    return _grouped_streamed(streamed_block_rmvm, block_fns, at_blocks, yb,
+                             keys, cfg, m, n, use_kernel, tier2, eta)
+
+
+# --------------------------------------------------------------------------- #
 # One-shot entry point: program, execute once, bill
 # --------------------------------------------------------------------------- #
 
@@ -410,5 +683,29 @@ def corrected_mvm(a: torch.Tensor, x: torch.Tensor, key: int,
     xb = x[:, None] if squeeze else x
     at, da = program_blocks(a, key, cfg, eta=eta)
     p = programmed_block_mvm(at, da, xb, key, cfg, m=m, n=n, eta=dac_eta)
+    stats = write_cost(m, n, cfg, batch=xb.shape[1])
+    return (p[:, 0] if squeeze else p), stats
+
+
+def streamed_corrected_mvm(block_fn, x: torch.Tensor, m: int, n: int,
+                           key: int, cfg: CrossbarConfig, *,
+                           eta: Optional[torch.Tensor] = None,
+                           dac_eta: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, WriteStats]:
+    """Large-problem one-shot ``y ~= A @ x``: ``A`` comes block by block from
+    ``block_fn(i, j)`` and each block is encoded, consumed and dropped in
+    the loop (the one-shot :func:`streamed_block_mvm`), so neither the
+    matrix nor its image ever materializes: O(one capacity block) of memory
+    at the paper's 65,025^2.  Draws are those of a streamed program + first
+    MVM under ``key``; ``eta`` ((mb, nb, cap_m, cap_n)) and ``dac_eta``
+    ((mb, nb, cap_n, batch)) replace them.  Plain PyTorch (the
+    ``reference`` stages), as the one-shot :func:`corrected_mvm` is.  ``x``
+    is (n,) or (n, batch) on the device the work runs on; returns ``y`` and
+    the write cost of the whole thing, matrix and inputs.
+    """
+    squeeze = x.ndim == 1
+    xb = x[:, None] if squeeze else x
+    p = streamed_block_mvm(block_fn, None, xb, key, cfg, m=m, n=n,
+                           eta=dac_eta, program_eta=eta)
     stats = write_cost(m, n, cfg, batch=xb.shape[1])
     return (p[:, 0] if squeeze else p), stats

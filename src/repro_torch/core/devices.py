@@ -22,6 +22,8 @@ __all__ = [
     "get_device",
     "effective_sigma",
     "effective_sigma_py",
+    "drift_factor",
+    "drift_factor_py",
     "quantize",
     "encode",
 ]
@@ -100,6 +102,19 @@ def effective_sigma_py(device: DeviceModel, k: float) -> float:
     """Pure-Python twin of :func:`effective_sigma` (host-side cost models)."""
     return max(device.sigma0 * (1.0 - device.effective_gain) ** float(k),
                device.sigma_floor)
+
+
+def drift_factor(device: DeviceModel, seconds) -> torch.Tensor:
+    """Multiplicative conductance decay after ``seconds`` of retention,
+    ``(1 + t/t0)^-nu`` in float32: exactly 1 at t = 0, the log-time power
+    law ``(t/t0)^-nu`` for ``t >> t0``."""
+    t = torch.as_tensor(seconds, dtype=torch.float32)
+    return (1.0 + t / device.drift_t0) ** (-device.drift_nu)
+
+
+def drift_factor_py(device: DeviceModel, seconds: float) -> float:
+    """Pure-Python twin of :func:`drift_factor` (host-side cost models)."""
+    return (1.0 + float(seconds) / device.drift_t0) ** (-device.drift_nu)
 
 
 def quantize(w: torch.Tensor, levels: int, axis=None) -> torch.Tensor:

@@ -1,20 +1,29 @@
-"""Benchmark matrices (numpy half of :mod:`repro.core.matrices`, copied).
+"""Benchmark matrices (port of :mod:`repro.core.matrices`).
 
 Surrogates with the published dimensions and condition numbers of the
-paper's SuiteSparse matrices (Supplementary Table 2).  Pure numpy, so both
-packages build the same matrix from the same seed.
+paper's SuiteSparse matrices (Supplementary Table 2), pure numpy, so both
+packages build the same matrix from the same seed.  For the strong-scaling
+sizes (up to 65,025^2) :class:`ImplicitBandedMatrix` produces
+capacity-sized blocks on demand so the matrix never materializes (fed to
+``AnalogEngine(cfg, execution="streamed")``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .prng import fold_in, generator
 
 __all__ = [
     "make_spd_with_condition",
     "make_iperturb",
     "PAPER_MATRICES",
     "paper_matrix",
+    "ImplicitBandedMatrix",
 ]
 
 
@@ -58,6 +67,99 @@ def paper_matrix(name: str, seed: int = 0) -> np.ndarray:
     n, kappa, norm2 = _PAPER_SPECS[key]
     if n > 20000:
         raise ValueError(
-            f"{name} ({n}^2) should not be materialized; the implicit banded "
-            "producer is not ported yet (ROADMAP Queue A1)")
+            f"{name} ({n}^2) should not be materialized; use "
+            "ImplicitBandedMatrix")
     return make_spd_with_condition(n, kappa, seed=seed, norm2=norm2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImplicitBandedMatrix:
+    """Procedurally generated banded-plus-noise matrix for huge problems.
+
+    A = diagonally dominant band + seeded pseudo-random texture within three
+    bandwidths of the diagonal, defined blockwise: :meth:`block` returns the
+    ``(cap_m, cap_n)`` block at block index (i, j) on ``device`` without
+    ever forming A.  Deterministic in (seed, i, j): the texture of block
+    (i, j) is drawn from ``fold_in(fold_in(seed, i), j)``.
+    """
+
+    n: int
+    cap_m: int
+    cap_n: int
+    seed: int = 0
+    bandwidth: int = 8
+    diag: float = 4.0
+    device: Union[str, torch.device] = "cuda"
+
+    def _grid(self) -> Tuple[int, int]:
+        return -(-self.n // self.cap_m), -(-self.n // self.cap_n)
+
+    def block(self, i: int, j: int, *,
+              eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Block (i, j), float32 on ``device``.  ``eta`` ((cap_m, cap_n))
+        replaces the texture draw.
+
+        The reference's operations in its order: ``0.05 * eta``, masked to
+        ``|row - col| <= 3 * bandwidth``, plus ``1 / (1 + |row - col|)``
+        within the bandwidth, plus ``diag`` on the diagonal, zero outside
+        ``(n, n)``.  A block that lies wholly outside three bandwidths of
+        the diagonal, or outside ``(n, n)``, is zero and draws nothing.
+        """
+        i, j = int(i), int(j)
+        dev = torch.device(self.device)
+        cm, cn, bw = self.cap_m, self.cap_n, self.bandwidth
+        r0, c0 = i * cm, j * cn
+        gap = max(0, c0 - (r0 + cm - 1), r0 - (c0 + cn - 1))
+        if gap > 3 * bw or r0 >= self.n or c0 >= self.n:
+            return torch.zeros(cm, cn, dtype=torch.float32, device=dev)
+        if eta is None:
+            blk = torch.randn(cm, cn, generator=generator(
+                fold_in(fold_in(self.seed, i), j), dev), device=dev)
+            blk.mul_(0.05)
+        else:
+            blk = torch.as_tensor(eta, dtype=torch.float32, device=dev) * 0.05
+        # |row - col| from broadcast int32 aranges: one int32 block, and the
+        # masks and the band are made in place over it and one float block.
+        rows = torch.arange(r0, r0 + cm, dtype=torch.int32, device=dev)
+        cols = torch.arange(c0, c0 + cn, dtype=torch.int32, device=dev)
+        dist = (rows[:, None] - cols[None, :]).abs_()
+        blk.mul_(dist <= 3 * bw)
+        band = dist.to(torch.float32).add_(1.0).reciprocal_()
+        band.masked_fill_(dist > bw, 0.0)
+        del dist
+        blk.add_(band)
+        del band
+        blk.diagonal(r0 - c0).add_(self.diag)
+        blk[max(0, self.n - r0):].zero_()
+        blk[:, max(0, self.n - c0):].zero_()
+        return blk
+
+    def matvec(self, x) -> torch.Tensor:
+        """Exact blockwise ground truth A @ x, in float32 as the reference
+        computes it."""
+        mb, nb = self._grid()
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        xc = F.pad(x, (0, nb * self.cap_n - self.n)).view(nb, self.cap_n)
+        out = []
+        for i in range(mb):
+            acc = torch.zeros(self.cap_m, dtype=torch.float32,
+                              device=x.device)
+            for j in range(nb):
+                acc = acc + self.block(i, j) @ xc[j]
+            out.append(acc)
+        return torch.cat(out)[:self.n]
+
+    def rmatvec(self, y) -> torch.Tensor:
+        """Exact blockwise ground truth A.T @ y (the transposed-MVM
+        oracle)."""
+        mb, nb = self._grid()
+        y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
+        yc = F.pad(y, (0, mb * self.cap_m - self.n)).view(mb, self.cap_m)
+        out = []
+        for j in range(nb):
+            acc = torch.zeros(self.cap_n, dtype=torch.float32,
+                              device=y.device)
+            for i in range(mb):
+                acc = acc + self.block(i, j).T @ yc[i]
+            out.append(acc)
+        return torch.cat(out)[:self.n]

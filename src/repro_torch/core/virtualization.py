@@ -18,6 +18,8 @@ __all__ = [
     "zero_padding",
     "block_partition",
     "blocks_view",
+    "generate_mat_chunks",
+    "generate_vec_chunks",
     "reassemble",
     "reassignment_count",
 ]
@@ -72,6 +74,23 @@ def blocks_view(a_pad: torch.Tensor, geom: MCAGeometry) -> torch.Tensor:
 def block_partition(a: torch.Tensor, geom: MCAGeometry) -> torch.Tensor:
     """blockPartition (Alg. 3): padded (mb, nb, cap_m, cap_n) blocks."""
     return blocks_view(zero_padding(a, geom), geom)
+
+
+def generate_mat_chunks(a: torch.Tensor, geom: MCAGeometry) -> torch.Tensor:
+    """generateMatChunksSet (Alg. 8): blocks -> per-MCA chunks, shape
+    (mb, nb, R, C, r, c): block [i, j], MCA [p, q], cells [l, h]."""
+    blocks = block_partition(a, geom)
+    mb, nb = blocks.shape[:2]
+    return blocks.reshape(mb, nb, geom.tile_rows, geom.cell_rows,
+                          geom.tile_cols, geom.cell_cols) \
+        .permute(0, 1, 2, 4, 3, 5)
+
+
+def generate_vec_chunks(x: torch.Tensor, geom: MCAGeometry) -> torch.Tensor:
+    """generateVecChunksSet (Alg. 9): x -> (nb, C, c) chunks matching the
+    column blocks."""
+    x = zero_padding(x, geom)
+    return x.reshape(-1, geom.tile_cols, geom.cell_cols)
 
 
 def reassemble(y_blocks: torch.Tensor, m: int) -> torch.Tensor:

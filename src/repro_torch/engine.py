@@ -1,5 +1,5 @@
 """Program-once / execute-many analog MVM engine (port of :mod:`repro.engine`,
-local placement).
+local and streamed placement).
 
 ``engine.program(a, key)`` pays the write cost once and returns an
 :class:`AnalogMatrix` handle holding the padded conductance image
@@ -37,8 +37,25 @@ launch (:func:`~repro_torch.kernels.ec_group_matmul` /
 :func:`~repro_torch.kernels.ec_group_rmatmul`) and one tier-2 launch on the
 ``(rows, g * batch)`` panel, at batch <= 8 per member.
 
-Only ``execution="local"`` exists so far; ``"streamed"`` and
-``"distributed"`` raise ``NotImplementedError`` naming their ROADMAP item.
+``execution="streamed"`` programs from a ``block_fn(i, j)`` producer of
+capacity-sized (padded) blocks with ``engine.program(block_fn, key,
+shape=(m, n))``, so the source matrix never materializes (the paper's
+65,025^2 case, :class:`~repro_torch.core.matrices.ImplicitBandedMatrix`).
+The handle keeps the programmed image as one contiguous ``(mb, nb, cap_m,
+cap_n)`` block stack and the producer, never ``dA``: every execute derives
+``dA = block_fn(i, j) - A_tilde[i, j]`` again per block, so it holds the
+image plus O(one capacity block).  On both backends a streamed execute draws
+its DAC noise per block (fold 1 of each block key), as the reference
+backend does; on ``"cuda"`` each block's tier-1 product is one
+:func:`~repro_torch.kernels.ec_matmul` (``ec_rmatmul``) launch on the block
+and its derived ``dA``, accumulated in fp32, and tier-2 runs once on the
+assembled output through the stencil or Thomas kernel.  The producer runs
+once per block per execute: eager PyTorch has nothing to trace, so a
+``traceable`` attribute on it is ignored.  ``program_group`` over producers
+and ``group()`` of streamed handles make streamed groups, executed member by
+member.  ``"distributed"`` raises ``NotImplementedError`` naming its ROADMAP
+item.  Local and streamed handles execute on either engine.
+
 Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle, in
 either direction (one counter), draws its DAC noise from ``key`` for
 ``c == 0`` and ``fold_in(key, c)`` after, as the JAX engine does.
@@ -46,7 +63,7 @@ either direction (one counter), draws its DAC noise from ``key`` for
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +85,6 @@ EXECUTION_MODES = ("local", "streamed", "distributed")
 BACKENDS = ("reference", "cuda")
 
 _NOT_PORTED = {
-    "streamed": "ROADMAP Queue A7 (streamed execution)",
     "distributed": "ROADMAP Queue A11 (distributed placement)",
 }
 
@@ -91,6 +107,16 @@ def _scale_stats(stats: WriteStats, factor: float) -> WriteStats:
                       final_delta=stats.final_delta)
 
 
+def _is_producer(a) -> bool:
+    return callable(a) and not hasattr(a, "shape")
+
+
+def _stack_dense(stack: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The dense unpadded (m, n) copy of a (mb, nb, cap_m, cap_n) stack."""
+    mb, nb, cm, cn = stack.shape
+    return stack.permute(0, 2, 1, 3).reshape(mb * cm, nb * cn)[:m, :n]
+
+
 def _tree_leaves(source) -> list:
     """The leaves of a nested dict / list / tuple in JAX's pytree order:
     dict keys sorted (torch's own pytree keeps insertion order), sequences
@@ -108,19 +134,23 @@ def _tree_leaves(source) -> list:
 class AnalogMatrix:
     """Handle to a matrix programmed onto the (simulated) analog hardware.
 
-    Holds the padded image ``at_pad`` (``A_tilde``) and correction operand
-    ``da_pad`` (``dA``), each (Mp, Np), the one-time programming
-    :class:`WriteStats`, and the base key whose folds drive the input DAC
-    noise of successive executions.
+    A local handle holds the padded image ``at_pad`` (``A_tilde``) and
+    correction operand ``da_pad`` (``dA``), each (Mp, Np).  A streamed
+    handle holds the image as the contiguous (mb, nb, cap_m, cap_n) block
+    stack ``at_stack`` and its producer ``block_fn``, and no ``dA``.  Both
+    carry the one-time programming :class:`WriteStats` and the base key
+    whose folds drive the input DAC noise of successive executions.
     """
 
     engine: "AnalogEngine"
     shape: Tuple[int, int]
     base_key: int
     write_stats: WriteStats
-    at_pad: torch.Tensor
-    da_pad: torch.Tensor
+    at_pad: Optional[torch.Tensor] = None
+    da_pad: Optional[torch.Tensor] = None
     calls: int = 0
+    at_stack: Optional[torch.Tensor] = None
+    block_fn: Optional[Callable] = None
 
     @property
     def m(self) -> int:
@@ -131,27 +161,58 @@ class AnalogMatrix:
         return self.shape[1]
 
     @property
+    def streamed(self) -> bool:
+        """True for a handle programmed from a producer."""
+        return self.block_fn is not None
+
+    @property
+    def image_device(self) -> torch.device:
+        return (self.at_stack if self.streamed else self.at_pad).device
+
+    @property
     def at_blocks(self) -> torch.Tensor:
-        """(mb, nb, cap_m, cap_n) block view of ``A_tilde`` (no copy)."""
+        """(mb, nb, cap_m, cap_n) blocks of ``A_tilde``: a view of the padded
+        image, or a streamed handle's stack itself (no copy)."""
+        if self.streamed:
+            return self.at_stack
         return blocks_view(self.at_pad, self.engine.cfg.geom)
 
     @property
-    def da_blocks(self) -> torch.Tensor:
-        """(mb, nb, cap_m, cap_n) block view of ``dA`` (no copy)."""
+    def da_blocks(self) -> Optional[torch.Tensor]:
+        """(mb, nb, cap_m, cap_n) block view of ``dA`` (no copy); None for a
+        streamed handle, which keeps no ``dA``."""
+        if self.streamed:
+            return None
         return blocks_view(self.da_pad, self.engine.cfg.geom)
+
+    def _producer_blocks(self) -> torch.Tensor:
+        mb, nb = self.at_stack.shape[:2]
+        return crossbar.produce_blocks(self.block_fn, mb, nb,
+                                       device=self.at_stack.device)
 
     @property
     def a_tilde(self) -> torch.Tensor:
-        """The programmed conductance image, unpadded (m, n) view."""
+        """The programmed conductance image, unpadded (m, n): a view of a
+        local image, a copy of a streamed one."""
+        if self.streamed:
+            return _stack_dense(self.at_stack, self.m, self.n)
         return crossbar.assemble_blocks(self.at_pad, self.m, self.n)
 
     @property
     def da(self) -> torch.Tensor:
-        """The tier-1 correction operand A - A_tilde, unpadded (m, n) view."""
+        """The tier-1 correction operand A - A_tilde, unpadded (m, n): a view
+        of a local handle's, derived by one producer sweep for a streamed
+        handle."""
+        if self.streamed:
+            return _stack_dense(self._producer_blocks().sub_(self.at_stack),
+                                self.m, self.n)
         return crossbar.assemble_blocks(self.da_pad, self.m, self.n)
 
     def dense(self) -> torch.Tensor:
-        """The exact source matrix A = A_tilde + dA, unpadded (m, n)."""
+        """The exact source matrix A = A_tilde + dA, unpadded (m, n); for a
+        streamed handle one producer sweep."""
+        if self.streamed:
+            return _stack_dense(self._producer_blocks(), self.m, self.n)
         return self.a_tilde + self.da
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
@@ -169,14 +230,17 @@ class AnalogMatrix:
 
     @property
     def image_nbytes(self) -> int:
-        """Resident bytes of the programmed operands (the two padded images;
-        there are no derived caches)."""
+        """Resident bytes of the programmed operands: the two padded images,
+        or a streamed handle's image alone (a producer is code, not
+        residency); there are no derived caches."""
+        if self.streamed:
+            return self.at_stack.nbytes
         return self.at_pad.nbytes + self.da_pad.nbytes
 
     def release(self) -> int:
         """Drop derived execution caches, returning the bytes freed.  The port
-        keeps none (the padded images ARE the stored layout), so this frees
-        0 bytes; the image itself goes when the handle goes."""
+        keeps none (the stored images ARE the execution layout), so this
+        frees 0 bytes; the image itself goes when the handle goes."""
         return 0
 
 
@@ -235,10 +299,12 @@ class AnalogMatrixGroup:
     """A stack of same-shape programmed images, executed together.
 
     Built by :meth:`AnalogEngine.program_group` or :meth:`AnalogEngine.group`.
-    Holds the ``size`` members' padded images as ``(size, Mp, Np)`` stacks;
-    member ``g`` executes with its own base key ``member_keys[g]``, so it
-    draws exactly what a solo handle with that key draws.  ``write_stats``
-    is the total over the members.
+    A local group holds the ``size`` members' padded images as ``(size, Mp,
+    Np)`` stacks; a streamed group holds ``(size, mb, nb, cap_m, cap_n)``
+    ``at_stack`` and one producer per member, ``block_fns``.  Member ``g``
+    executes with its own base key ``member_keys[g]``, so it draws exactly
+    what a solo handle with that key draws.  ``write_stats`` is the total
+    over the members.
     """
 
     engine: "AnalogEngine"
@@ -247,9 +313,11 @@ class AnalogMatrixGroup:
     base_key: int
     member_keys: List[int]
     write_stats: WriteStats
-    at_pad: torch.Tensor            # (size, Mp, Np)
-    da_pad: torch.Tensor
+    at_pad: Optional[torch.Tensor] = None     # (size, Mp, Np)
+    da_pad: Optional[torch.Tensor] = None
     calls: int = 0
+    at_stack: Optional[torch.Tensor] = None   # (size, mb, nb, cap_m, cap_n)
+    block_fns: Optional[Tuple[Callable, ...]] = None
 
     @property
     def m(self) -> int:
@@ -259,6 +327,15 @@ class AnalogMatrixGroup:
     def n(self) -> int:
         return self.shape[1]
 
+    @property
+    def streamed(self) -> bool:
+        """True for a group of producer members."""
+        return self.block_fns is not None
+
+    @property
+    def image_device(self) -> torch.device:
+        return (self.at_stack if self.streamed else self.at_pad).device
+
     def _blocks(self, stack: torch.Tensor) -> torch.Tensor:
         g, mp, np_ = stack.shape
         return blocks_view(stack.view(g * mp, np_),
@@ -266,14 +343,15 @@ class AnalogMatrixGroup:
 
     @property
     def at_blocks(self) -> torch.Tensor:
-        """(size, mb, nb, cap_m, cap_n) block view of the stacked ``A_tilde``
+        """(size, mb, nb, cap_m, cap_n) blocks of the stacked ``A_tilde``
         (no copy)."""
-        return self._blocks(self.at_pad)
+        return self.at_stack if self.streamed else self._blocks(self.at_pad)
 
     @property
-    def da_blocks(self) -> torch.Tensor:
-        """(size, mb, nb, cap_m, cap_n) block view of the stacked ``dA``."""
-        return self._blocks(self.da_pad)
+    def da_blocks(self) -> Optional[torch.Tensor]:
+        """(size, mb, nb, cap_m, cap_n) block view of the stacked ``dA``;
+        None for a streamed group."""
+        return None if self.streamed else self._blocks(self.da_pad)
 
     def member(self, g: int) -> AnalogMatrix:
         """Member ``g`` as a standalone :class:`AnalogMatrix` on views of the
@@ -281,10 +359,14 @@ class AnalogMatrixGroup:
         and a ``1 / size`` share of the group's write cost."""
         if not 0 <= g < self.size:
             raise IndexError(f"member {g} of a size-{self.size} group")
+        stats = _scale_stats(self.write_stats, 1.0 / self.size)
+        if self.streamed:
+            return AnalogMatrix(engine=self.engine, shape=self.shape,
+                                base_key=self.member_keys[g],
+                                write_stats=stats, at_stack=self.at_stack[g],
+                                block_fn=self.block_fns[g])
         return AnalogMatrix(engine=self.engine, shape=self.shape,
-                            base_key=self.member_keys[g],
-                            write_stats=_scale_stats(self.write_stats,
-                                                     1.0 / self.size),
+                            base_key=self.member_keys[g], write_stats=stats,
                             at_pad=self.at_pad[g], da_pad=self.da_pad[g])
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +381,10 @@ class AnalogMatrixGroup:
 
     @property
     def image_nbytes(self) -> int:
-        """Resident bytes of the two stacked images (there are no caches)."""
+        """Resident bytes of the stacked images (a streamed group's image
+        alone; there are no caches)."""
+        if self.streamed:
+            return self.at_stack.nbytes
         return self.at_pad.nbytes + self.da_pad.nbytes
 
     def release(self) -> int:
@@ -401,7 +486,8 @@ class AnalogEngine:
     cfg:
         The :class:`CrossbarConfig` of one multi-MCA system.
     execution:
-        ``"local"`` only, for now.
+        ``"local"`` (dense arrays) | ``"streamed"`` (``block_fn`` producers
+        too); ``"distributed"`` is not ported yet.
     backend:
         ``"reference"`` (plain PyTorch block pipeline) | ``"cuda"`` (the
         hand-written kernels; their plain versions on a CPU ``device``).
@@ -415,7 +501,7 @@ class AnalogEngine:
         if execution not in EXECUTION_MODES:
             raise ValueError(f"unknown execution mode {execution!r}; expected "
                              f"one of {EXECUTION_MODES}")
-        if execution != "local":
+        if execution in _NOT_PORTED:
             raise NotImplementedError(
                 f"execution={execution!r} is not ported yet: "
                 f"{_NOT_PORTED[execution]}")
@@ -437,11 +523,34 @@ class AnalogEngine:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return torch.as_tensor(a).to(device=self.device, dtype=torch.float32)
 
-    def program(self, a, key: int, *,
+    def program(self, a, key: int, *, shape: Optional[Tuple[int, int]] = None,
                 eta: Optional[torch.Tensor] = None) -> AnalogMatrix:
-        """Write the dense (m, n) ``a`` onto the analog system once; returns the
-        reusable handle.  ``eta`` ((mb, nb, cap_m, cap_n)) replaces the
-        programming noise draws (see :func:`crossbar.program_blocks`)."""
+        """Write ``a`` onto the analog system once; returns the reusable
+        handle.
+
+        ``a`` is a dense (m, n) array, or -- under ``execution="streamed"``
+        -- a ``block_fn(i, j)`` producer of capacity-sized (already padded)
+        blocks with ``shape=(m, n)`` the logical size: the handle then keeps
+        only the programmed image (see :func:`crossbar.streamed_program_blocks`).
+        ``eta`` ((mb, nb, cap_m, cap_n)) replaces the programming noise
+        draws.
+        """
+        if _is_producer(a):
+            if self.execution != "streamed":
+                raise ValueError("a block_fn producer requires "
+                                 "execution='streamed' or 'distributed'")
+            if shape is None:
+                raise ValueError("program(block_fn, ...) requires "
+                                 "shape=(m, n)")
+            m, n = (int(v) for v in shape)
+            cap_m, cap_n = self.cfg.geom.capacity
+            at = crossbar.streamed_program_blocks(
+                a, key, self.cfg, -(-m // cap_m), -(-n // cap_n), eta=eta,
+                device=self.device)
+            return AnalogMatrix(engine=self, shape=(m, n), base_key=int(key),
+                                write_stats=crossbar.matrix_write_cost(
+                                    m, n, self.cfg),
+                                at_stack=at, block_fn=a)
         a = self._as_tensor(a)
         if a.ndim != 2:
             raise ValueError(f"program expects a matrix, got shape "
@@ -461,29 +570,29 @@ class AnalogEngine:
 
     # ------------------------------------------------------ group programming
     def program_group(self, source, key: int, *,
+                      shape: Optional[Tuple[int, int]] = None,
                       eta: Optional[torch.Tensor] = None) -> AnalogMatrixGroup:
         """Program a stack of same-shape matrices as one group.
 
         ``source`` is a nested dict / list / tuple of same-shape 2-D arrays
         or tensors (the leaves stack in JAX's pytree order: dict keys
-        sorted), or one ``(g, m, n)`` stack.  Member ``g`` is programmed with
+        sorted), or one ``(g, m, n)`` stack, or -- under
+        ``execution="streamed"`` -- a sequence of ``block_fn(i, j)``
+        producers with ``shape=(m, n)``.  Member ``g`` is programmed with
         ``fold_in(key, g)``: its image is that of a solo :meth:`program`
         under that key.  ``eta`` ((g, mb, nb, cap_m, cap_n)) replaces the
-        programming draws.  Producer sources (``block_fn(i, j)``) are
-        streamed execution, not ported yet (ROADMAP Queue A7).
+        programming draws.
         """
         leaves = _tree_leaves(source)
         if not leaves:
             raise ValueError("program_group needs at least one member")
-        producers = [f for f in leaves
-                     if callable(f) and not hasattr(f, "shape")]
+        producers = [f for f in leaves if _is_producer(f)]
         if producers and len(producers) != len(leaves):
             raise ValueError("program_group members must be all arrays or "
                              "all block_fn producers, not a mix")
         if producers:
-            raise NotImplementedError(
-                "program_group over block_fn producers is streamed "
-                f"execution, not ported yet: {_NOT_PORTED['streamed']}")
+            return self._program_group_streamed(tuple(producers), key,
+                                                shape, eta)
         if len(leaves) == 1 and getattr(leaves[0], "ndim", 0) == 3:
             members = self._as_tensor(leaves[0])
         else:
@@ -507,12 +616,33 @@ class AnalogEngine:
                 crossbar.matrix_write_cost(m, n, self.cfg), size),
             at_pad=at, da_pad=da)
 
+    def _program_group_streamed(self, block_fns, key, shape, eta
+                                ) -> AnalogMatrixGroup:
+        if self.execution != "streamed":
+            raise ValueError("a producer group requires execution='streamed'")
+        if shape is None:
+            raise ValueError("program_group(producers, ...) requires "
+                             "shape=(m, n)")
+        m, n = (int(v) for v in shape)
+        cap_m, cap_n = self.cfg.geom.capacity
+        size = len(block_fns)
+        member_keys = [fold_in(key, g) for g in range(size)]
+        at = crossbar.grouped_streamed_program_blocks(
+            block_fns, member_keys, self.cfg, -(-m // cap_m), -(-n // cap_n),
+            eta=eta, device=self.device)
+        return AnalogMatrixGroup(
+            engine=self, size=size, shape=(m, n), base_key=int(key),
+            member_keys=member_keys,
+            write_stats=_scale_stats(
+                crossbar.matrix_write_cost(m, n, self.cfg), size),
+            at_stack=at, block_fns=block_fns)
+
     def group(self, handles: Sequence[AnalogMatrix]) -> AnalogMatrixGroup:
         """Stack programmed handles into a group, no re-programming: member
         ``g`` is ``handles[g]``'s image bit for bit, with its base key.
-        Members share this engine's configuration and one (m, n) shape.
-        (The port's handles are all local and unaged, so there is no
-        streamed or aged member to refuse.)"""
+        Members share this engine's configuration and one (m, n) shape, and
+        are all local or all streamed.  (The port's handles are unaged, so
+        there is no aged member to refuse.)"""
         handles = list(handles)
         if not handles:
             raise ValueError("group() needs at least one handle")
@@ -530,20 +660,28 @@ class AnalogEngine:
             if h.engine is not self and h.engine.cfg != self.cfg:
                 raise ValueError(f"group() member {g} was programmed by an "
                                  "incompatible engine configuration")
-            if h.at_pad.device != self.device:
+            if h.image_device != self.device:
                 raise ValueError(f"group() member {g} lives on "
-                                 f"{h.at_pad.device}, this engine on "
+                                 f"{h.image_device}, this engine on "
                                  f"{self.device}")
+        if len({h.streamed for h in handles}) != 1:
+            raise ValueError("group() members must be all local or all "
+                             "streamed")
         total = WriteStats(
             energy_j=sum(h.write_stats.energy_j for h in handles),
             latency_s=sum(h.write_stats.latency_s for h in handles),
             iterations=handles[0].write_stats.iterations,
             final_delta=max(h.write_stats.final_delta for h in handles))
+        common = dict(engine=self, size=len(handles), shape=handles[0].shape,
+                      base_key=handles[0].base_key,
+                      member_keys=[h.base_key for h in handles],
+                      write_stats=total)
+        if handles[0].streamed:
+            return AnalogMatrixGroup(
+                **common, at_stack=torch.stack([h.at_stack for h in handles]),
+                block_fns=tuple(h.block_fn for h in handles))
         return AnalogMatrixGroup(
-            engine=self, size=len(handles), shape=handles[0].shape,
-            base_key=handles[0].base_key,
-            member_keys=[h.base_key for h in handles], write_stats=total,
-            at_pad=torch.stack([h.at_pad for h in handles]),
+            **common, at_pad=torch.stack([h.at_pad for h in handles]),
             da_pad=torch.stack([h.da_pad for h in handles]))
 
     # --------------------------------------------------------------- execution
@@ -553,8 +691,9 @@ class AnalogEngine:
 
         ``x``: (n,) or (n, batch).  ``key`` overrides the call's DAC key;
         by default call ``c`` uses the handle's key schedule.  ``eta``
-        replaces the DAC draws: ``(Np, batch)`` for ``backend="cuda"``,
-        ``(mb, nb, cap_n, batch)`` for ``"reference"``.
+        replaces the DAC draws: ``(Np, batch)`` for a local handle on
+        ``backend="cuda"``, ``(mb, nb, cap_n, batch)`` otherwise (the
+        ``"reference"`` backend, and a streamed handle on either).
         """
         y, _ = self._execute(A, x, key, eta)
         return y
@@ -571,8 +710,8 @@ class AnalogEngine:
 
         ``y``: (m,) or (m, batch); returns (n,) / (n, batch).  Only ``y``
         passes the DAC; tier-2 runs over the column output.  ``eta``
-        replaces the DAC draws: ``(Mp, batch)`` for ``backend="cuda"``,
-        ``(mb, nb, cap_m, batch)`` for ``"reference"``.
+        replaces the DAC draws: ``(Mp, batch)`` for a local handle on
+        ``backend="cuda"``, ``(mb, nb, cap_m, batch)`` otherwise.
         """
         z, _ = self._execute(A, y, key, eta, transpose=True)
         return z
@@ -606,9 +745,9 @@ class AnalogEngine:
         if A.engine is not self and A.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrix was programmed by an incompatible "
                              "engine configuration")
-        if A.at_pad.device != self.device:
-            raise ValueError(f"AnalogMatrix lives on {A.at_pad.device} but this "
-                             f"engine executes on {self.device}")
+        if A.image_device != self.device:
+            raise ValueError(f"AnalogMatrix lives on {A.image_device} but "
+                             f"this engine executes on {self.device}")
         x = self._as_tensor(x)
         squeeze = x.ndim == 1
         xb = x[:, None] if squeeze else x
@@ -621,7 +760,13 @@ class AnalogEngine:
             # One call counter for both directions, as the JAX handle has.
             key = A.base_key if A.calls == 0 else fold_in(A.base_key, A.calls)
         A.calls += 1
-        if self.backend == "cuda":
+        if A.streamed:
+            run = crossbar.streamed_block_rmvm if transpose \
+                else crossbar.streamed_block_mvm
+            p = self._streamed_tier2(
+                run(A.block_fn, A.at_stack, xb, key, self.cfg, m=m, n=n,
+                    **self._streamed_kw(), eta=eta))
+        elif self.backend == "cuda":
             p = _cuda_corrected(A.at_pad, A.da_pad, xb, key, self.cfg,
                                 (m, n), transpose=transpose, eta=eta)
         else:
@@ -631,6 +776,26 @@ class AnalogEngine:
         stats = self.input_write_stats(A, xb.shape[1], transpose=transpose) \
             if with_stats else None
         return (p[:, 0] if squeeze else p), stats
+
+    def _streamed_kw(self) -> dict:
+        """The streamed stages' switches on this backend: the ``cuda``
+        backend runs each block's tier-1 product through the EC kernel and
+        leaves tier-2 to :meth:`_streamed_tier2`."""
+        cuda = self.backend == "cuda"
+        return dict(use_kernel=cuda and self.cfg.ec, tier2=not cuda)
+
+    def _streamed_tier2(self, p: torch.Tensor) -> torch.Tensor:
+        """Tier-2 of a streamed execute on the ``cuda`` backend: one stencil
+        or Thomas launch on the assembled ``(rows, columns)`` output, or on
+        ``(g, rows, batch)`` as one ``(rows, g * batch)`` panel."""
+        if self.backend != "cuda" or not self.cfg.ec:
+            return p
+        if p.ndim == 2:
+            return _tier2(p, self.cfg)
+        g, rows, batch = p.shape
+        panel = p.permute(1, 0, 2).reshape(rows, g * batch)
+        return _tier2(panel, self.cfg).view(rows, g, batch) \
+            .permute(1, 0, 2).contiguous()
 
     # --------------------------------------------------------- group execution
     def group_mvm(self, G: AnalogMatrixGroup, x, *, key: Optional[int] = None,
@@ -643,9 +808,9 @@ class AnalogEngine:
         ``(size, m, batch)``.  ``key`` gives member ``g`` the call key
         ``fold_in(key, g)``; by default member ``g``'s call ``c`` draws what
         a solo handle with key ``member_keys[g]`` draws on its call ``c``.
-        ``eta`` replaces the DAC draws: ``(size, Np, batch)`` for
-        ``backend="cuda"``, ``(size, mb, nb, cap_n, batch)`` for
-        ``"reference"``.
+        ``eta`` replaces the DAC draws: ``(size, Np, batch)`` for a local
+        group on ``backend="cuda"``, ``(size, mb, nb, cap_n, batch)``
+        otherwise.
         """
         y, _ = self._group_execute(G, x, key, eta)
         return y
@@ -661,8 +826,8 @@ class AnalogEngine:
                    eta: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Corrected ``A_g.T @ y_g`` of every member against the same
         stacks (``y``: ``(m,)``, ``(m, batch)``, ``(size, m)`` or
-        ``(size, m, batch)``; ``eta`` ``(size, Mp, batch)`` on ``"cuda"``,
-        ``(size, mb, nb, cap_m, batch)`` on ``"reference"``)."""
+        ``(size, m, batch)``; ``eta`` ``(size, Mp, batch)`` for a local
+        group on ``"cuda"``, ``(size, mb, nb, cap_m, batch)`` otherwise)."""
         z, _ = self._group_execute(G, y, key, eta, transpose=True)
         return z
 
@@ -690,6 +855,9 @@ class AnalogEngine:
             raise TypeError("chain_mvm takes an AnalogMatrixGroup; wrap solo "
                             "handles with engine.group([...])")
         self._check_group(G)
+        if G.streamed:
+            raise ValueError("chain_mvm needs a LOCAL resident group (dense "
+                             "members with stacked at/da images)")
         if G.m != G.n:
             raise ValueError(
                 f"chain_mvm threads each member's output into the next, so "
@@ -721,8 +889,8 @@ class AnalogEngine:
         if G.engine is not self and G.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrixGroup was programmed by an "
                              "incompatible engine configuration")
-        if G.at_pad.device != self.device:
-            raise ValueError(f"AnalogMatrixGroup lives on {G.at_pad.device} "
+        if G.image_device != self.device:
+            raise ValueError(f"AnalogMatrixGroup lives on {G.image_device} "
                              f"but this engine executes on {self.device}")
 
     def _group_keys(self, G: AnalogMatrixGroup, key: Optional[int]
@@ -770,7 +938,13 @@ class AnalogEngine:
         keys = self._group_keys(G, key)
         G.calls += 1
         m, n = G.shape
-        if self.backend == "cuda":
+        if G.streamed:
+            run = crossbar.grouped_streamed_block_rmvm if transpose \
+                else crossbar.grouped_streamed_block_mvm
+            p = self._streamed_tier2(
+                run(G.block_fns, G.at_stack, xb, keys, self.cfg, m=m, n=n,
+                    **self._streamed_kw(), eta=eta))
+        elif self.backend == "cuda":
             p = _cuda_group_corrected(G.at_pad, G.da_pad, xb, keys, self.cfg,
                                       (m, n), transpose=transpose, eta=eta)
         else:

@@ -900,3 +900,110 @@ def test_corrected_mvm_on_card_is_the_reference_engine(cuda_device, batch):
     assert stats.energy_j == pytest.approx(
         A.write_stats.energy_j + A.input_write_stats(batch or 1).energy_j,
         rel=1e-12)
+
+
+def _streamed_pair(cfg, a, dev, eta):
+    """The same producer over ``a`` programmed on the CPU and on ``dev``
+    with one injected programming draw."""
+    cap_m, cap_n = cfg.geom.capacity
+    mb, nb = -(-a.shape[0] // cap_m), -(-a.shape[1] // cap_n)
+    pad = torch.zeros(mb * cap_m, nb * cap_n)
+    pad[:a.shape[0], :a.shape[1]] = a
+    blocks = pad.view(mb, cap_m, nb, cap_n).permute(0, 2, 1, 3)
+    out = []
+    for d in ("cpu", dev):
+        eng = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                           device=d)
+        out.append(eng.program(lambda i, j: blocks[i, j], 3, shape=a.shape,
+                               eta=eta.to(d)))
+    return out, (mb, nb)
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_streamed_engine_on_card_matches_cpu_path(cuda_device, transpose,
+                                                  method):
+    """A streamed handle on the card: one ``ec_matmul`` (``ec_rmatmul``)
+    launch per capacity block on the block and its derived dA, one tier-2
+    launch on the assembled output, equal to the same backend on the CPU
+    (plain versions) under the same injected draws."""
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 64, 64), lam=1e-2,
+                         denoise_method=method)
+    a = randn((300, 260), 90, "cpu")
+    eta = randn((3, 3, 128, 128), 91, "cpu")
+    (C, G), (mb, nb) = _streamed_pair(cfg, a, cuda_device, eta)
+    assert rel(G.at_stack.cpu(), C.at_stack) <= 1e-6
+    u = randn((300 if transpose else 260, 4), 92, "cpu")
+    dac = randn((mb, nb, 128, 4), 93, "cpu")
+    kernels.reset_launches()
+    run = G.engine.rmvm if transpose else G.engine.mvm
+    got = run(G, u.to(cuda_device), eta=dac.to(cuda_device))
+    torch.cuda.synchronize()
+    name = "ec_rmatmul" if transpose else "ec_matmul"
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    assert kernels.LAUNCHES[name] == mb * nb
+    assert kernels.LAUNCHES[tier2] == 1
+    want = (C.engine.rmvm if transpose else C.engine.mvm)(C, u, eta=dac)
+    assert rel(got.cpu(), want) <= 1e-5
+
+
+def test_streamed_block_stack_passes_the_image_check(cuda_device):
+    """Every block of a streamed image stack and a freshly derived dA share
+    the row stride cap_n, so the EC kernels take both as they are (no copy
+    of the block) and agree with their plain versions."""
+    from repro_torch.kernels._checks import check_images
+    from repro_torch.core.matrices import ImplicitBandedMatrix
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 256, 256))
+    imp = ImplicitBandedMatrix(n=1300, cap_m=512, cap_n=512, seed=4,
+                               device=cuda_device)
+    A = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                     device=cuda_device).program(imp.block, 1,
+                                                 shape=(1300, 1300))
+    for i, j in ((0, 0), (1, 2), (2, 2)):
+        at_blk = A.at_blocks[i, j]
+        da_blk = imp.block(i, j) - at_blk
+        check_images("ec_matmul", at_blk, da_blk, at_blk.device)
+        assert at_blk.stride() == da_blk.stride() == (512, 1)
+        u = randn((512, 2), 94, cuda_device)
+        assert rel(kernels.ec_matmul(at_blk, da_blk, u, 1.01 * u),
+                   kernels.ec_matmul_plain(at_blk, da_blk, u, 1.01 * u)) \
+            <= 1e-5
+
+
+def test_streamed_peak_memory_bound(cuda_device):
+    """At 10,000^2 over 2,048^2 blocks (5 x 5, taox-hfox, EC on): a resident
+    streamed MVM adds at most 12 capacity blocks over its image, and the
+    one-shot ``streamed_corrected_mvm`` holds under 12 blocks with no
+    image; both are close to the ground-truth oracle."""
+    from repro_torch.core import streamed_corrected_mvm
+    from repro_torch.core.matrices import ImplicitBandedMatrix
+    n, cap = 10000, 2048
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(4, 4, 512, 512))
+    block = cap * cap * 4
+    imp = ImplicitBandedMatrix(n=n, cap_m=cap, cap_n=cap, seed=5,
+                               device=cuda_device)
+    x = randn((n,), 95, cuda_device)
+    want = imp.matvec(x)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    A = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                     device=cuda_device).program(imp.block, 2, shape=(n, n))
+    assert A.image_nbytes == 25 * block
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y = A @ x
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= \
+        A.image_nbytes + 12 * block
+    assert rel(y, want) < 0.05
+    del A
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    y1, _ = streamed_corrected_mvm(imp.block, x, n, n, 2, cfg)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 12 * block
+    assert rel(y1, want) < 0.05

@@ -65,6 +65,17 @@ def test_examples_do_not_fall_back_to_the_cpu(script):
 
 @pytest.mark.parametrize("flag", [["--mesh", "1,1"], ["--producer"]])
 def test_solver_example_has_no_distributed_flags(flag):
-    """Placement options wait for ROADMAP A11 / A7: argparse refuses them."""
+    """Distributed placement waits for ROADMAP A11: argparse refuses
+    ``--mesh``.  ``--producer`` programs through the streamed engine and
+    passes the example's own asserts at n = 1,024."""
+    if flag == ["--producer"]:
+        out = run("meliso_solver_torch.py", "--torch-device", "cpu", "--n",
+                  "1024", *flag)
+        assert out.returncode == 0, out.stderr
+        assert "placement=streamed" in out.stdout
+        names = [line.split()[0] for line in out.stdout.splitlines()
+                 if line.startswith(("richardson", "cg "))]
+        assert names == ["richardson", "richardson", "cg"]
+        return
     out = run("meliso_solver_torch.py", "--torch-device", "cpu", *flag)
     assert out.returncode == 2 and "unrecognized arguments" in out.stderr

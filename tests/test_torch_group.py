@@ -414,9 +414,9 @@ def test_group_from_numpy():
 def test_group_validation(stack):
     """The errors of tests/test_group.py::test_group_validation (mixed
     shapes, arrays mixed with producers, empty group(), the solo API on a
-    group, cross-engine execution; a producer group is streamed execution,
-    not ported: NotImplementedError naming A7), and those of ``group()``
-    and ``chain_mvm``."""
+    group, cross-engine execution; a producer group on a local engine:
+    ValueError, as the reference raises), and those of ``group()`` and
+    ``chain_mvm``."""
     _, pcfg = configs()
     eng = AnalogEngine(pcfg, device="cpu")
     other = AnalogEngine(dataclasses.replace(pcfg, k_iters=3), device="cpu")
@@ -428,8 +428,8 @@ def test_group_validation(stack):
         eng.program_group([stack[0], lambda i, j: stack[1]], 5)
     with pytest.raises(ValueError):
         eng.program_group([], 5)
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng.program_group([lambda i, j: stack[0]] * 2, 5)
+    with pytest.raises(ValueError, match="execution='streamed'"):
+        eng.program_group([lambda i, j: stack[0]] * 2, 5, shape=(M, N))
     with pytest.raises(ValueError):
         eng.group([])
     with pytest.raises(TypeError):
