@@ -37,6 +37,14 @@ non-zero, printing no result, without them or without the repository's
      iterative refinement (inner CG) to a digital relative residual <=
      1e-5, below the printed one-MVM noise floor; each cold and warm, with
      one ec_matmul and one stencil_denoise launch an MVM;
+  4e. on the same image: Lanczos (tol 1e-3), LOBPCG (k = 2, largest and
+     smallest), spectral_bounds / estimate_omega(method="lanczos") and
+     Richardson at that omega; each pair's digital Ritz residual against
+     the registry's honesty bound, the eigenvalues within 2 x the noise
+     floor of the same solver on the digital operator with the same key
+     and steps (the digital solve to tol 1e-6 printed beside), and one
+     ec_matmul + one stencil launch per MVM call (Lanczos: 8 seed steps +
+     one a step; LOBPCG: one at entry + one 6-column call an iteration);
   5. solve a consistent 32,768 x 16,384 least-squares problem with LSQR and
      LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
      feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
@@ -44,6 +52,11 @@ non-zero, printing no result, without them or without the repository's
      stencil_denoise (on its 16,384-row panel) to their plain versions, and,
      DAC off, A.T @ y on the cuda path to the reference pipeline to 1e-5
      (Neumann, and Thomas at lam = 1e-2);
+  5e. operator_norm (Lanczos on [[0, A], [A', 0]]) on the least-squares
+     image, near the Marchenko-Pastur edge 1 + sqrt(1/2), within 2 x that
+     image's noise floor of the digital operator's with the same key and
+     steps; one ec_matmul and one ec_rmatmul launch a Lanczos step, seed
+     steps included;
   6. program the 8 experts' w1 of one Mixtral-8x7B MoE layer (14,336 x
      4,096 each, A ~ N(0, 1/4,096), taox-hfox, EC on) as one group, hold the
      grouped EC kernels to their plain versions, and run group_mvm /
@@ -89,9 +102,9 @@ non-zero, printing no result, without them or without the repository's
      iterations) on an epiram image of the same producer to x error <=
      1e-3, one cg_update an iteration.
 
-Launch counts are zeroed just before each solve of phases 4 and 5, and
-before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and read just after: every
-kernel must have run on the path that uses it.  The last three
+Launch counts are zeroed just before each solve of phases 4, 4e, 5 and 5e,
+and before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and read just
+after: every kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -122,6 +135,13 @@ GMRES_RESTART = 20
 LSTSQ_SHAPE = (N, N // 2)   # rows, columns of the least-squares matrix
 LP_SHAPE = (N // 2, N)      # constraints, variables of the LP
 PDHG_MAXITER = 5000
+EIGEN_TOL = 1e-3        # [4e] / [5e] solves (relative Ritz residual)
+EIGEN_DIGITAL_TOL = 1e-6  # the digital runs they are printed beside
+LOBPCG_K = 2            # a 6-column [X | R | P] panel: one ec_matmul launch
+# The reference registry's honesty contract for the eigen family:
+# recompute <= max(slack * recorded, floor) (solvers/registry.py).
+RITZ_SLACK = 3.0
+RITZ_FLOOR = {"lanczos": 5e-3, "lobpcg": 5e-4}
 # Mixtral-8x7B (src/repro/configs/mixtral_8x7b.py): one MoE layer's experts.
 D_MODEL, D_FF, N_EXPERTS, N_LAYERS = 4096, 14336, 8, 32
 CHAIN_TOL = 1e-4        # cuda vs reference after N_LAYERS chained layers
@@ -336,6 +356,247 @@ def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
           f"{row['plain_ms']:.4f} ms  library {lib}  bound {b_ms:.4f} ms "
           f"({b_by})", flush=True)
     return row
+
+
+def ritz_rel(a, y, theta) -> float:
+    """Worst pair's digital relative Ritz residual ``||a y - theta y|| /
+    |theta|``, with the dense matrix ``a``."""
+    y = y if y.ndim == 2 else y[:, None]
+    resid = torch.linalg.vector_norm(a @ y - y * theta[None, :], dim=0)
+    return float(torch.max(resid / theta.abs()))
+
+
+def eig_gap(got, want) -> float:
+    """Worst relative difference of two eigenvalue estimates."""
+    return float(torch.max((got.double() - want.double()).abs()
+                           / want.double().abs()))
+
+
+def timed_solves(name, solve, counts, mvm_ms, calls):
+    """[4e]'s ``solve``, cold then warm: launches (added to ``counts``), wall
+    ms, ms an iteration, and ms an iteration outside the MVMs, which are
+    ``calls(res)``, a list of (engine calls, panel width), at the call
+    times ``mvm_ms[width]``.  Returns the warm result and launches."""
+    from repro_torch import kernels
+    for run in ("cold", "warm"):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        for k, v in used.items():
+            counts[k] += v
+        it = max(res.iterations, 1)
+        mvm_wall = sum(c * mvm_ms[w] for c, w in calls(res))
+        n_calls = sum(c for c, _ in calls(res))
+        ev = ", ".join(f"{float(t):.7f}" for t in res.eigenvalues)
+        print(f"[4e] {name} ({run}): {res.iterations} iterations, "
+              f"{n_calls} MVM calls (ledger {res.ledger.mvms} + "
+              f"{res.ledger.mvms_single} batch-1), converged="
+              f"{res.converged}, eigenvalues [{ev}], Ritz residual "
+              f"{res.final_residual:.3e}, {wall:.1f} ms = {wall / it:.3f} "
+              f"ms/iteration, {(wall - mvm_wall) / it:.3f} ms/iteration "
+              f"outside the MVMs ({mvm_wall:.1f} ms of MVMs at the "
+              f"measured call times); launches "
+              f"{ {k: v for k, v in used.items() if v} }", flush=True)
+        check(res.converged, f"{name} did not converge to {EIGEN_TOL}")
+    return res, used
+
+
+def eigen_phase(dev, A, a, b, x_true, noise_floor):
+    """[4e] the eigen solvers on phase [4]'s SPD image ``A`` (dense ``a``):
+    Lanczos, LOBPCG (k = 2, largest and smallest), the Lanczos
+    ``spectral_bounds`` / ``estimate_omega`` and Richardson at that omega.
+    Each converged solve's pairs pass the registry's digital Ritz-residual
+    honesty bound; its eigenvalues are within 2 x the one-MVM noise floor
+    of the same solver on the digital operator (``torch.matmul``) with the
+    same key, start and number of steps, and are printed beside the
+    digital solve to tol 1e-6; Lanczos launches ``ec_matmul`` and the
+    stencil once per MVM (8 seed steps + one a step), LOBPCG once at entry
+    and once per 6-column iteration.  Returns the launches of the main
+    runs."""
+    from repro_torch import kernels, solvers
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    n = a.shape[0]
+    # A generator of its own: the later phases' draws stay as they were.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    panels = {w: torch.randn(n, w, generator=gen, device=dev)
+              for w in (1, LOBPCG_K, 3 * LOBPCG_K)}
+    mvm_ms = {w: call_time_ms(lambda p=p: A @ p, 10)
+              for w, p in panels.items()}
+    print("[4e] one corrected MVM a call: " + ", ".join(
+        f"batch {w} {ms:.3f} ms" for w, ms in mvm_ms.items()), flush=True)
+
+    def hold(name, res, used, launches, same, fine, kind):
+        """``res`` against the dense matrix: its pairs' Ritz residuals, its
+        eigenvalues against ``same`` (the digital run with its key, start
+        and steps) and ``fine`` (the digital run to tol 1e-6)."""
+        rec = ritz_rel(a, res.x, res.eigenvalues)
+        gap = eig_gap(res.eigenvalues, same.eigenvalues)
+        gap_fine = eig_gap(res.eigenvalues, fine.eigenvalues)
+        fine_ev = ", ".join(f"{float(t):.7f}" for t in fine.eigenvalues)
+        print(f"    {name}: digital Ritz residual {rec:.3e} (recorded "
+              f"{res.final_residual:.3e}, bound max({RITZ_SLACK:g} x "
+              f"recorded, {RITZ_FLOOR[kind]:g})); eigenvalues against the "
+              f"digital operator, same key and {res.iterations} steps: "
+              f"{gap:.3e} (bound 2 x noise floor {2 * noise_floor:.3e}); "
+              f"against the digital solve to tol {EIGEN_DIGITAL_TOL:g} "
+              f"({fine.iterations} iterations, converged={fine.converged}, "
+              f"eigenvalues [{fine_ev}]): "
+              f"{gap_fine:.3e}", flush=True)
+        check(rec <= max(RITZ_SLACK * res.final_residual, RITZ_FLOOR[kind]),
+              f"{name}: digital Ritz residual {rec:.3e} against recorded "
+              f"{res.final_residual:.3e}")
+        check(gap <= 2 * noise_floor,
+              f"{name}: eigenvalues {gap:.3e} from the digital operator's, "
+              f"over 2 x the noise floor {noise_floor:.3e}")
+        check(used["ec_matmul"] == launches and
+              used["stencil_denoise"] == launches,
+              f"{name}: expected {launches} ec_matmul and stencil_denoise "
+              f"launches, got {used}")
+
+    res, used = timed_solves(
+        "lanczos", lambda: solvers.lanczos(A, tol=EIGEN_TOL), counts,
+        mvm_ms, lambda r: [(r.ledger.mvms_single, 1)])
+    hold("lanczos", res, used, 8 + res.iterations,
+         solvers.lanczos(a, tol=0.0, maxiter=res.iterations),
+         solvers.lanczos(a, tol=EIGEN_DIGITAL_TOL), "lanczos")
+    for which in ("largest", "smallest"):
+        res, used = timed_solves(
+            f"lobpcg k={LOBPCG_K} {which}",
+            lambda: solvers.lobpcg(A, LOBPCG_K, which=which, tol=EIGEN_TOL,
+                                   maxiter=100), counts, mvm_ms,
+            lambda r: [(1, LOBPCG_K), (r.iterations, 3 * LOBPCG_K)])
+        hold(f"lobpcg {which}", res, used, 1 + res.iterations,
+             solvers.lobpcg(a, LOBPCG_K, which=which, tol=0.0,
+                            maxiter=res.iterations),
+             solvers.lobpcg(a, LOBPCG_K, which=which,
+                            tol=EIGEN_DIGITAL_TOL, maxiter=100), "lobpcg")
+
+    # Step sizing from a Lanczos sweep, then Richardson at that omega.
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lmin, lmax = solvers.spectral_bounds(A, method="lanczos")
+    omega = solvers.estimate_omega(A, method="lanczos")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    sweep = solvers.lanczos(a, tol=0.0, maxiter=16)
+    gap = eig_gap(torch.tensor([lmin, lmax]), sweep.eigenvalues.cpu())
+    print(f"[4e] spectral_bounds(method='lanczos') [{lmin:.7f}, {lmax:.7f}] "
+          f"(digital, same sweep: {gap:.3e} apart), estimate_omega "
+          f"{omega:.7f}, both in {wall:.1f} ms; launches "
+          f"{ {k: v for k, v in used.items() if v} }", flush=True)
+    check(used["ec_matmul"] == 2 * (8 + 16) and
+          used["stencil_denoise"] == 2 * (8 + 16),
+          f"the two Lanczos sweeps did not launch 2 x 24 MVMs: {used}")
+    check(gap <= 2 * noise_floor, "Lanczos bounds off the digital sweep's")
+    check(abs(omega - 2.0 / (1.05 * lmax + max(lmin, 0.0))) <= 1e-6 * omega,
+          "estimate_omega is not the formula on spectral_bounds")
+    for k_, v_ in used.items():
+        counts[k_] += v_
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solvers.richardson(A, b, omega=omega, tol=SOLVE_TOL, maxiter=50,
+                             backend="cuda")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+    for k_, v_ in used.items():
+        counts[k_] += v_
+    err = rel_l2(res.x, x_true)
+    print(f"[4e] richardson at the Lanczos omega: {res.iterations} "
+          f"iterations, converged={res.converged}, x err {err:.3e}, "
+          f"{wall:.1f} ms; launches "
+          f"{ {k: v for k, v in used.items() if v} }", flush=True)
+    check(res.converged and err <= SOLVE_TOL,
+          f"richardson at the Lanczos omega: x err {err:.3e}")
+    check(used["richardson_update"] == res.iterations and
+          used["ec_matmul"] == res.iterations,
+          f"richardson did not launch richardson_update and ec_matmul once "
+          f"an iteration: {used}")
+    return counts
+
+
+def operator_norm_phase(dev, A, a, b, x_true):
+    """[5e] ``operator_norm`` on phase [5]'s least-squares image ``A``
+    (dense ``a``, m x n Gaussian / sqrt(m): ||A||_2 near 1 + sqrt(n/m)):
+    its value within 2 x this image's one-MVM noise floor of the same
+    function on the digital operator with the same key and steps (printed
+    beside the digital run to tol 1e-6), one ec_matmul and one ec_rmatmul
+    launch per Lanczos step, seed steps included, and the top Ritz pair of
+    ``[[0, A], [A', 0]]`` honest against the dense matrix.  The spectrum's
+    soft edge keeps the Ritz residual above tol 1e-3 within the default 32
+    steps (about 6.5e-3 at 2,048 x 1,024 on the CPU), so the sweep is not
+    required to converge: operator_norm returns the estimate either way.
+    Returns the launches of the main runs."""
+    from repro_torch import kernels, solvers
+    from repro_torch.solvers.eigen import _augmented
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    m, n = a.shape
+    noise_floor = rel_l2(A @ x_true, b)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    u = torch.randn(n, generator=gen, device=dev)
+    v = torch.randn(m, generator=gen, device=dev)
+    fwd_ms = call_time_ms(lambda: A @ u, 10)
+    t_ms = call_time_ms(lambda: A.T @ v, 10)
+    mp_edge = 1 + (n / m) ** 0.5
+    print(f"[5e] {m}x{n} image: one-MVM noise floor {noise_floor:.3e}; "
+          f"a call A @ u {fwd_ms:.3f} ms, A.T @ v {t_ms:.3f} ms; "
+          f"Marchenko-Pastur edge 1 + sqrt(n/m) = {mp_edge:.4f}", flush=True)
+    for run in ("cold", "warm"):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sigma = solvers.operator_norm(A, tol=EIGEN_TOL)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        for k_, v_ in used.items():
+            counts[k_] += v_
+        # The same sweep, for its steps and its top Ritz pair.
+        sweep = solvers.lanczos(_augmented(solvers.as_operator(A)),
+                                tol=EIGEN_TOL, maxiter=32)
+        steps = sweep.iterations
+        mvm_wall = sweep.ledger.mvms_single * (fwd_ms + t_ms)
+        print(f"[5e] operator_norm ({run}): {sigma:.7f} in {steps} Lanczos "
+              f"steps + 8 seed steps, converged={sweep.converged}, Ritz "
+              f"residual {sweep.final_residual:.3e}, {wall:.1f} ms = "
+              f"{wall / steps:.3f} ms/step, {(wall - mvm_wall) / steps:.3f} "
+              f"ms/step outside the MVMs ({mvm_wall:.1f} ms of MVMs); "
+              f"launches { {k: v for k, v in used.items() if v} }",
+              flush=True)
+        check(abs(float(sweep.eigenvalues[1]) - sigma) <= 1e-6 * sigma,
+              "operator_norm is not its Lanczos sweep")
+        check(used["ec_matmul"] == 8 + steps and
+              used["ec_rmatmul"] == 8 + steps and
+              used["stencil_denoise"] == 2 * (8 + steps),
+              f"operator_norm: expected {8 + steps} ec_matmul and "
+              f"ec_rmatmul launches, got {used}")
+    y = sweep.x[:, 1]
+    h_y = torch.cat([a @ y[m:], a.T @ y[:m]])
+    rec = float(torch.linalg.vector_norm(h_y - sweep.eigenvalues[1] * y)
+                / sweep.eigenvalues[1].abs())
+    same = solvers.operator_norm(a, tol=0.0, maxiter=steps)
+    fine = solvers.operator_norm(a, tol=EIGEN_DIGITAL_TOL)
+    gap, gap_fine = abs(sigma - same) / same, abs(sigma - fine) / fine
+    print(f"    operator_norm: digital Ritz residual {rec:.3e} (recorded "
+          f"{sweep.final_residual:.3e}); digital operator, same key and "
+          f"{steps} steps: {same:.7f}, {gap:.3e} apart (bound 2 x noise "
+          f"floor {2 * noise_floor:.3e}); digital to tol "
+          f"{EIGEN_DIGITAL_TOL:g}: {fine:.7f}, {gap_fine:.3e} apart",
+          flush=True)
+    check(rec <= max(RITZ_SLACK * sweep.final_residual,
+                     RITZ_FLOOR["lanczos"]),
+          f"operator_norm: digital Ritz residual {rec:.3e}")
+    check(gap <= 2 * noise_floor,
+          f"operator_norm {sigma:.7f} off the digital {same:.7f} by "
+          f"{gap:.3e}, over 2 x the noise floor")
+    return counts
 
 
 def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
@@ -985,8 +1246,7 @@ def main() -> int:
     x_true = torch.randn(N, generator=gen, device=dev)
     b = torch.matmul(a, x_true)
     A = AnalogEngine(scfg, backend="cuda", device=dev).program(a, 2)
-    del a
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()   # ``a`` stays for [4e]'s digital checks
     # The one-MVM noise floor: a bare analog solve stalls near it, refinement
     # (digital outer residual) goes below it.
     noise_floor = rel_l2(A @ x_true, b)
@@ -1046,7 +1306,13 @@ def main() -> int:
           solved["refine[cg]"]["cg_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
-    del A, b, x_true
+
+    # ------------------------------------- 4e. eigen solvers on the image
+    t0 = time.perf_counter()
+    eigen_counts = eigen_phase(dev, A, a, b, x_true, noise_floor)
+    print(f"[4e] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    del A, a, b, x_true
     torch.cuda.empty_cache()
 
     # ------------------------------ 5. least squares and LP (main, A.T @ y)
@@ -1121,8 +1387,7 @@ def main() -> int:
     # kappa of a Gaussian m x n matrix: (1 + sqrt(n/m)) / (1 - sqrt(n/m))
     kappa = (1 + (n / m) ** 0.5) / (1 - (n / m) ** 0.5)
     A = AnalogEngine(scfg, backend="cuda", device=dev).program(a, 3)
-    del a
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()   # ``a`` stays for [5e]'s digital checks
     print(f"[5] {m}x{n} image: kernels vs plain", flush=True)
     more_shapes.append(check_image(A))
     kernels.reset_launches()
@@ -1151,7 +1416,13 @@ def main() -> int:
             check(used["ec_rmatmul"] == led.mvms_t,
                   f"{name} did not run every A.T @ u through ec_rmatmul")
     lstsq_counts = dict(kernels.LAUNCHES)
-    del A, b, x_true
+
+    # ------------------------------- 5e. ||A||_2 of the least-squares image
+    t0 = time.perf_counter()
+    norm_counts = operator_norm_phase(dev, A, a, b, x_true)
+    print(f"[5e] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    del A, a, b, x_true
     torch.cuda.empty_cache()
 
     m, n = LP_SHAPE
@@ -1697,9 +1968,10 @@ def main() -> int:
     table = []
     for name, (source, replaces) in sources.items():
         launches = sum(counts[name] for counts in
-                       (served, served_t, solve_counts, lstsq_counts,
-                        lp_counts, group_counts, chain_counts,
-                        encode_counts, table1_counts, streamed_counts))
+                       (served, served_t, solve_counts, eigen_counts,
+                        lstsq_counts, norm_counts, lp_counts, group_counts,
+                        chain_counts, encode_counts, table1_counts,
+                        streamed_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({

@@ -1,12 +1,15 @@
 """Analog iterative solvers on the program-once engine (port of
 :mod:`repro.solvers`): CG, BiCGSTAB and restarted GMRES (Krylov);
 Richardson and Jacobi (stationary); iterative refinement with a digital
-outer residual; LSQR and LSMR least squares; PDHG linear programming.
-Lanczos, LOBPCG and ADMM are not ported yet (ROADMAP Queue A9).
+outer residual; LSQR and LSMR least squares; PDHG linear programming;
+Lanczos and LOBPCG extremal eigenpairs, and ``operator_norm``.  That is 11
+of the reference registry's 12 solvers: ADMM and the registry itself are
+not ported yet (ROADMAP Queue A9b).
 
 Every method is matvec-only (plus ``rmatvec``, the transposed MVM against the
-same image, for LSQR, LSMR and PDHG; refinement also reads the digital
-matrix) and takes ``(n,)`` or ``(n, batch)`` right-hand sides;
+same image, for LSQR, LSMR, PDHG and ``operator_norm``; refinement also
+reads the digital matrix) and takes ``(n,)`` or ``(n, batch)`` right-hand
+sides;
 ``backend="cuda"`` fuses CG's and Richardson's update step into a
 hand-written kernel, also inside refinement.  An operand that carries no
 device (a numpy array, a bare matvec) runs on ``device=``, default
@@ -14,6 +17,8 @@ device (a numpy array, a bare matvec) runs on ``device=``, default
 """
 from .base import (LinearOperator, SolveLedger, SolveResult, as_operator,
                    col_norms, pack_result)
+from .eigen import (lanczos, lanczos_pipeline, lobpcg, lobpcg_pipeline,
+                    operator_norm)
 from .krylov import bicgstab, cg, gmres
 from .lstsq import lsmr, lsqr
 from .pdhg import pdhg, random_feasible_lp
@@ -23,4 +28,5 @@ from .stationary import estimate_omega, jacobi, richardson, spectral_bounds
 __all__ = ["LinearOperator", "SolveLedger", "SolveResult", "as_operator",
            "col_norms", "pack_result", "cg", "bicgstab", "gmres", "refine",
            "richardson", "jacobi", "spectral_bounds", "estimate_omega",
-           "lsqr", "lsmr", "pdhg", "random_feasible_lp"]
+           "lsqr", "lsmr", "pdhg", "random_feasible_lp", "lanczos",
+           "lanczos_pipeline", "lobpcg", "lobpcg_pipeline", "operator_norm"]

@@ -210,7 +210,9 @@ class SolveResult:
     (maxiter,) for a vector RHS or (maxiter, batch); entries past
     ``iterations`` are NaN.  ``initial_residual`` is the worst-column
     relative residual at entry (NaN for solvers without an init MVM).
-    ``dual`` is PDHG's dual variable y (None for the other solvers).
+    ``dual`` is PDHG's dual variable y (None for the other solvers);
+    ``eigenvalues`` the eigen solvers' estimates, ascending, matching the
+    columns of ``x`` (None for the other solvers).
     """
 
     x: torch.Tensor
@@ -221,6 +223,7 @@ class SolveResult:
     solver: str
     initial_residual: float = float("nan")
     dual: Optional[torch.Tensor] = None
+    eigenvalues: Optional[torch.Tensor] = None
 
     @property
     def final_residual(self) -> float:

@@ -4,7 +4,9 @@
 Richardson iteration ``x_{k+1} = x_k + omega (b - A x_k)`` against one
 programmed image; with ``omega=None`` a matvec-only power iteration
 estimates the extremal eigenvalues of an SPD ``A`` and the solve uses
-``2 / (1.05 lambda_max + lambda_min)``.  The loop is host-driven and tests
+``2 / (1.05 lambda_max + lambda_min)``; :func:`spectral_bounds` and
+:func:`estimate_omega` can take the bounds from a Lanczos sweep instead
+(``method="lanczos"``).  The loop is host-driven and tests
 convergence after every iteration, like the reference's ``while_loop``.
 ``omega`` stays a device scalar throughout (no ``.item()`` on the path);
 ``backend="cuda"`` runs the residual and relaxed step through the
@@ -26,13 +28,19 @@ __all__ = ["richardson", "jacobi", "spectral_bounds", "estimate_omega"]
 _TINY = 1e-30
 
 
-def _power_extreme(matvec, n: int, key: int, iters: int, device,
-                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dominant |eigenvalue| of A (or shift*I - A) by power iteration, as a
-    0-dim device tensor.  MVM ``i`` uses ``fold_in(key, 1 + i)``; the start
-    vector is drawn from ``fold_in(key, 0)``."""
-    v = torch.randn(n, 1, generator=generator(fold_in(key, 0), device),
-                    device=device, dtype=torch.float32)
+def _power_iterate(matvec, n: int, key: int, iters: int, device,
+                   shift: Optional[torch.Tensor] = None, v0=None):
+    """(unit iterate, dominant |eigenvalue|) of A (or shift*I - A) by power
+    iteration; the eigenvalue a 0-dim device tensor.  MVM ``i`` uses
+    ``fold_in(key, 1 + i)``; the start vector is ``v0`` (n or (n, 1)) or,
+    by default, drawn from ``fold_in(key, 0)``.  The iterate seeds
+    :func:`repro_torch.solvers.lanczos`; ``v0`` lets a test feed in the
+    reference's ``jax.random`` draw."""
+    if v0 is None:
+        v = torch.randn(n, 1, generator=generator(fold_in(key, 0), device),
+                        device=device, dtype=torch.float32)
+    else:
+        v = as_panel(v0, device)[0]
     v = v / torch.clamp(col_norms(v), min=_TINY)
     lam = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(iters):
@@ -41,7 +49,13 @@ def _power_extreme(matvec, n: int, key: int, iters: int, device,
             w = shift * v - w
         lam = col_norms(w)[0]
         v = w / torch.clamp(lam, min=_TINY)
-    return lam
+    return v, lam
+
+
+def _power_extreme(matvec, n: int, key: int, iters: int, device,
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dominant |eigenvalue| only; see :func:`_power_iterate`."""
+    return _power_iterate(matvec, n, key, iters, device, shift=shift)[1]
 
 
 def _bounds(op, key: int, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -55,16 +69,37 @@ def _bounds(op, key: int, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def spectral_bounds(A, *, key: int = 0, iters: int = 16,
+                    method: str = "power",
                     device=None) -> Tuple[float, float]:
-    """(lambda_min, lambda_max) estimates for SPD ``A``, matvec-only."""
-    lmin, lmax = _bounds(as_operator(A, device=device), key, iters)
+    """(lambda_min, lambda_max) estimates for SPD ``A``, matvec-only.
+
+    ``method="power"``: power iteration for lambda_max, then on
+    ``lambda_max I - A`` for lambda_min; ``2 * iters`` MVMs.
+    ``method="lanczos"``: both ends from one sweep of
+    :func:`repro_torch.solvers.lanczos` (``max(iters, 2)`` steps at
+    ``tol=0``, after its 8 power-iteration seed steps)."""
+    op = as_operator(A, device=device)
+    if method == "lanczos":
+        from .eigen import lanczos
+        res = lanczos(op, tol=0.0, maxiter=max(int(iters), 2), key=key)
+        return float(res.eigenvalues[0]), float(res.eigenvalues[1])
+    if method != "power":
+        raise ValueError(f"method must be 'power' or 'lanczos', got "
+                         f"{method!r}")
+    lmin, lmax = _bounds(op, key, iters)
     return float(lmin), float(lmax)
 
 
 def estimate_omega(A, *, key: int = 0, iters: int = 16,
-                   device=None) -> float:
+                   method: str = "power", device=None) -> float:
     """The auto relaxation factor :func:`richardson` uses when
-    ``omega=None`` (with the same key, it is the same value)."""
+    ``omega=None`` (with the same key, it is the same value);
+    ``method="lanczos"`` takes the bounds from a Lanczos sweep under
+    ``key`` instead (see :func:`spectral_bounds`)."""
+    if method != "power":   # spectral_bounds refuses an unknown method
+        lmin, lmax = spectral_bounds(A, key=key, iters=iters,
+                                     method=method, device=device)
+        return float(2.0 / (1.05 * lmax + max(lmin, 0.0)))
     lmin, lmax = _bounds(as_operator(A, device=device),
                          fold_in(key, 900_001), iters)
     return float(2.0 / (1.05 * lmax + torch.clamp(lmin, min=0.0)))

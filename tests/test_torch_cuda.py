@@ -1007,3 +1007,93 @@ def test_streamed_peak_memory_bound(cuda_device):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < 12 * block
     assert rel(y1, want) < 0.05
+
+
+def _separated_spd(n, seed):
+    """Q diag(lam) Q' with two separated eigenvalues at each end of [1, 2]."""
+    q, _ = torch.linalg.qr(randn((n, n), seed, "cpu").double())
+    lam = torch.cat([torch.tensor([1.0, 1.1]),
+                     torch.linspace(1.25, 1.75, n - 4),
+                     torch.tensor([1.9, 2.0])]).double()
+    a = (q * lam[None, :]) @ q.T
+    return (0.5 * (a + a.T)).float()
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+def test_eigen_solvers_on_card_backends_agree(cuda_device, method):
+    """Lanczos, LOBPCG (k = 2, both ends) and ``operator_norm`` on card
+    images, DAC off: the ``cuda`` backend gives the ``reference`` backend's
+    iterations and eigenvalues (1e-5); Lanczos launches ``ec_matmul`` and
+    the tier-2 kernel once per MVM (8 seed steps + one a step), LOBPCG once
+    at entry and once a 6-column iteration, and ``operator_norm`` one
+    ``ec_matmul`` and one ``ec_rmatmul`` a Lanczos step, seed steps
+    included."""
+    from repro_torch.solvers.eigen import _augmented
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 64, 64), encode_inputs=False,
+                         denoise_method=method, lam=1e-2)
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    a = _separated_spd(200, 100)
+    eng = {be: AnalogEngine(cfg, backend=be, device=cuda_device)
+           for be in ("cuda", "reference")}
+    A = eng["reference"].program(a, 4)
+    views = {"reference": A, "cuda": _card_copy(A, eng["cuda"])}
+    runs = {
+        "lanczos": (lambda M: solvers.lanczos(M, tol=1e-3), 8),
+        "lobpcg-largest": (lambda M: solvers.lobpcg(
+            M, 2, which="largest", tol=1e-2, maxiter=100), 1),
+        "lobpcg-smallest": (lambda M: solvers.lobpcg(
+            M, 2, which="smallest", tol=1e-2, maxiter=100), 1)}
+    for name, (solve, extra) in runs.items():
+        want = solve(views["reference"])
+        kernels.reset_launches()
+        got = solve(views["cuda"])
+        torch.cuda.synchronize()
+        assert got.converged and want.converged, (name, got, want)
+        assert got.iterations == want.iterations, name
+        assert got.eigenvalues.device.type == "cuda"
+        assert rel(got.eigenvalues, want.eigenvalues) <= 1e-5, name
+        assert kernels.LAUNCHES["ec_matmul"] == extra + got.iterations
+        assert kernels.LAUNCHES[tier2] == extra + got.iterations
+    r = randn((300, 200), 101, "cpu") / 300 ** 0.5
+    R = eng["reference"].program(r, 5)
+    rviews = {"reference": R, "cuda": _card_copy(R, eng["cuda"])}
+    norms = {be: solvers.operator_norm(M) for be, M in rviews.items()}
+    assert abs(norms["cuda"] - norms["reference"]) <= 1e-5 * norms["reference"]
+    assert norms["cuda"] == pytest.approx(
+        float(torch.linalg.matrix_norm(r.double(), 2)), rel=2e-2)
+    kernels.reset_launches()
+    steps = solvers.lanczos(_augmented(solvers.as_operator(rviews["cuda"])),
+                            tol=1e-3, maxiter=32)
+    torch.cuda.synchronize()
+    assert float(steps.eigenvalues[1]) == norms["cuda"]
+    assert kernels.LAUNCHES["ec_matmul"] == 8 + steps.iterations
+    assert kernels.LAUNCHES["ec_rmatmul"] == 8 + steps.iterations
+    assert kernels.LAUNCHES[tier2] == 2 * (8 + steps.iterations)
+
+
+def test_lanczos_omega_richardson_on_card(cuda_device):
+    """``estimate_omega(method="lanczos")`` on a card image (epiram, EC on):
+    16 Lanczos steps after 8 seed steps, one ``ec_matmul`` each, and
+    Richardson at that omega converges through ``richardson_update``."""
+    n = 512
+    r = randn((n, n), 102, "cpu") / n
+    a = r + r.T + 2.0 * torch.eye(n)
+    x_true = randn((n,), 103, "cpu")
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 128, 128))
+    A = AnalogEngine(cfg, backend="cuda", device=cuda_device).program(a, 6)
+    kernels.reset_launches()
+    omega = solvers.estimate_omega(A, method="lanczos")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_matmul"] == 8 + 16
+    ev = torch.linalg.eigvalsh(a.double())
+    assert omega == pytest.approx(
+        float(2.0 / (1.05 * ev[-1] + ev[0])), rel=1e-2)
+    kernels.reset_launches()
+    res = solvers.richardson(A, (a @ x_true).to(cuda_device), omega=omega,
+                             tol=1e-3, maxiter=50, backend="cuda")
+    torch.cuda.synchronize()
+    assert res.converged and rel(res.x.cpu(), x_true) <= 1e-3
+    assert kernels.LAUNCHES["richardson_update"] == res.iterations
+    assert kernels.LAUNCHES["ec_matmul"] == res.iterations
