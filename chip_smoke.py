@@ -45,6 +45,12 @@ non-zero, printing no result, without them or without the repository's
      and steps (the digital solve to tol 1e-6 printed beside), and one
      ec_matmul + one stencil launch per MVM call (Lanczos: 8 seed steps +
      one a step; LOBPCG: one at entry + one 6-column call an iteration);
+  4r. the 12 solvers of the port's registry, each on its seed-0 problem at
+     n = 12 programmed on a cuda engine (epiram, EC on, one 32^2 MCA) under
+     the reference contract suite's budgets: the ledger's energy is the
+     write plus the billed MVMs, one EC launch per billed MVM in its
+     direction; and on the dense problem on the card, the recorded residual
+     honest against the digital recompute and the converged flag with it;
   5. solve a consistent 32,768 x 16,384 least-squares problem with LSQR and
      LSMR to normal-equations residual <= 1e-3 and a 16,384 x 32,768 random
      feasible LP with PDHG to KKT residual <= 1e-3 (epiram, EC on); each of
@@ -57,6 +63,12 @@ non-zero, printing no result, without them or without the repository's
      image's noise floor of the digital operator's with the same key and
      steps; one ec_matmul and one ec_rmatmul launch a Lanczos step, seed
      steps included;
+  5q. linearized ADMM on the same image: a box QP built on its matrix with
+     a known optimum (random_box_qp's construction), solved cold and warm
+     to KKT <= 1e-3 with the default step (16 power steps); the split copy
+     in the box, the objective within 1e-3 of the digital operator's run
+     with the same key, one ec_matmul + one ec_rmatmul launch per billed
+     MVM pair;
   6. program the 8 experts' w1 of one Mixtral-8x7B MoE layer (14,336 x
      4,096 each, A ~ N(0, 1/4,096), taox-hfox, EC on) as one group, hold the
      grouped EC kernels to their plain versions, and run group_mvm /
@@ -102,9 +114,9 @@ non-zero, printing no result, without them or without the repository's
      iterations) on an epiram image of the same producer to x error <=
      1e-3, one cg_update an iteration.
 
-Launch counts are zeroed just before each solve of phases 4, 4e, 5 and 5e,
-and before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and read just
-after: every kernel must have run on the path that uses it.  The last three
+Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and
+read just after: every kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -142,6 +154,13 @@ LOBPCG_K = 2            # a 6-column [X | R | P] panel: one ec_matmul launch
 # recompute <= max(slack * recorded, floor) (solvers/registry.py).
 RITZ_SLACK = 3.0
 RITZ_FLOOR = {"lanczos": 5e-3, "lobpcg": 5e-4}
+ADMM_ACTIVE_FRAC = 0.3   # [5q]: share of x* on a bound (random_box_qp's)
+ADMM_MAXITER = 2000
+# [5q]: rel-L2 bound on x against the digital run's and against x*; at
+# tol 1e-3 each run lands ~4.4e-3 from x* (NVIDIA H100 80GB HBM3, 700 W),
+# so the two lie within ~8.9e-3 of each other at the most.
+ADMM_X_TOL = 1e-2
+REGISTRY_N = 12         # [4r]: each registry solver's problem size
 # Mixtral-8x7B (src/repro/configs/mixtral_8x7b.py): one MoE layer's experts.
 D_MODEL, D_FF, N_EXPERTS, N_LAYERS = 4096, 14336, 8, 32
 CHAIN_TOL = 1e-4        # cuda vs reference after N_LAYERS chained layers
@@ -596,6 +615,180 @@ def operator_norm_phase(dev, A, a, b, x_true):
     check(gap <= 2 * noise_floor,
           f"operator_norm {sigma:.7f} off the digital {same:.7f} by "
           f"{gap:.3e}, over 2 x the noise floor")
+    return counts
+
+
+def admm_phase(dev, A, a):
+    """[5q] linearized ADMM on phase [5]'s least-squares image ``A`` (dense
+    ``a``, m x n), with no second program: a box QP with a known optimum
+    built on ``a`` by ``random_box_qp``'s construction (``_box_qp_on``: x*
+    uniform in [-0.9, 0.9] but ~30 % of it on a bound of [-1, 1], KKT
+    multipliers ``|N(0, 1)|`` signed by the bound, a Gaussian b and ``q = g
+    - a'(a x* - b)``), drawn from a generator of its own.  ``admm`` runs
+    cold and warm to KKT <= tol, then on the digital operator with the same
+    key and power steps.  Checks: converged and finite; ``res.dual`` in the
+    box; the objective within 1e-3 of the digital run's; the digital KKT of
+    the returned (x, z) within the registry's qp slack / floor of the
+    recorded one; x within ``ADMM_X_TOL`` of the digital run's and of x*;
+    one ``ec_matmul`` launch per billed forward MVM and one ``ec_rmatmul``
+    per billed transposed one.  Returns the launches of the main runs."""
+    from repro_torch import kernels, solvers
+    from repro_torch.solvers.admm import _box_qp_on
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    m, n = a.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    b, q, lo, hi, x_star = (t.squeeze(-1) for t in _box_qp_on(
+        a, gen, 1, ADMM_ACTIVE_FRAC))
+    qp = {s.name: s for s in solvers.registry()}["admm"]
+
+    def objective(x):
+        r = (a @ x - b).double()
+        return float(0.5 * torch.dot(r, r) + torch.dot(q.double(),
+                                                      x.double()))
+
+    def kkt(x, z):
+        grad = a.T @ (a @ x - b) + q
+        stat = torch.linalg.vector_norm(x - torch.clamp(x - grad, lo, hi))
+        return float((stat + torch.linalg.vector_norm(x - z))
+                     / (1.0 + torch.linalg.vector_norm(x)))
+
+    u = torch.randn(n, generator=gen, device=dev)
+    v = torch.randn(m, generator=gen, device=dev)
+    fwd_ms = call_time_ms(lambda: A @ u, 10)
+    t_ms = call_time_ms(lambda: A.T @ v, 10)
+    print(f"[5q] {m}x{n} image, box [-1, 1]: x* on a bound "
+          f"{float((x_star.abs() == 1).float().mean()):.4f}, its digital KKT "
+          f"{kkt(x_star, x_star):.3e}; a call A @ u {fwd_ms:.3f} ms, A.T @ v "
+          f"{t_ms:.3f} ms", flush=True)
+    for run in ("cold", "warm"):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solvers.admm(A, b, q, lo=-1.0, hi=1.0, tol=SOLVE_TOL,
+                           maxiter=ADMM_MAXITER)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        for k_, v_ in used.items():
+            counts[k_] += v_
+        led = res.ledger
+        fwd, tr = led.mvms + led.mvms_single, led.mvms_t + led.mvms_single_t
+        it = max(res.iterations, 1)
+        mvm_wall = fwd * fwd_ms + tr * t_ms
+        print(f"[5q] admm ({run}): {res.iterations} iterations, {led.mvms} "
+              f"+ {led.mvms_t} transposed MVMs (+ {led.mvms_single} + "
+              f"{led.mvms_single_t} power-iteration), KKT "
+              f"{res.final_residual:.3e}, converged={res.converged}, "
+              f"{wall:.1f} ms = {wall / it:.3f} ms/iteration, "
+              f"{(wall - mvm_wall) / it:.3f} ms/iteration outside the two "
+              f"MVM calls ({mvm_wall:.1f} ms of MVMs at the measured call "
+              f"times); launches { {k: v for k, v in used.items() if v} }",
+              flush=True)
+        check(res.converged and bool(torch.isfinite(res.x).all()),
+              f"admm did not reach KKT <= {SOLVE_TOL} in {ADMM_MAXITER} "
+              f"iterations")
+        check(float(res.dual.min()) >= -1.0 and float(res.dual.max()) <= 1.0,
+              "admm: the split copy left the box")
+        check(used["ec_matmul"] == fwd and used["ec_rmatmul"] == tr and
+              used["stencil_denoise"] == fwd + tr,
+              f"admm: expected {fwd} ec_matmul and {tr} ec_rmatmul "
+              f"launches, one stencil each, got {used}")
+    digital = solvers.admm(a, b, q, lo=-1.0, hi=1.0, tol=SOLVE_TOL,
+                           maxiter=ADMM_MAXITER)
+    obj, obj_d, obj_star = objective(res.x), objective(digital.x), \
+        objective(x_star)
+    gap = abs(obj - obj_d) / (1.0 + abs(obj_d))
+    recomputed = kkt(res.x, res.dual)
+    off_digital, off_star = rel_l2(res.x, digital.x), rel_l2(res.x, x_star)
+    print(f"    admm: objective {obj:.7f}, digital operator (same key and "
+          f"power steps, {digital.iterations} iterations, converged="
+          f"{digital.converged}) {obj_d:.7f}, gap {gap:.3e} (bound 1e-3); "
+          f"f(x*) {obj_star:.7f}; rel-L2(x, x*) {off_star:.3e}, digital "
+          f"{rel_l2(digital.x, x_star):.3e}, rel-L2(x, digital x) "
+          f"{off_digital:.3e} (bound {ADMM_X_TOL}); digital KKT of the "
+          f"analog (x, z) {recomputed:.3e} (bound "
+          f"{max(qp.slack * res.final_residual, qp.floor):.3e})", flush=True)
+    check(digital.converged, "admm on the digital operator did not converge")
+    check(gap <= 1e-3, f"admm: objective gap {gap:.3e} to the digital run")
+    check(recomputed <= max(qp.slack * res.final_residual, qp.floor),
+          f"admm: digital KKT {recomputed:.3e} of the returned (x, z) "
+          f"against the recorded {res.final_residual:.3e}")
+    check(off_digital <= ADMM_X_TOL and off_star <= ADMM_X_TOL,
+          f"admm: x off the digital run's by {off_digital:.3e} and off x* "
+          f"by {off_star:.3e}, over {ADMM_X_TOL}")
+    return counts
+
+
+def registry_phase(dev):
+    """[4r] every solver of the port's registry on the card: its seed-0
+    problem at n = 12 (batch 1) programmed on a ``cuda`` local engine
+    (epiram, EC on, one 32^2 MCA), run under the reference contract suite's
+    budgets.  Checks: the ledger's total energy is the write plus the four
+    (count x rate) terms; every billed MVM is one EC launch in its direction
+    (LOBPCG: one launch for each 3k-column panel, billed as three) with one
+    tier-2 launch; on the dense problem on the card, the recorded residual
+    within the spec's slack / floor of the digital recompute, both ways
+    unless the history is lagged, and ``converged`` iff it is <= tol.
+    Returns the launches of the analog runs."""
+    from repro_torch import kernels, solvers
+    from repro_torch.engine import AnalogEngine
+    from repro_torch.solvers.registry import RUN, contract_config
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    for spec in solvers.registry():
+        p = spec.make_problem(0, REGISTRY_N, 1, device=dev)
+        A = AnalogEngine(contract_config(p["a"].shape[0]), backend="cuda",
+                         device=dev).program(p["a"], 0)
+        run = RUN[spec.family]
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = spec.solve(A, p, key=0, **run)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+        for k_, v_ in used.items():
+            counts[k_] += v_
+        led = res.ledger
+        billed = led.write_energy_j + sum(
+            float(rate.energy_j) * c for rate, c in (
+                (led.input_stats, led.mvms),
+                (led.input_stats_single, led.mvms_single),
+                (led.input_stats_t, led.mvms_t),
+                (led.input_stats_single_t, led.mvms_single_t)))
+        fwd = 1 + res.iterations if spec.name == "lobpcg" else \
+            led.mvms + led.mvms_single
+        tr = led.mvms_t + led.mvms_single_t
+        calls = fwd + tr
+        digital = spec.solve(p["a"], p, key=0, **run)
+        recorded = float(digital.final_residual)
+        rec = spec.recompute(p, digital)
+        print(f"[4r] {spec.name:10s} {res.iterations:5d} iterations, MVMs "
+              f"{led.mvms} + {led.mvms_single} single, {led.mvms_t} + "
+              f"{led.mvms_single_t} transposed, converged={res.converged}, "
+              f"residual {res.final_residual:.3e}, {wall:.1f} ms "
+              f"({wall / max(calls, 1):.3f} ms an MVM call); launches "
+              f"{ {k: v for k, v in used.items() if v} }; digital "
+              f"{digital.iterations} iterations, recorded {recorded:.3e}, "
+              f"recomputed {rec:.3e}", flush=True)
+        check(led.write_energy_j > 0 and
+              abs(led.total_energy_j - billed) <= 1e-12 * billed,
+              f"{spec.name}: total energy {led.total_energy_j!r} is not the "
+              f"write plus the billed MVMs {billed!r}")
+        check(used["ec_matmul"] == fwd and used["ec_rmatmul"] == tr and
+              used["stencil_denoise"] == calls,
+              f"{spec.name}: expected {fwd} ec_matmul and {tr} ec_rmatmul "
+              f"launches, one stencil each, got {used}")
+        check(not spec.needs_rmatvec or tr >= 1,
+              f"{spec.name}: no transposed MVM billed")
+        check(rec <= max(spec.slack * recorded, spec.floor) and
+              (spec.lagged_history or
+               recorded <= max(spec.slack * rec, spec.floor)),
+              f"{spec.name}: recorded {recorded:.3e} against the digital "
+              f"recompute {rec:.3e}")
+        check(digital.converged == (recorded <= run["tol"]),
+              f"{spec.name}: converged={digital.converged} at {recorded:.3e}")
+        check(digital.ledger.total_energy_j == 0.0,
+              f"{spec.name}: the digital operator billed energy")
     return counts
 
 
@@ -1315,6 +1508,12 @@ def main() -> int:
     del A, a, b, x_true
     torch.cuda.empty_cache()
 
+    # ------------------------------ 4r. the solver registry on the card
+    t0 = time.perf_counter()
+    registry_counts = registry_phase(dev)
+    print(f"[4r] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
     # ------------------------------ 5. least squares and LP (main, A.T @ y)
     def check_image(A):
         """The MVM kernels at batch 1 on a phase-5 image, with its own M, K
@@ -1421,6 +1620,12 @@ def main() -> int:
     t0 = time.perf_counter()
     norm_counts = operator_norm_phase(dev, A, a, b, x_true)
     print(f"[5e] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ------------------------- 5q. a box QP by ADMM on the same image
+    t0 = time.perf_counter()
+    admm_counts = admm_phase(dev, A, a)
+    print(f"[5q] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
     del A, a, b, x_true
     torch.cuda.empty_cache()
@@ -1969,7 +2174,8 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         launches = sum(counts[name] for counts in
                        (served, served_t, solve_counts, eigen_counts,
-                        lstsq_counts, norm_counts, lp_counts, group_counts,
+                        registry_counts, lstsq_counts, norm_counts,
+                        admm_counts, lp_counts, group_counts,
                         chain_counts, encode_counts, table1_counts,
                         streamed_counts))
         check(launches > 0, f"{name} was not launched on the main path")

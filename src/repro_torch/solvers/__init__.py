@@ -2,12 +2,14 @@
 :mod:`repro.solvers`): CG, BiCGSTAB and restarted GMRES (Krylov);
 Richardson and Jacobi (stationary); iterative refinement with a digital
 outer residual; LSQR and LSMR least squares; PDHG linear programming;
-Lanczos and LOBPCG extremal eigenpairs, and ``operator_norm``.  That is 11
-of the reference registry's 12 solvers: ADMM and the registry itself are
-not ported yet (ROADMAP Queue A9b).
+linearized ADMM for box-constrained QPs; Lanczos and LOBPCG extremal
+eigenpairs, and ``operator_norm``.  That is all 12 solvers of the
+reference registry, and :func:`registry` holds one :class:`SolverSpec`
+for each (problem maker, adapter, digital residual recompute), which the
+contract suite runs.
 
 Every method is matvec-only (plus ``rmatvec``, the transposed MVM against the
-same image, for LSQR, LSMR, PDHG and ``operator_norm``; refinement also
+same image, for LSQR, LSMR, PDHG, ADMM and ``operator_norm``; refinement also
 reads the digital matrix) and takes ``(n,)`` or ``(n, batch)`` right-hand
 sides;
 ``backend="cuda"`` fuses CG's and Richardson's update step into a
@@ -15,6 +17,7 @@ hand-written kernel, also inside refinement.  An operand that carries no
 device (a numpy array, a bare matvec) runs on ``device=``, default
 ``"cuda"``; a tensor keeps its own device.
 """
+from .admm import admm, admm_pipeline, random_box_qp
 from .base import (LinearOperator, SolveLedger, SolveResult, as_operator,
                    col_norms, pack_result)
 from .eigen import (lanczos, lanczos_pipeline, lobpcg, lobpcg_pipeline,
@@ -23,10 +26,13 @@ from .krylov import bicgstab, cg, gmres
 from .lstsq import lsmr, lsqr
 from .pdhg import pdhg, random_feasible_lp
 from .refinement import refine
+from .registry import SolverSpec, registry
 from .stationary import estimate_omega, jacobi, richardson, spectral_bounds
 
 __all__ = ["LinearOperator", "SolveLedger", "SolveResult", "as_operator",
            "col_norms", "pack_result", "cg", "bicgstab", "gmres", "refine",
            "richardson", "jacobi", "spectral_bounds", "estimate_omega",
            "lsqr", "lsmr", "pdhg", "random_feasible_lp", "lanczos",
-           "lanczos_pipeline", "lobpcg", "lobpcg_pipeline", "operator_norm"]
+           "lanczos_pipeline", "lobpcg", "lobpcg_pipeline", "operator_norm",
+           "admm", "admm_pipeline", "random_box_qp", "SolverSpec",
+           "registry"]

@@ -15,6 +15,7 @@ import torch
 from repro_torch import kernels, solvers
 from repro_torch.core import CrossbarConfig, MCAGeometry, get_device
 from repro_torch.engine import AnalogEngine, AnalogMatrix
+from repro_torch.solvers.registry import RUN, contract_config
 
 pytestmark = pytest.mark.cuda
 
@@ -1097,3 +1098,87 @@ def test_lanczos_omega_richardson_on_card(cuda_device):
     assert res.converged and rel(res.x.cpu(), x_true) <= 1e-3
     assert kernels.LAUNCHES["richardson_update"] == res.iterations
     assert kernels.LAUNCHES["ec_matmul"] == res.iterations
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+def test_admm_on_card_backends_agree(cuda_device, method):
+    """ADMM on a card image of a random box QP (300 x 200, batch 2), DAC
+    off: the ``cuda`` backend takes the ``reference`` backend's iterations,
+    x and the split copy within 1e-5; every billed forward MVM is one
+    ``ec_matmul`` launch and every billed transposed one one ``ec_rmatmul``
+    launch, each with one tier-2 launch (with ``mu=None``: 16 power steps
+    each way besides)."""
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 64, 64), encode_inputs=False,
+                         denoise_method=method, lam=1e-2)
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    a, b, q, lo, hi, _ = solvers.random_box_qp(7, 300, 200, batch=2,
+                                               device=cuda_device)
+    eng = {be: AnalogEngine(cfg, backend=be, device=cuda_device)
+           for be in ("cuda", "reference")}
+    A = eng["reference"].program(a, 4)
+    views = {"reference": A, "cuda": _card_copy(A, eng["cuda"])}
+    for mu in (0.15, None):
+        want = solvers.admm(views["reference"], b, q, lo=lo, hi=hi, mu=mu,
+                            tol=1e-3, maxiter=500)
+        kernels.reset_launches()
+        got = solvers.admm(views["cuda"], b, q, lo=lo, hi=hi, mu=mu,
+                           tol=1e-3, maxiter=500)
+        torch.cuda.synchronize()
+        assert got.converged and want.converged, (mu, got, want)
+        assert got.iterations == want.iterations, mu
+        assert got.x.device == views["cuda"].engine.device
+        assert rel(got.x, want.x) <= 1e-5 and rel(got.dual, want.dual) <= 1e-5
+        assert float(got.dual.min()) >= -1.0 and float(got.dual.max()) <= 1.0
+        led = got.ledger
+        assert led.mvms_single == led.mvms_single_t == (16 if mu is None
+                                                        else 0)
+        assert kernels.LAUNCHES["ec_matmul"] == led.mvms + led.mvms_single
+        assert kernels.LAUNCHES["ec_rmatmul"] == \
+            led.mvms_t + led.mvms_single_t
+        assert kernels.LAUNCHES[tier2] == \
+            led.mvms + led.mvms_single + led.mvms_t + led.mvms_single_t
+
+
+@pytest.mark.parametrize("name", [s.name for s in solvers.registry()])
+def test_registry_solver_on_card_ledger_contract(cuda_device, name):
+    """Each registry solver on its seed-0 problem (n = 12) programmed on a
+    ``cuda`` local engine (epiram, EC on, one 32^2 MCA): the total energy is
+    the write plus the four (count x rate) terms, every billed MVM is one EC
+    launch in its direction (LOBPCG: one launch for each 3k-column panel
+    billed as three), the tier-2 kernel runs once per launch; on the dense
+    problem on the card the recorded residual is honest and ``converged``
+    mirrors it."""
+    spec = {s.name: s for s in solvers.registry()}[name]
+    p = spec.make_problem(0, 12, 1, device=cuda_device)
+    A = AnalogEngine(contract_config(p["a"].shape[0]), backend="cuda",
+                     device=cuda_device).program(p["a"], 0)
+    run = RUN[spec.family]
+    kernels.reset_launches()
+    res = spec.solve(A, p, key=0, **run)
+    torch.cuda.synchronize()
+    led = res.ledger
+    assert led.write_energy_j > 0
+    assert led.total_energy_j == pytest.approx(
+        led.write_energy_j
+        + led.mvms * float(led.input_stats.energy_j)
+        + led.mvms_single * float(led.input_stats_single.energy_j)
+        + led.mvms_t * float(led.input_stats_t.energy_j)
+        + led.mvms_single_t * float(led.input_stats_single_t.energy_j),
+        rel=1e-12)
+    fwd = 1 + res.iterations if name == "lobpcg" else \
+        led.mvms + led.mvms_single
+    assert kernels.LAUNCHES["ec_matmul"] == fwd
+    assert kernels.LAUNCHES["ec_rmatmul"] == led.mvms_t + led.mvms_single_t
+    assert kernels.LAUNCHES["stencil_denoise"] == \
+        fwd + led.mvms_t + led.mvms_single_t
+    if spec.needs_rmatvec:
+        assert led.mvms_t + led.mvms_single_t >= 1
+    digital = spec.solve(p["a"], p, key=0, **run)
+    recorded = float(digital.final_residual)
+    rec = spec.recompute(p, digital)
+    assert rec <= max(spec.slack * recorded, spec.floor), (rec, recorded)
+    if not spec.lagged_history:
+        assert recorded <= max(spec.slack * rec, spec.floor), (rec, recorded)
+    assert digital.converged == (recorded <= run["tol"])
+    assert digital.ledger.total_energy_j == 0.0

@@ -1,7 +1,8 @@
-"""The port's two example scripts run end to end on the CPU when asked to
-(``--torch-device cpu``): the quickstart's Table-1 grid and the solver
-example's asserts; without a GPU and without that flag each exits non-zero
-with a message instead of falling back to the CPU."""
+"""The port's example scripts run end to end on the CPU when asked to
+(``--torch-device cpu``): the quickstart's Table-1 grid, the solver
+example's asserts and the portfolio example's asserts; without a GPU and
+without that flag each exits non-zero with a message instead of falling
+back to the CPU."""
 import os
 import subprocess
 import sys
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py"]
+EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py",
+            "meliso_portfolio_torch.py"]
 
 
 def run(script, *args):
@@ -52,6 +54,23 @@ def test_meliso_solver_on_cpu():
              if line.startswith(("richardson", "cg "))]
     assert names == ["richardson", "richardson", "cg"]
     assert "placement=local" in out.stdout
+
+
+def test_meliso_portfolio_on_cpu():
+    """The portfolio example's own asserts (both ADMM solves converge, the
+    analog objective within 1e-3 of the digital one, the split copy in the
+    box) and its table: a digital and an analog row, the analog one billing
+    iteration energy, the digital one none."""
+    out = run("meliso_portfolio_torch.py", "--torch-device", "cpu")
+    assert out.returncode == 0, out.stderr
+    rows = {" ".join(line.split()[:2]): line.split()[2:]
+            for line in out.stdout.splitlines()
+            if line.startswith("admm ")}
+    assert set(rows) == {"admm digital", "admm analog"}
+    assert float(rows["admm digital"][-1]) == 0.0
+    assert float(rows["admm analog"][-1]) > 0.0
+    assert "torch_device=cpu" in out.stdout
+    assert "of the digital oracle" in out.stdout
 
 
 @pytest.mark.parametrize("script", EXAMPLES)

@@ -14,7 +14,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py",
      REPO / "examples" / "quickstart_torch.py",
-     REPO / "examples" / "meliso_solver_torch.py"]
+     REPO / "examples" / "meliso_solver_torch.py",
+     REPO / "examples" / "meliso_portfolio_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -46,6 +47,16 @@ def test_port_file_list_covers_the_main_path_slice():
                 "src/repro_torch/solvers/krylov.py",
                 "examples/quickstart_torch.py",
                 "examples/meliso_solver_torch.py"):
+        assert rel in names, rel
+
+
+def test_port_file_list_covers_the_solver_registry_slice():
+    """The import scan reaches ADMM, the registry and the portfolio
+    example."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/solvers/admm.py",
+                "src/repro_torch/solvers/registry.py",
+                "examples/meliso_portfolio_torch.py"):
         assert rel in names, rel
 
 
@@ -91,6 +102,9 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.solvers import bicgstab, gmres, refine\n"
         "from repro_torch.core import (corrected_mvm, corrected_matmul,\n"
         "    corrected_matvecmul)\n"
+        "from repro_torch.solvers import (admm, admm_pipeline,\n"
+        "    random_box_qp, SolverSpec, registry)\n"
+        "assert len(registry()) == 12\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
