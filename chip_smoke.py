@@ -112,10 +112,28 @@ non-zero, printing no result, without them or without the repository's
      8,192^2 block's EC kernels, and the one-shot streamed_corrected_mvm
      under 12 blocks with no image; [9c] CG (tol 1e-3, at most 12
      iterations) on an epiram image of the same producer to x error <=
-     1e-3, one cg_update an iteration.
+     1e-3, one cg_update an iteration;
+ 10. distributed placement over a 2 x 4 mesh of ranks, all on this card
+     (one process drives them in rank order; partials summed over the
+     contraction axis in rank order, tier-2 on each output segment, one
+     global output): [10a] phase 3's cell (32,768^2, taox-hfox, EC on, 8 x
+     8 MCAs of 512^2; rank windows 16,384 x 8,192) at batch 1 and 8 each
+     way, one EC launch per capacity block (64) and one tier-2 launch per
+     segment (2 forward, 4 transposed), DAC off cuda = reference on the
+     same handle (Neumann, Thomas at lam 1e-2); [10b] [9b]'s dubcova2
+     producer on a 1 x 1 mesh equal to [9b]'s streamed calls bit for bit
+     in both directions, and over 2 x 4 at its padded 65,536^2 within 1e-5
+     of 1 x 1, DAC off cuda = reference, the peak over the image; [10c]
+     ``resident=False`` at 65,536^2 (the reference's scale test: banded
+     SPD producer, epiram, 8 x 8 MCAs of 1,024^2): CG to the residual
+     2e-2 (digital residual too), the producer once a block an MVM, the
+     peak over the start under 12 capacity blocks; [10d] phase 6's
+     Mixtral w1 group over 2 x 4: members 0 and 7 equal to their solo
+     distributed programs bit for bit, one ec_group_matmul launch per
+     rank's window, DAC off cuda = reference (Neumann, Thomas).
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8 and 9's main calls, and
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9 and 10's main calls, and
 read just after: every kernel must have run on the path that uses it.  The last three
 lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
@@ -1052,6 +1070,9 @@ def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
         f"{1 - busy / wall:.3f}); byte bound {bound9:.2f} ms (image read + "
         f"each producer block written and read once), wall / bound "
         f"{wall / bound9:.2f}", flush=True)
+    # What phase [10] holds its 1 x 1 mesh to: [9b]'s calls 0 and 3.
+    dub = {"x": xd, "y": yd, "fwd": dys[0], "bwd": dz, "n": n_dub,
+           "cfg": dcfg, "key": fold_in(11, 3 * n_dub)}
     del D, dys, dz, dat, dda
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1110,7 +1131,355 @@ def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
     print(f"[9] streamed launches {streamed_counts}", flush=True)
     del E, res, imp
     torch.cuda.empty_cache()
-    return streamed_counts
+    return streamed_counts, dub
+
+
+def banded_spd(n, cap, dev):
+    """The reference's 65,536^2 scale test producer
+    (tests/test_distributed.py, ``test_distributed_scale_65536``): 1 / (1 +
+    |i - j|) within 8 of the diagonal, plus 16 on it; RNG-free.  Blocks
+    beyond the band are zeros, made without the index arithmetic."""
+    r = torch.arange(cap, dtype=torch.int32, device=dev)
+
+    def block(i, j):
+        if abs(i - j) * cap > cap + 8:
+            return torch.zeros(cap, cap, device=dev)
+        d = (r[:, None] + (i - j) * cap - r[None, :]).abs_()
+        blk = d.float().add_(1.0).reciprocal_().masked_fill_(d > 8, 0.0)
+        del d
+        if i == j:
+            blk.diagonal().add_(16.0)
+        return blk
+    return block
+
+
+def distributed_phase(dev, gen, dub, *, n=N, d_ff=D_FF, d_model=D_MODEL,
+                      experts=N_EXPERTS, geom=None, band_n=65536,
+                      band_geom=None, mesh_shape=(2, 4)):
+    """Phase 10, the distributed placement over an R x C mesh of ranks, all
+    on this card (one process drives them in rank order; partials summed
+    over the contraction axis in rank order, tier-2 on each output segment,
+    one global output).  [10a] a dense n^2 matrix (the [3] cell) over the
+    mesh: A @ x and A.T @ y at batch 1 and 8, one ec_matmul (ec_rmatmul)
+    launch per capacity block and one tier-2 launch per segment, DAC off
+    cuda = reference (Neumann, Thomas).  [10b] [9b]'s dubcova2 producer
+    (``dub``): a 1 x 1 mesh equal to [9b]'s streamed outputs bit for bit, the
+    mesh at the padded size equal to it within 1e-5, cuda = reference, the
+    peak over the image.  [10c] ``resident=False`` at ``band_n`` (the
+    reference's 65,536^2 scale test producer, epiram): CG to the residual
+    2e-2, the peak over the start.  [10d] the [6] Mixtral group over the
+    mesh: members = solo distributed programs bit for bit, one
+    ec_group_matmul per rank's window, cuda = reference.  Returns the
+    launches of the phase's main runs.  ``geom`` ([10a], [10d]; default 8
+    x 8 MCAs of 512^2) and ``band_geom`` ([10c]; 8 x 8 of 1,024^2) and the
+    sizes are arguments, so the phase can be rehearsed small on the CPU."""
+    from repro_torch import kernels, solvers
+    from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
+                                  MCAGeometry, get_device)
+    from repro_torch.core.prng import fold_in
+    from repro_torch.engine import (AnalogEngine, AnalogMatrix,
+                                    AnalogMatrixGroup)
+    from repro_torch.launch import make_mesh
+    gib = 2.0 ** 30
+    R, C = mesh_shape
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    one = make_mesh((1, 1), ("data", "model"), device=dev)
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def tally(c):
+        for k_, v_ in c.items():
+            counts[k_] += v_
+
+    def launches(fn):
+        """``fn()``'s result, its launches (tallied) and its wall ms."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        used = dict(kernels.LAUNCHES)
+        tally(used)
+        return out, used, ms
+
+    def used_only(c):
+        return {k_: v_ for k_, v_ in c.items() if v_}
+
+    def view(A, c, be, on=mesh):
+        """A distributed handle's operands under another engine."""
+        return AnalogMatrix(
+            engine=AnalogEngine(c, execution="distributed", backend=be,
+                                mesh=on),
+            shape=A.shape, base_key=A.base_key, write_stats=A.write_stats,
+            mesh_sharded=True, at_ranks=A.at_ranks, da_ranks=A.da_ranks,
+            block_fn=A.block_fn, resident=A.resident)
+
+    # 10a. Dense placement: the [3] matrix cell over the mesh.
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=geom or MCAGeometry())
+    cap = cfg.geom.capacity[0]
+    eng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                       mesh=mesh)
+    a = torch.randn(n, n, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A = eng.program(a, 21)
+    torch.cuda.synchronize()
+    prog_s = time.perf_counter() - t0
+    blocks_per_rank = (n // R // cap) * (n // C // cap)
+    n_blocks = blocks_per_rank * R * C
+    print(f"[10a] dense {n}^2 over a {R} x {C} mesh (rank windows "
+          f"{n // R} x {n // C}, {blocks_per_rank} blocks of {cap}^2 a rank) "
+          f"programmed in {prog_s:.2f} s; image {A.image_nbytes / gib:.1f} "
+          f"GiB", flush=True)
+    check(len(A.at_ranks) == R * C
+          and tuple(A.at_ranks[0].shape) == (n // R, n // C),
+          "unexpected rank windows")
+    ms10a, xs, ys = {}, {}, {}
+    for b in (1, 8):
+        x = xs[b] = torch.randn(n, b, generator=gen, device=dev)
+        y = ys[b] = torch.randn(n, b, generator=gen, device=dev)
+        fwd, fc, ms10a[("fwd", b)] = launches(lambda: A @ x)
+        bwd, bc, ms10a[("bwd", b)] = launches(lambda: A.T @ y)
+        err = (rel_l2(fwd, torch.matmul(a, x)),
+               rel_l2(bwd, torch.matmul(a.T, y)))
+        print(f"[10a] batch {b}: A @ x {ms10a[('fwd', b)]:.1f} ms, rel-L2 "
+              f"vs digital {err[0]:.4e}, launches {used_only(fc)}; A.T @ y "
+              f"{ms10a[('bwd', b)]:.1f} ms, rel-L2 {err[1]:.4e}, launches "
+              f"{used_only(bc)}", flush=True)
+        check(fc["ec_matmul"] == n_blocks and fc["stencil_denoise"] == R
+              and bc["ec_rmatmul"] == n_blocks and bc["stencil_denoise"] == C
+              and sum(fc.values()) == n_blocks + R
+              and sum(bc.values()) == n_blocks + C,
+              f"[10a] not one EC launch per capacity block ({n_blocks}) and "
+              f"one tier-2 launch per segment: {fc} / {bc}")
+        check(tuple(fwd.shape) == (n, b) and tuple(bwd.shape) == (n, b)
+              and bool(torch.isfinite(fwd).all() & torch.isfinite(bwd).all())
+              and max(err) < 0.1, "[10a] wrong shape, non-finite or error "
+                                  "above 0.1")
+    x1 = x[:, :1].contiguous()
+    call_ms = {be: call_time_ms(lambda: view(A, cfg, be) @ x1, 3)
+               for be in ("cuda", "reference")}
+    split = kernel_split(lambda: A @ x1, iters=2)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[10a] A @ x at batch 1 a call: cuda {call_ms['cuda']:.2f} ms, "
+          f"reference {call_ms['reference']:.2f} ms; device busy "
+          f"{busy:.2f} ms a cuda call (idle share "
+          f"{1 - busy / call_ms['cuda']:.3f}), the largest: "
+          + ", ".join(f"{short_kernel_name(k_)} {v_:.3f}" for k_, v_ in top),
+          flush=True)
+    det10a = {}
+    for method, lam in (("neumann", cfg.lam), ("thomas", STENCIL_CHECK_LAM)):
+        c = dataclasses.replace(cfg, encode_inputs=False,
+                                denoise_method=method, lam=lam)
+        for b in (1, 8):
+            got, _, _ = launches(lambda: (view(A, c, "cuda") @ xs[b],
+                                          view(A, c, "cuda").T @ ys[b]))
+            want = (view(A, c, "reference") @ xs[b],
+                    view(A, c, "reference").T @ ys[b])
+            det10a[method, b] = [rel_l2(g_, w_) for g_, w_ in zip(got, want)]
+    print("[10a] DAC off, cuda vs reference on the same handle (A @ x / "
+          "A.T @ y): " + "; ".join(
+              f"{m_} batch {b_} {v_[0]:.3e} / {v_[1]:.3e}"
+              for (m_, b_), v_ in det10a.items())
+          + f" (Thomas at lam {STENCIL_CHECK_LAM:g})", flush=True)
+    check(max(max(v) for v in det10a.values()) <= 1e-5,
+          "[10a] the distributed cuda path disagrees with the reference")
+    del A, a, x, y, xs, ys, x1, fwd, bwd, got, want
+    torch.cuda.empty_cache()
+
+    # 10b. Producer placement: [9b]'s dubcova2, on a 1 x 1 mesh at its own
+    # size (equal to [9b]'s streamed calls 0 and 3 bit for bit) and over the
+    # mesh at the padded size (every split axis whole capacity blocks).
+    dcfg = dub["cfg"]
+    dcap = dcfg.geom.capacity[0]
+    block_bytes = dcap * dcap * 4
+    imp = ImplicitBandedMatrix(n=dub["n"], cap_m=dcap, cap_n=dcap,
+                               seed=dub["n"], device=dev)
+    n_pad = -(-dub["n"] // dcap) * dcap
+    outs, peaks, progs = {}, {}, {}
+    for label, on, size in (("1x1", one, dub["n"]),
+                            (f"{R}x{C}", mesh, n_pad)):
+        xd = torch.zeros(size, device=dev)
+        yd = torch.zeros(size, device=dev)
+        xd[:dub["n"]], yd[:dub["n"]] = dub["x"], dub["y"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        deng = AnalogEngine(dcfg, execution="distributed", backend="cuda",
+                            mesh=on)
+        t0 = time.perf_counter()
+        D = deng.program(imp.block, dub["key"], shape=(size, size))
+        torch.cuda.synchronize()
+        progs[label] = time.perf_counter() - t0
+        fwd, fc, f_ms = launches(lambda: D @ xd)
+        bwd, bc, b_ms = launches(lambda: deng.rmvm(
+            D, yd, key=fold_in(dub["key"], 3)))
+        peaks[label] = (torch.cuda.max_memory_allocated() - base
+                        - D.image_nbytes)
+        outs[label] = (fwd[:dub["n"]], bwd[:dub["n"]])
+        nb = (n_pad // dcap) ** 2
+        segs = (1, 1) if on is one else (R, C)
+        print(f"[10b] dubcova2 over {label} ({size}^2 declared): programmed "
+              f"in {progs[label]:.2f} s, image {D.image_nbytes / gib:.2f} "
+              f"GiB; A @ x {f_ms:.1f} ms, launches {used_only(fc)}; A.T @ y "
+              f"{b_ms:.1f} ms, launches {used_only(bc)}; peak over the image "
+              f"{peaks[label] / gib:.3f} GiB = {peaks[label] / block_bytes:.2f}"
+              f" capacity blocks", flush=True)
+        check(fc["ec_matmul"] == nb and fc["stencil_denoise"] == segs[0]
+              and bc["ec_rmatmul"] == nb and bc["stencil_denoise"] == segs[1],
+              f"[10b] {label}: not {nb} EC launches and one tier-2 launch a "
+              f"segment: {fc} / {bc}")
+        check(peaks[label] <= 12 * block_bytes,
+              f"[10b] {label}: peak above the image + 12 capacity blocks")
+        if on is mesh:
+            exact = dataclasses.replace(dcfg, encode_inputs=False)
+            cu, pl = view(D, exact, "cuda"), view(D, exact, "reference")
+            det = [rel_l2(cu @ xd, pl @ xd), rel_l2(cu.T @ yd, pl.T @ yd)]
+            print(f"[10b] DAC off, {label}, cuda vs reference (A @ x, A.T @ "
+                  f"y): rel-L2 {det[0]:.3e} / {det[1]:.3e}", flush=True)
+            check(max(det) <= 1e-5, "[10b] cuda disagrees with the reference")
+            del cu, pl
+        del D, fwd, bwd, xd, yd
+        torch.cuda.empty_cache()
+    same = [torch.equal(outs["1x1"][k_], dub[w_])
+            for k_, w_ in ((0, "fwd"), (1, "bwd"))]
+    apart = [rel_l2(outs[f"{R}x{C}"][k_], outs["1x1"][k_]) for k_ in (0, 1)]
+    print(f"[10b] 1 x 1 = [9b] streamed bit for bit (A @ x, A.T @ y): "
+          f"{same[0]} / {same[1]}; {R} x {C} vs 1 x 1 rel-L2 {apart[0]:.3e} / "
+          f"{apart[1]:.3e}", flush=True)
+    check(all(same), "[10b] the 1 x 1 mesh differs from the streamed engine")
+    check(max(apart) <= 1e-5, f"[10b] the {R} x {C} mesh differs from 1 x 1")
+    del outs, imp
+    torch.cuda.empty_cache()
+
+    # 10c. resident=False: no image anywhere, CG over the mesh.
+    bgeom = band_geom or MCAGeometry(8, 8, 1024, 1024)
+    bcfg = CrossbarConfig(device=get_device("epiram"), geom=bgeom, k_iters=5,
+                          ec=True)
+    bcap = bcfg.geom.capacity[0]
+    calls = [0]
+    block = banded_spd(band_n, bcap, dev)
+
+    def producer(i, j):
+        calls[0] += 1
+        return block(i, j)
+
+    b_vec = torch.ones(band_n, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    beng = AnalogEngine(bcfg, execution="distributed", backend="cuda",
+                        mesh=mesh)
+    B = beng.program(producer, 0, shape=(band_n, band_n), resident=False)
+    after_program = calls[0]
+    res, cg_counts, cg_ms = launches(lambda: solvers.cg(
+        B, b_vec, tol=2e-2, maxiter=4, key=0, backend="cuda"))
+    peak_c = torch.cuda.max_memory_allocated() - base
+    bblock = bcap * bcap * 4
+    mvms = res.ledger.mvms + res.ledger.mvms_single
+    nbb = (band_n // bcap) ** 2
+    # The digital residual of the solve, one producer sweep.
+    resid = torch.zeros(band_n, device=dev)
+    for i_ in range(band_n // bcap):
+        for j_ in range(band_n // bcap):
+            resid[i_ * bcap:(i_ + 1) * bcap] += torch.mv(
+                block(i_, j_), res.x[j_ * bcap:(j_ + 1) * bcap])
+    resid = rel_l2(resid, b_vec)
+    print(f"[10c] resident=False {band_n}^2 (epiram, {nbb} blocks of "
+          f"{bcap}^2, {R} x {C}): image {B.image_nbytes} B; CG "
+          f"{res.iterations} iterations, {mvms} MVMs, converged="
+          f"{res.converged}, residual {res.final_residual:.3e} (digital "
+          f"{resid:.3e}); {cg_ms:.1f} ms = {cg_ms / max(mvms, 1):.1f} ms an "
+          f"MVM; producer calls {after_program} to program, "
+          f"{calls[0] - after_program} in the solve ({nbb} an MVM); peak "
+          f"over the start {peak_c / gib:.3f} GiB = {peak_c / bblock:.2f} "
+          f"capacity blocks; launches {used_only(cg_counts)}", flush=True)
+    check(res.converged and res.final_residual <= 2e-2 and resid <= 2e-2,
+          "[10c] CG did not reach the residual 2e-2")
+    check(after_program == 0 and calls[0] == nbb * mvms,
+          "[10c] the producer ran other than once a block an MVM")
+    check(cg_counts["ec_matmul"] == nbb * mvms
+          and cg_counts["cg_update"] == res.iterations
+          and cg_counts["stencil_denoise"] == R * mvms,
+          f"[10c] not {nbb} ec_matmul + {R} stencils an MVM and one "
+          f"cg_update an iteration: {cg_counts}")
+    check(peak_c <= 12 * bblock, "[10c] peak above 12 capacity blocks")
+    del B, res, b_vec
+    torch.cuda.empty_cache()
+
+    # 10d. Grouped placement: the [6] Mixtral w1 group over the mesh.
+    geng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                        mesh=mesh)
+    w1 = torch.randn(experts, d_ff, d_model, generator=gen,
+                     device=dev).div_(d_model ** 0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G = geng.program_group(w1, 5)
+    torch.cuda.synchronize()
+    gprog = time.perf_counter() - t0
+    same_solo = True
+    for g_ in (0, experts - 1):
+        solo = geng.program(w1[g_], fold_in(5, g_))
+        same_solo &= all(torch.equal(p_, q_) for p_, q_ in zip(
+            G.member(g_).at_ranks + G.member(g_).da_ranks,
+            solo.at_ranks + solo.da_ranks))
+        del solo
+    print(f"[10d] {experts} experts' w1 ({d_ff} x {d_model}) over {R} x {C} "
+          f"programmed in {gprog:.2f} s, stacks per rank "
+          f"{tuple(G.at_ranks[0].shape)} ({G.image_nbytes / gib:.1f} GiB, "
+          f"each window padded on its own); members 0 and {experts - 1} = "
+          f"solo distributed programs bit for bit: {same_solo}", flush=True)
+    check(same_solo, "[10d] a member differs from its solo program")
+    gms = {}
+    for b in (1, 8):
+        gx = torch.randn(experts, d_model, b, generator=gen, device=dev)
+        gy = torch.randn(experts, d_ff, b, generator=gen, device=dev)
+        fwd, fc, gms[("fwd", b)] = launches(lambda: G @ gx)
+        bwd, bc, gms[("bwd", b)] = launches(lambda: geng.group_rmvm(G, gy))
+        err = (rel_l2(fwd, torch.bmm(w1, gx)),
+               rel_l2(bwd, torch.bmm(w1.transpose(1, 2), gy)))
+        print(f"[10d] batch {b}: G @ x {gms[('fwd', b)]:.1f} ms, rel-L2 vs "
+              f"digital {err[0]:.4e}, launches {used_only(fc)}; G.T @ y "
+              f"{gms[('bwd', b)]:.1f} ms, rel-L2 {err[1]:.4e}, launches "
+              f"{used_only(bc)}", flush=True)
+        cols = -(-(d_model // C) // cap)
+        check(fc["ec_group_matmul"] == R * C and fc["stencil_denoise"] == R
+              and sum(fc.values()) == R * C + R
+              and bc["ec_group_rmatmul"] == R * C * cols
+              and bc["stencil_denoise"] == C,
+              f"[10d] not one ec_group_matmul per rank window and one "
+              f"tier-2 launch per segment: {fc} / {bc}")
+        check(max(err) < 0.1 and bool(torch.isfinite(fwd).all()
+                                      & torch.isfinite(bwd).all()),
+              "[10d] non-finite or error above 0.1")
+    det10d = {}
+    for method, lam in (("neumann", cfg.lam), ("thomas", STENCIL_CHECK_LAM)):
+        c = dataclasses.replace(cfg, encode_inputs=False,
+                                denoise_method=method, lam=lam)
+        views = [AnalogMatrixGroup(
+            engine=AnalogEngine(c, execution="distributed", backend=be,
+                                mesh=mesh),
+            size=G.size, shape=G.shape, base_key=G.base_key,
+            member_keys=G.member_keys, write_stats=G.write_stats,
+            mesh_sharded=True, at_ranks=G.at_ranks, da_ranks=G.da_ranks)
+            for be in ("cuda", "reference")]
+        got, want = [(h.engine.group_mvm(h, gx), h.engine.group_rmvm(h, gy))
+                     for h in views]
+        det10d[method] = [rel_l2(g_, w_) for g_, w_ in zip(got, want)]
+    print(f"[10d] DAC off, batch 8, cuda vs reference (G @ x, G.T @ y): "
+          f"Neumann {det10d['neumann'][0]:.3e} / {det10d['neumann'][1]:.3e}; "
+          f"Thomas at lam {STENCIL_CHECK_LAM:g} {det10d['thomas'][0]:.3e} / "
+          f"{det10d['thomas'][1]:.3e}", flush=True)
+    check(max(max(v) for v in det10d.values()) <= 1e-5,
+          "[10d] the grouped distributed cuda path disagrees with reference")
+    print(f"[10] distributed launches {used_only(counts)}", flush=True)
+    del G, w1, gx, gy, fwd, bwd, got, want, views
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -2141,9 +2510,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------ 9. streamed execution (main)
-    streamed_counts = streamed_phase(dev, gen, cfg, engine, more_shapes, N,
-                                     PAPER_MATRICES["dubcova2"][0],
-                                     MCAGeometry(8, 8, 1024, 1024))
+    streamed_counts, dub = streamed_phase(dev, gen, cfg, engine,
+                                          more_shapes, N,
+                                          PAPER_MATRICES["dubcova2"][0],
+                                          MCAGeometry(8, 8, 1024, 1024))
+
+    # ------------------------- 10. distributed placement over a mesh (main)
+    t0 = time.perf_counter()
+    dist_counts = distributed_phase(dev, gen, dub)
+    print(f"[10] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
 
     # ---------------------------------------------------------- report
     sources = {
@@ -2177,7 +2553,7 @@ def main() -> int:
                         registry_counts, lstsq_counts, norm_counts,
                         admm_counts, lp_counts, group_counts,
                         chain_counts, encode_counts, table1_counts,
-                        streamed_counts))
+                        streamed_counts, dist_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({

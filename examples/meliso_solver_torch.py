@@ -1,36 +1,38 @@
-"""MELISO+ solve through the PyTorch/CUDA port's solvers, local or streamed
-placement (the twin of examples/meliso_solver.py).
+"""Distributed MELISO+ solve through the PyTorch/CUDA port's solvers (the
+twin of examples/meliso_solver.py).
 
-A diagonally dominant SPD matrix is programmed ONCE, then reused by
-matvec-only iterative solvers:
+A diagonally dominant SPD matrix is programmed ONCE across a mesh of ranks
+(rows over 'data', the contraction over 'model'; each rank keeps its window
+of the conductance image), then reused by matvec-only iterative solvers:
 
   * the fixed-omega Richardson loop (omega = 1/3) as the baseline;
   * Richardson with auto-omega from a matvec-only power-iteration spectral
     estimate;
   * conjugate gradients.
 
-Every solver iteration re-executes against the SAME programmed image, so
-the one-time write cost amortizes across the whole solve, and each
-``SolveResult`` ledger splits energy into the one-time programming cost and
-the per-iteration input-write cost.
+Every solver iteration re-executes against the SAME programmed image --
+tier-1 EC on each rank's window, the partials summed over the contraction
+axis, tier-2 on each row segment -- so the one-time write cost amortizes
+across the whole solve, and each ``SolveResult`` ledger splits energy into
+the one-time programming cost and the per-iteration input-write cost.
 
-The image lives on one device (local placement, the JAX example's
-``--mesh 1,1``).  ``--producer`` programs through the streamed engine from
-a ``block_fn(i, j)`` producer instead of the dense array, as the JAX
-example's ``--mesh 1,1 --producer`` does (here the producer reads the dense
-copy kept for the ground truth, so this shows the producer-driven path,
-not the memory saving of a procedural producer).  The JAX example's
-``--mesh`` (distributed placement, ROADMAP Queue A11) is not ported, and
-this example does not take it.  ``--device`` names the RRAM device, as in
-the JAX example;
-``--torch-device`` says where the tensors live: ``cuda`` (the default, an
-error where there is no GPU) or ``cpu``, only when asked for.  The image
-and the solvers run on the ``cuda`` backend: the hand-written kernels on
-the GPU, their plain versions on the CPU.
+``--mesh R,C`` picks the placement (R row shards x C contraction shards,
+default 2,4 as in the JAX example; ``1,1`` is draw-identical to the
+streamed engine with ``--producer``).  Every rank of the mesh lives on the
+one ``--torch-device``.  ``--producer`` programs through a ``block_fn(i,
+j)`` producer instead of the dense array: each rank programs only its
+window of the global block grid (here the producer reads the dense copy
+kept for the ground truth, so this shows the producer-driven path, not the
+memory saving of a procedural producer).  ``--device`` names the RRAM
+device, as in the JAX example; ``--torch-device`` says where the tensors
+live: ``cuda`` (the default, an error where there is no GPU) or ``cpu``,
+only when asked for.  The image and the solvers run on the ``cuda``
+backend: the hand-written kernels on the GPU, their plain versions on the
+CPU.
 
     PYTHONPATH=src python examples/meliso_solver_torch.py
     PYTHONPATH=src python examples/meliso_solver_torch.py --n 2048 --tol 1e-3
-    PYTHONPATH=src python examples/meliso_solver_torch.py --producer
+    PYTHONPATH=src python examples/meliso_solver_torch.py --mesh 4,2 --producer
     PYTHONPATH=src python examples/meliso_solver_torch.py --torch-device cpu --n 1024
 """
 import argparse
@@ -41,6 +43,7 @@ import torch
 from repro_torch import solvers
 from repro_torch.core import CrossbarConfig, MCAGeometry, get_device, rel_l2
 from repro_torch.engine import AnalogEngine
+from repro_torch.launch import make_mesh
 
 
 def main(argv=None):
@@ -55,18 +58,25 @@ def main(argv=None):
     ap.add_argument("--device", default="epiram")
     ap.add_argument("--cell", type=int, default=256)
     ap.add_argument("--no-ec", action="store_true")
+    ap.add_argument("--mesh", default="2,4", metavar="R,C",
+                    help="mesh shape: R row shards x C contraction shards")
     ap.add_argument("--producer", action="store_true",
-                    help="program through the streamed engine from a "
-                         "block_fn(i, j) producer (here over the dense "
-                         "copy kept for the ground truth)")
+                    help="program from a block_fn(i, j) producer, each rank "
+                         "its window (here over the dense copy kept for the "
+                         "ground truth)")
     ap.add_argument("--torch-device", default="cuda",
                     help="where images and solves live (default cuda)")
     args = ap.parse_args(argv)
+    try:
+        rows, cols = (int(v) for v in args.mesh.split(","))
+    except ValueError:
+        sys.exit(f"--mesh must be 'R,C' integers, got {args.mesh!r}")
     dev = torch.device(args.torch_device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit("meliso_solver_torch: no CUDA device "
                  "(torch.cuda.is_available() is False); pass --torch-device "
                  "cpu to run on the CPU")
+    mesh = make_mesh((rows, cols), ("data", "model"), device=dev)
 
     n = args.n
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -76,27 +86,30 @@ def main(argv=None):
     x_true = torch.randn(n, generator=gen, device=dev)
     b = a @ x_true
 
-    geom = MCAGeometry(tile_rows=max(n // args.cell, 1),
-                       tile_cols=max(n // args.cell, 1),
+    # One rank's window sets the MCA count, as in the JAX example.
+    local = (n // rows, n // cols)
+    geom = MCAGeometry(tile_rows=max(local[0] // args.cell, 1),
+                       tile_cols=max(local[1] // args.cell, 1),
                        cell_rows=args.cell, cell_cols=args.cell)
     cfg = CrossbarConfig(device=get_device(args.device), geom=geom,
                          k_iters=5, ec=not args.no_ec)
+    engine = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                          mesh=mesh)
     if args.producer:
-        engine = AnalogEngine(cfg, execution="streamed", backend="cuda",
-                              device=dev)
         cap_m, cap_n = geom.capacity
         mb, nb = -(-n // cap_m), -(-n // cap_n)
         a_pad = torch.zeros(mb * cap_m, nb * cap_n, device=dev)
         a_pad[:n, :n] = a
         blocks = a_pad.view(mb, cap_m, nb, cap_n).permute(0, 2, 1, 3)
         A = engine.program(lambda i, j: blocks[i, j], 0,
-                           shape=(n, n))       # programmed ONCE
+                           shape=(n, n))       # programmed ONCE, per window
     else:
-        engine = AnalogEngine(cfg, backend="cuda", device=dev)
         A = engine.program(a, 0)               # programmed ONCE
     print(f"n={n} device={args.device} ec={not args.no_ec} "
-          f"placement={engine.execution} torch_device={dev}")
-    print(f"one-time write energy = {A.write_stats.energy_j:.3e} J, "
+          f"placement={engine.execution} mesh={rows}x{cols} "
+          f"producer={args.producer} torch_device={dev}")
+    print(f"one-time write energy (mean over ranks) = "
+          f"{A.write_stats.energy_j:.3e} J, "
           f"latency = {A.write_stats.latency_s:.4f} s\n")
 
     # The analog noise floor of ONE corrected MVM: a tighter --tol than this

@@ -6,8 +6,10 @@ Mirrors the JAX package's layout (``core``, ``kernels``, ``engine``,
 hand-written CUDA kernel here, beside its plain PyTorch version.  The
 engine programs a dense matrix (``execution="local"``) or a
 ``block_fn(i, j)`` producer such as :class:`ImplicitBandedMatrix`'s
-``block`` (``execution="streamed"``, the paper's 65,025^2 scale).  Imports
-``torch`` only -- never ``jax`` and nothing of ``repro``.
+``block`` (``execution="streamed"``, the paper's 65,025^2 scale), either of
+them over a mesh of ranks (``execution="distributed"``,
+``launch.make_mesh``).  Imports ``torch`` only -- never ``jax`` and nothing
+of ``repro``.
 """
 __version__ = "0.1.0"
 

@@ -1,7 +1,7 @@
 """MELISO+ core, PyTorch port: device models, virtualization, two-tier error
 correction, closed-loop write-and-verify, benchmark matrices (the implicit
-banded producer included) and the crossbar stages, local and streamed (see
-:mod:`repro.core`)."""
+banded producer included), the crossbar stages, local and streamed, and the
+distributed placement over a mesh of ranks (see :mod:`repro.core`)."""
 
 from .crossbar import (CrossbarConfig, assemble_blocks, corrected_mvm,
                        encode_tiled, group_program_blocks, grouped_block_mvm,
@@ -13,6 +13,17 @@ from .crossbar import (CrossbarConfig, assemble_blocks, corrected_mvm,
                        streamed_block_mvm, streamed_block_rmvm,
                        streamed_corrected_mvm, streamed_program_blocks,
                        tile_write_cost, write_cost)
+from .distributed import (distributed_corrected_mvm,
+                          make_distributed_group_mvm,
+                          make_distributed_group_program,
+                          make_distributed_group_rmvm,
+                          make_distributed_program,
+                          make_distributed_programmed_mvm,
+                          make_distributed_rmvm,
+                          make_distributed_streamed_mvm,
+                          make_distributed_streamed_program,
+                          make_distributed_streamed_rmvm, mesh_grid_shape,
+                          shard_matrix)
 from .devices import (DEVICES, DeviceModel, drift_factor, drift_factor_py,
                       effective_sigma, effective_sigma_py, encode, get_device,
                       quantize)

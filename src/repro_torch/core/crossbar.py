@@ -266,6 +266,29 @@ def _block_product(at_blk: torch.Tensor, da_blk: torch.Tensor,
     return at_blk @ u + da_blk @ u_t
 
 
+def _denoise_output(p: torch.Tensor, cfg: CrossbarConfig, *,
+                    use_kernel: bool) -> torch.Tensor:
+    """Tier-2 of an execute's output, column by column: ``p`` is (rows,
+    columns), or (g, rows, batch) taken as one (rows, g * batch) panel;
+    through the ``stencil_denoise`` / ``thomas_solve`` kernel when
+    ``use_kernel`` (their plain versions on CPU tensors), else the plain
+    pipeline's; nothing with ``ec=False``."""
+    if not cfg.ec:
+        return p
+    if p.ndim == 3:
+        g, rows, batch = p.shape
+        panel = p.permute(1, 0, 2).reshape(rows, g * batch)
+        return _denoise_output(panel, cfg, use_kernel=use_kernel) \
+            .view(rows, g, batch).permute(1, 0, 2).contiguous()
+    if use_kernel and cfg.denoise_method in ("neumann", "thomas"):
+        from .. import kernels
+        run = kernels.stencil_denoise if cfg.denoise_method == "neumann" \
+            else kernels.thomas_solve
+        return run(p.contiguous(), cfg.lam, cfg.h)
+    return denoise_least_square(p, lam=cfg.lam, h=cfg.h,
+                                method=cfg.denoise_method)
+
+
 def _sweep(block, grid, ub, key, cfg, *, m, n, tier2, use_kernel, eta,
            transpose, block_offset=(0, 0)):
     """The execute stage in either direction, over any block source: the
@@ -519,7 +542,7 @@ def streamed_program_blocks(block_fn, key: int, cfg: CrossbarConfig,
 
 def _streamed_execute(block_fn, at_blocks, ub, key, cfg, *, m, n,
                       use_kernel, tier2, block_offset, grid, eta,
-                      program_eta, transpose):
+                      program_eta, program_key, transpose):
     if not isinstance(ub, torch.Tensor):
         raise TypeError(f"the streamed execute takes a torch.Tensor input, "
                         f"not {type(ub).__name__}: it runs on the input's "
@@ -545,7 +568,8 @@ def _streamed_execute(block_fn, at_blocks, ub, key, cfg, *, m, n,
         # One-shot: encode here with the block's programming draw and
         # consume at once; no image is ever resident.
         a_blk = _produce(block_fn, i0 + i, j0 + j, cfg, ub.device)
-        at_blk = _encode_block(a_blk, key, i0 + i, j0 + j, cfg,
+        at_blk = _encode_block(a_blk, key if program_key is None
+                               else program_key, i0 + i, j0 + j, cfg,
                                None if program_eta is None
                                else program_eta[i, j])
         return at_blk, (torch.sub(a_blk, at_blk) if cfg.ec else None)
@@ -561,8 +585,8 @@ def streamed_block_mvm(block_fn, at_blocks: Optional[torch.Tensor],
                        tier2: bool = True, block_offset=(0, 0),
                        grid: Optional[Tuple[int, int]] = None,
                        eta: Optional[torch.Tensor] = None,
-                       program_eta: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       program_eta: Optional[torch.Tensor] = None,
+                       program_key: Optional[int] = None) -> torch.Tensor:
     """Execute stage over a producer: ``dA = block_fn(i, j) - A_tilde[i,
     j]`` is derived per block and dropped before the next, so the extra
     memory is O(one capacity block) over the image.  Keys and draws are
@@ -574,8 +598,9 @@ def streamed_block_mvm(block_fn, at_blocks: Optional[torch.Tensor],
     ``at_blocks`` is the resident (mb, nb, cap_m, cap_n) image from
     :func:`streamed_program_blocks`; ``at_blocks=None`` selects the one-shot
     variant, where each block is encoded in the loop with its programming
-    draw (``program_eta`` (mb, nb, cap_m, cap_n) replaces them) and consumed
-    at once, so no image is ever resident.  ``grid`` / ``block_offset``
+    draw under ``program_key`` (default ``key``: a program and its first
+    MVM; ``program_eta`` (mb, nb, cap_m, cap_n) replaces the draws) and
+    consumed at once, so no image is ever resident.  ``grid`` / ``block_offset``
     select a window of a global grid as in :func:`streamed_program_blocks`;
     ``m`` / ``n`` / ``xb`` are then the window's own footprint, and tier-2
     belongs to the caller (``tier2=False``).
@@ -583,7 +608,8 @@ def streamed_block_mvm(block_fn, at_blocks: Optional[torch.Tensor],
     return _streamed_execute(block_fn, at_blocks, xb, key, cfg, m=m, n=n,
                              use_kernel=use_kernel, tier2=tier2,
                              block_offset=block_offset, grid=grid, eta=eta,
-                             program_eta=program_eta, transpose=False)
+                             program_eta=program_eta, program_key=program_key,
+                             transpose=False)
 
 
 def streamed_block_rmvm(block_fn, at_blocks: Optional[torch.Tensor],
@@ -592,8 +618,8 @@ def streamed_block_rmvm(block_fn, at_blocks: Optional[torch.Tensor],
                         tier2: bool = True, block_offset=(0, 0),
                         grid: Optional[Tuple[int, int]] = None,
                         eta: Optional[torch.Tensor] = None,
-                        program_eta: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        program_eta: Optional[torch.Tensor] = None,
+                        program_key: Optional[int] = None) -> torch.Tensor:
     """Transposed execute over a producer, the mirror of
     :func:`streamed_block_mvm`: ``yb`` (m, batch) chunked by row blocks,
     block (I, J)'s chunk with the same fold-1 DAC draw as forward (``eta``
@@ -603,7 +629,8 @@ def streamed_block_rmvm(block_fn, at_blocks: Optional[torch.Tensor],
     return _streamed_execute(block_fn, at_blocks, yb, key, cfg, m=m, n=n,
                              use_kernel=use_kernel, tier2=tier2,
                              block_offset=block_offset, grid=grid, eta=eta,
-                             program_eta=program_eta, transpose=True)
+                             program_eta=program_eta, program_key=program_key,
+                             transpose=True)
 
 
 def grouped_streamed_program_blocks(block_fns, keys, cfg: CrossbarConfig,

@@ -1,5 +1,5 @@
-"""Program-once / execute-many analog MVM engine (port of :mod:`repro.engine`,
-local and streamed placement).
+"""Program-once / execute-many analog MVM engine (port of :mod:`repro.engine`:
+local, streamed and distributed placement).
 
 ``engine.program(a, key)`` pays the write cost once and returns an
 :class:`AnalogMatrix` handle holding the padded conductance image
@@ -53,8 +53,23 @@ assembled output through the stencil or Thomas kernel.  The producer runs
 once per block per execute: eager PyTorch has nothing to trace, so a
 ``traceable`` attribute on it is ignored.  ``program_group`` over producers
 and ``group()`` of streamed handles make streamed groups, executed member by
-member.  ``"distributed"`` raises ``NotImplementedError`` naming its ROADMAP
-item.  Local and streamed handles execute on either engine.
+member.  Local and streamed handles execute on either engine.
+
+``execution="distributed"`` places the image over a
+:class:`~repro_torch.launch.mesh.Mesh` of R x C ranks (rows over
+``row_axes``, the contraction over ``col_axis``), driven from this process:
+``program(a, key)`` cuts a dense matrix into the ranks' windows, each
+programmed under its rank's key; ``program(block_fn, key, shape=(m, n))``
+has each rank program its window of the global block grid with global
+keys (``resident=False``: no image at all, each block encoded inside every
+execute and dropped); ``program_group`` places a stack.  An execute runs
+each rank's window through the local or streamed stages (per-block DAC
+draws; one EC kernel launch per capacity block, one grouped launch per
+rank's window of a group), sums the partials over the contraction axis in
+rank order, runs tier-2 on each output segment (so the stencil or Thomas
+system is cut at the segment edges) and returns one global tensor, the
+segments joined on the mesh's lead device: the solvers run on the handle
+unchanged.  See :mod:`repro_torch.core.distributed`.
 
 Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle, in
 either direction (one counter), draws its DAC noise from ``key`` for
@@ -71,11 +86,13 @@ import torch.nn.functional as F
 
 from . import kernels
 from .core import crossbar
+from .core import distributed as dist
+from .core.distributed import _scale_stats
 from .core.crossbar import CrossbarConfig
-from .core.error_correction import denoise_least_square
 from .core.prng import fold_in, generator
 from .core.virtualization import blocks_view
 from .core.write_verify import WriteStats
+from .launch.mesh import pin_device
 
 __all__ = ["AnalogEngine", "AnalogMatrix", "AnalogMatrixGroup",
            "TransposedAnalogMatrix", "EXECUTION_MODES", "BACKENDS",
@@ -83,10 +100,6 @@ __all__ = ["AnalogEngine", "AnalogMatrix", "AnalogMatrixGroup",
 
 EXECUTION_MODES = ("local", "streamed", "distributed")
 BACKENDS = ("reference", "cuda")
-
-_NOT_PORTED = {
-    "distributed": "ROADMAP Queue A11 (distributed placement)",
-}
 
 #: Elementwise nonlinearities :meth:`AnalogEngine.chain_mvm` applies between
 #: chained group members (None: a linear chain).  ``gelu`` is the tanh
@@ -99,14 +112,6 @@ CHAIN_ACTIVATIONS = {
 }
 
 
-def _scale_stats(stats: WriteStats, factor: float) -> WriteStats:
-    """``factor`` members' worth of one member's :class:`WriteStats`."""
-    return WriteStats(energy_j=stats.energy_j * factor,
-                      latency_s=stats.latency_s * factor,
-                      iterations=stats.iterations,
-                      final_delta=stats.final_delta)
-
-
 def _is_producer(a) -> bool:
     return callable(a) and not hasattr(a, "shape")
 
@@ -115,6 +120,17 @@ def _stack_dense(stack: torch.Tensor, m: int, n: int) -> torch.Tensor:
     """The dense unpadded (m, n) copy of a (mb, nb, cap_m, cap_n) stack."""
     mb, nb, cm, cn = stack.shape
     return stack.permute(0, 2, 1, 3).reshape(mb * cm, nb * cn)[:m, :n]
+
+
+def _join_windows(windows, grid_rc, rows: int, cols: int, m: int, n: int,
+                  device) -> torch.Tensor:
+    """The (m, n) matrix whose (r, c) window of (rows, cols) is the live part
+    of rank (r, c)'s padded window, on ``device``."""
+    out = torch.empty(m, n, dtype=torch.float32, device=device)
+    for w, (r, c) in zip(windows, grid_rc):
+        out[r * rows:(r + 1) * rows, c * cols:(c + 1) * cols] = \
+            w[..., :rows, :cols]
+    return out
 
 
 def _tree_leaves(source) -> list:
@@ -137,9 +153,14 @@ class AnalogMatrix:
     A local handle holds the padded image ``at_pad`` (``A_tilde``) and
     correction operand ``da_pad`` (``dA``), each (Mp, Np).  A streamed
     handle holds the image as the contiguous (mb, nb, cap_m, cap_n) block
-    stack ``at_stack`` and its producer ``block_fn``, and no ``dA``.  Both
-    carry the one-time programming :class:`WriteStats` and the base key
-    whose folds drive the input DAC noise of successive executions.
+    stack ``at_stack`` and its producer ``block_fn``, and no ``dA``.  A
+    distributed handle (``mesh_sharded``) holds one operand per rank, in
+    rank order, each on its rank's device: ``at_ranks`` / ``da_ranks``, the
+    ranks' padded windows, for a dense matrix; ``at_ranks``, the ranks'
+    block stacks, and ``block_fn`` for a producer, or no image at all when
+    not ``resident``.  All carry the one-time programming
+    :class:`WriteStats` and the base key whose folds drive the input DAC
+    noise of successive executions.
     """
 
     engine: "AnalogEngine"
@@ -151,6 +172,13 @@ class AnalogMatrix:
     calls: int = 0
     at_stack: Optional[torch.Tensor] = None
     block_fn: Optional[Callable] = None
+    mesh_sharded: bool = False
+    at_ranks: Optional[List[torch.Tensor]] = None
+    da_ranks: Optional[List[torch.Tensor]] = None
+    resident: bool = True
+    # The programming draws a non-resident handle re-encodes with, when
+    # they were given (tests inject the reference's).
+    program_eta: Optional[torch.Tensor] = None
 
     @property
     def m(self) -> int:
@@ -167,12 +195,48 @@ class AnalogMatrix:
 
     @property
     def image_device(self) -> torch.device:
+        if self.mesh_sharded:
+            return self.engine.mesh.lead_device
         return (self.at_stack if self.streamed else self.at_pad).device
 
+    def _grid(self) -> Tuple[int, int]:
+        """(mb, nb): the handle's global capacity-block grid."""
+        cap_m, cap_n = self.engine.cfg.geom.capacity
+        return -(-self.m // cap_m), -(-self.n // cap_n)
+
+    def _global_stack(self) -> torch.Tensor:
+        """A distributed producer handle's image as the global (mb, nb,
+        cap_m, cap_n) stack on the lead device (programmed again by one
+        sweep when the handle keeps no image)."""
+        mb, nb = self._grid()
+        dev = self.image_device
+        if not self.resident:
+            return crossbar.streamed_program_blocks(
+                self.block_fn, self.base_key, self.engine.cfg, mb, nb,
+                eta=self.program_eta, device=dev)
+        grid = self.engine._rank_grid
+        mbl, nbl = mb // grid.R, nb // grid.C
+        out = torch.empty((mb, nb) + self.engine.cfg.geom.capacity,
+                          dtype=torch.float32, device=dev)
+        for w, (r, c) in zip(self.at_ranks, grid.rc):
+            out[r * mbl:(r + 1) * mbl, c * nbl:(c + 1) * nbl] = w
+        return out
+
+    def _dense_windows(self, windows) -> torch.Tensor:
+        grid = self.engine._rank_grid
+        return _join_windows(windows, grid.rc, self.m // grid.R,
+                             self.n // grid.C, self.m, self.n,
+                             self.image_device)
+
     @property
-    def at_blocks(self) -> torch.Tensor:
+    def at_blocks(self) -> Optional[torch.Tensor]:
         """(mb, nb, cap_m, cap_n) blocks of ``A_tilde``: a view of the padded
-        image, or a streamed handle's stack itself (no copy)."""
+        image, or a streamed handle's stack itself (no copy); for a
+        distributed producer handle the global stack, joined from the ranks'
+        (a copy, or a fresh sweep when not resident); None for a dense
+        distributed handle, whose ranks pad their windows on their own."""
+        if self.mesh_sharded:
+            return self._global_stack() if self.streamed else None
         if self.streamed:
             return self.at_stack
         return blocks_view(self.at_pad, self.engine.cfg.geom)
@@ -180,37 +244,45 @@ class AnalogMatrix:
     @property
     def da_blocks(self) -> Optional[torch.Tensor]:
         """(mb, nb, cap_m, cap_n) block view of ``dA`` (no copy); None for a
-        streamed handle, which keeps no ``dA``."""
-        if self.streamed:
+        streamed or distributed handle."""
+        if self.streamed or self.mesh_sharded:
             return None
         return blocks_view(self.da_pad, self.engine.cfg.geom)
 
     def _producer_blocks(self) -> torch.Tensor:
-        mb, nb = self.at_stack.shape[:2]
+        mb, nb = self._grid()
         return crossbar.produce_blocks(self.block_fn, mb, nb,
-                                       device=self.at_stack.device)
+                                       device=self.image_device)
+
+    def _image_stack(self) -> torch.Tensor:
+        return self._global_stack() if self.mesh_sharded else self.at_stack
 
     @property
     def a_tilde(self) -> torch.Tensor:
         """The programmed conductance image, unpadded (m, n): a view of a
-        local image, a copy of a streamed one."""
+        local image, a copy of a streamed or distributed one."""
         if self.streamed:
-            return _stack_dense(self.at_stack, self.m, self.n)
+            return _stack_dense(self._image_stack(), self.m, self.n)
+        if self.mesh_sharded:
+            return self._dense_windows(self.at_ranks)
         return crossbar.assemble_blocks(self.at_pad, self.m, self.n)
 
     @property
     def da(self) -> torch.Tensor:
         """The tier-1 correction operand A - A_tilde, unpadded (m, n): a view
-        of a local handle's, derived by one producer sweep for a streamed
-        handle."""
+        of a local handle's, derived by one producer sweep for a producer
+        handle, joined from the ranks' windows for a dense distributed
+        one."""
         if self.streamed:
-            return _stack_dense(self._producer_blocks().sub_(self.at_stack),
-                                self.m, self.n)
+            return _stack_dense(self._producer_blocks().sub_(
+                self._image_stack()), self.m, self.n)
+        if self.mesh_sharded:
+            return self._dense_windows(self.da_ranks)
         return crossbar.assemble_blocks(self.da_pad, self.m, self.n)
 
     def dense(self) -> torch.Tensor:
         """The exact source matrix A = A_tilde + dA, unpadded (m, n); for a
-        streamed handle one producer sweep."""
+        producer handle one producer sweep."""
         if self.streamed:
             return _stack_dense(self._producer_blocks(), self.m, self.n)
         return self.a_tilde + self.da
@@ -232,7 +304,11 @@ class AnalogMatrix:
     def image_nbytes(self) -> int:
         """Resident bytes of the programmed operands: the two padded images,
         or a streamed handle's image alone (a producer is code, not
-        residency); there are no derived caches."""
+        residency), summed over the ranks of a distributed handle (0 when
+        it keeps no image); there are no derived caches."""
+        if self.mesh_sharded:
+            return sum(t.nbytes for t in (self.at_ranks or [])
+                       + (self.da_ranks or []))
         if self.streamed:
             return self.at_stack.nbytes
         return self.at_pad.nbytes + self.da_pad.nbytes
@@ -301,7 +377,9 @@ class AnalogMatrixGroup:
     Built by :meth:`AnalogEngine.program_group` or :meth:`AnalogEngine.group`.
     A local group holds the ``size`` members' padded images as ``(size, Mp,
     Np)`` stacks; a streamed group holds ``(size, mb, nb, cap_m, cap_n)``
-    ``at_stack`` and one producer per member, ``block_fns``.  Member ``g``
+    ``at_stack`` and one producer per member, ``block_fns``; a distributed
+    group (``mesh_sharded``) holds each rank's ``(size, Mw, Nw)`` padded
+    windows, ``at_ranks`` / ``da_ranks`` in rank order.  Member ``g``
     executes with its own base key ``member_keys[g]``, so it draws exactly
     what a solo handle with that key draws.  ``write_stats`` is the total
     over the members.
@@ -318,6 +396,9 @@ class AnalogMatrixGroup:
     calls: int = 0
     at_stack: Optional[torch.Tensor] = None   # (size, mb, nb, cap_m, cap_n)
     block_fns: Optional[Tuple[Callable, ...]] = None
+    mesh_sharded: bool = False
+    at_ranks: Optional[List[torch.Tensor]] = None   # per rank (size, Mw, Nw)
+    da_ranks: Optional[List[torch.Tensor]] = None
 
     @property
     def m(self) -> int:
@@ -334,6 +415,8 @@ class AnalogMatrixGroup:
 
     @property
     def image_device(self) -> torch.device:
+        if self.mesh_sharded:
+            return self.engine.mesh.lead_device
         return (self.at_stack if self.streamed else self.at_pad).device
 
     def _blocks(self, stack: torch.Tensor) -> torch.Tensor:
@@ -342,16 +425,20 @@ class AnalogMatrixGroup:
                            self.engine.cfg.geom).unflatten(0, (g, -1))
 
     @property
-    def at_blocks(self) -> torch.Tensor:
+    def at_blocks(self) -> Optional[torch.Tensor]:
         """(size, mb, nb, cap_m, cap_n) blocks of the stacked ``A_tilde``
-        (no copy)."""
+        (no copy); None for a distributed group (per-rank windows)."""
+        if self.mesh_sharded:
+            return None
         return self.at_stack if self.streamed else self._blocks(self.at_pad)
 
     @property
     def da_blocks(self) -> Optional[torch.Tensor]:
         """(size, mb, nb, cap_m, cap_n) block view of the stacked ``dA``;
-        None for a streamed group."""
-        return None if self.streamed else self._blocks(self.da_pad)
+        None for a streamed or distributed group."""
+        if self.streamed or self.mesh_sharded:
+            return None
+        return self._blocks(self.da_pad)
 
     def member(self, g: int) -> AnalogMatrix:
         """Member ``g`` as a standalone :class:`AnalogMatrix` on views of the
@@ -360,6 +447,12 @@ class AnalogMatrixGroup:
         if not 0 <= g < self.size:
             raise IndexError(f"member {g} of a size-{self.size} group")
         stats = _scale_stats(self.write_stats, 1.0 / self.size)
+        if self.mesh_sharded:
+            return AnalogMatrix(engine=self.engine, shape=self.shape,
+                                base_key=self.member_keys[g],
+                                write_stats=stats, mesh_sharded=True,
+                                at_ranks=[t[g] for t in self.at_ranks],
+                                da_ranks=[t[g] for t in self.da_ranks])
         if self.streamed:
             return AnalogMatrix(engine=self.engine, shape=self.shape,
                                 base_key=self.member_keys[g],
@@ -382,7 +475,10 @@ class AnalogMatrixGroup:
     @property
     def image_nbytes(self) -> int:
         """Resident bytes of the stacked images (a streamed group's image
-        alone; there are no caches)."""
+        alone, a distributed group's summed over the ranks; there are no
+        caches)."""
+        if self.mesh_sharded:
+            return sum(t.nbytes for t in self.at_ranks + self.da_ranks)
         if self.streamed:
             return self.at_stack.nbytes
         return self.at_pad.nbytes + self.da_pad.nbytes
@@ -404,17 +500,6 @@ def _dac_pass(x_pad: torch.Tensor, key: int, cfg: CrossbarConfig,
     fold = 2 if transpose else 1
     return crossbar._encode_vec(
         x_pad, cfg, gen=generator(fold_in(key, fold), x_pad.device))
-
-
-def _tier2(p: torch.Tensor, cfg: CrossbarConfig) -> torch.Tensor:
-    """Tier-2 of the kernel backend on an (n, columns) panel: the stencil or
-    Thomas kernel, which both work column by column."""
-    if cfg.denoise_method == "neumann":
-        return kernels.stencil_denoise(p, cfg.lam, cfg.h)
-    if cfg.denoise_method == "thomas":
-        return kernels.thomas_solve(p, cfg.lam, cfg.h)
-    return denoise_least_square(p, lam=cfg.lam, h=cfg.h,
-                                method=cfg.denoise_method)
 
 
 def _cuda_corrected(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
@@ -440,7 +525,8 @@ def _cuda_corrected(at: torch.Tensor, da: torch.Tensor, xb: torch.Tensor,
     if not cfg.ec:
         return (at.T if transpose else at) @ x_t[:width]
     run = kernels.ec_rmatmul if transpose else kernels.ec_matmul
-    return _tier2(run(at, da, x_pad[:width], x_t[:width]), cfg)
+    return crossbar._denoise_output(run(at, da, x_pad[:width], x_t[:width]),
+                                    cfg, use_kernel=True)
 
 
 def _cuda_group_corrected(at: torch.Tensor, da: torch.Tensor,
@@ -474,7 +560,8 @@ def _cuda_group_corrected(at: torch.Tensor, da: torch.Tensor,
             .contiguous()
 
     run = kernels.ec_group_rmatmul if transpose else kernels.ec_group_matmul
-    p = _tier2(run(at, da, panel(x_pad), panel(x_t)), cfg)
+    p = crossbar._denoise_output(run(at, da, panel(x_pad), panel(x_t)), cfg,
+                                 use_kernel=True)
     return p.view(rows, g, batch).transpose(0, 1).contiguous()
 
 
@@ -484,38 +571,64 @@ class AnalogEngine:
     Parameters
     ----------
     cfg:
-        The :class:`CrossbarConfig` of one multi-MCA system.
+        The :class:`CrossbarConfig` of one multi-MCA system (under
+        ``"distributed"``: of one rank's).
     execution:
         ``"local"`` (dense arrays) | ``"streamed"`` (``block_fn`` producers
-        too); ``"distributed"`` is not ported yet.
+        too) | ``"distributed"`` (either, placed over ``mesh``).
     backend:
         ``"reference"`` (plain PyTorch block pipeline) | ``"cuda"`` (the
         hand-written kernels; their plain versions on a CPU ``device``).
     device:
         Where images and executions live; ``"cuda"`` unless the caller asks
-        for the CPU.
+        for the CPU.  Under ``"distributed"`` the mesh's lead device (the
+        default; another one raises).
+    mesh, row_axes, col_axis:
+        The :class:`~repro_torch.launch.mesh.Mesh` of ``"distributed"``
+        execution (required there): rows split over ``row_axes``, the
+        contraction over ``col_axis``.
     """
 
     def __init__(self, cfg: CrossbarConfig, *, execution: str = "local",
-                 backend: str = "reference", device="cuda"):
+                 backend: str = "reference", device=None, mesh=None,
+                 row_axes: Tuple[str, ...] = ("data",),
+                 col_axis: str = "model"):
         if execution not in EXECUTION_MODES:
             raise ValueError(f"unknown execution mode {execution!r}; expected "
                              f"one of {EXECUTION_MODES}")
-        if execution in _NOT_PORTED:
-            raise NotImplementedError(
-                f"execution={execution!r} is not ported yet: "
-                f"{_NOT_PORTED[execution]}")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; expected one of "
                              f"{BACKENDS}")
+        if execution == "distributed" and mesh is None:
+            raise ValueError("execution='distributed' requires a mesh")
         self.cfg = cfg
         self.execution = execution
         self.backend = backend
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            # Pin "cuda" to an index so it compares equal to tensor devices.
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.mesh = mesh
+        self.row_axes = tuple(row_axes)
+        self.col_axis = col_axis
+        if execution == "distributed":
+            # Checks the axes against the mesh once, here.
+            self._rank_grid = dist.RankGrid(mesh, self.row_axes, col_axis)
+            if device is not None \
+                    and pin_device(device) != mesh.lead_device:
+                raise ValueError(f"device {device} is not the mesh's lead "
+                                 f"device {mesh.lead_device}")
+            self.device = mesh.lead_device
+        else:
+            self.device = pin_device("cuda" if device is None else device)
+
+    @property
+    def collective_axes(self) -> Tuple[str, ...]:
+        """Mesh axes a distributed execution reduces over (empty for the
+        single-device modes)."""
+        if self.execution != "distributed":
+            return ()
+        return (*self.row_axes, self.col_axis)
+
+    def _dist_kernels(self) -> bool:
+        """Whether a distributed execute runs the hand-written kernels."""
+        return self.backend == "cuda" and self.cfg.ec
 
     # ------------------------------------------------------------- programming
     def _as_tensor(self, a) -> torch.Tensor:
@@ -524,25 +637,37 @@ class AnalogEngine:
         return torch.as_tensor(a).to(device=self.device, dtype=torch.float32)
 
     def program(self, a, key: int, *, shape: Optional[Tuple[int, int]] = None,
+                resident: bool = True,
                 eta: Optional[torch.Tensor] = None) -> AnalogMatrix:
         """Write ``a`` onto the analog system once; returns the reusable
         handle.
 
         ``a`` is a dense (m, n) array, or -- under ``execution="streamed"``
-        -- a ``block_fn(i, j)`` producer of capacity-sized (already padded)
-        blocks with ``shape=(m, n)`` the logical size: the handle then keeps
-        only the programmed image (see :func:`crossbar.streamed_program_blocks`).
-        ``eta`` ((mb, nb, cap_m, cap_n)) replaces the programming noise
-        draws.
+        or ``"distributed"`` -- a ``block_fn(i, j)`` producer of
+        capacity-sized (already padded) blocks with ``shape=(m, n)`` the
+        logical size: the handle then keeps only the programmed image (see
+        :func:`crossbar.streamed_program_blocks`).  ``resident=False``
+        (distributed producers only) keeps no image: every execute encodes
+        each block again with the same draw, uses it and drops it.  ``eta``
+        replaces the programming noise draws: (mb, nb, cap_m, cap_n) of the
+        global block grid, or for a dense distributed matrix each rank's
+        window draws, (R, C, mb_loc, nb_loc, cap_m, cap_n).
         """
         if _is_producer(a):
-            if self.execution != "streamed":
+            if self.execution not in ("streamed", "distributed"):
                 raise ValueError("a block_fn producer requires "
                                  "execution='streamed' or 'distributed'")
             if shape is None:
                 raise ValueError("program(block_fn, ...) requires "
                                  "shape=(m, n)")
             m, n = (int(v) for v in shape)
+            if self.execution == "distributed":
+                return self._program_distributed_streamed(a, (m, n), key,
+                                                          resident, eta)
+            if not resident:
+                raise ValueError("resident=False requires "
+                                 "execution='distributed' (streamed handles "
+                                 "keep the programmed image)")
             cap_m, cap_n = self.cfg.geom.capacity
             at = crossbar.streamed_program_blocks(
                 a, key, self.cfg, -(-m // cap_m), -(-n // cap_n), eta=eta,
@@ -551,16 +676,65 @@ class AnalogEngine:
                                 write_stats=crossbar.matrix_write_cost(
                                     m, n, self.cfg),
                                 at_stack=at, block_fn=a)
+        if not resident:
+            raise ValueError("resident=False requires a block_fn producer "
+                             "under execution='distributed'")
         a = self._as_tensor(a)
         if a.ndim != 2:
             raise ValueError(f"program expects a matrix, got shape "
                              f"{tuple(a.shape)}")
         m, n = a.shape
+        if self.execution == "distributed":
+            at, da, stats = dist.make_distributed_program(
+                self.cfg, self.mesh, self.row_axes, self.col_axis)(
+                dist.shard_matrix(a, self.mesh, self.row_axes,
+                                  self.col_axis), key, eta=eta)
+            return AnalogMatrix(engine=self, shape=(m, n), base_key=int(key),
+                                write_stats=stats, mesh_sharded=True,
+                                at_ranks=at, da_ranks=da)
         at, da = crossbar.program_blocks(a, key, self.cfg, eta=eta)
         return AnalogMatrix(engine=self, shape=(m, n), base_key=int(key),
                             write_stats=crossbar.matrix_write_cost(m, n,
                                                                    self.cfg),
                             at_pad=at, da_pad=da)
+
+    def _program_distributed_streamed(self, block_fn, shape, key, resident,
+                                      eta) -> AnalogMatrix:
+        """Producer-driven distributed programming: each rank programs its
+        window of the global block grid (nothing when not ``resident``); A
+        never materializes."""
+        m, n = shape
+        cap_m, cap_n = self.cfg.geom.capacity
+        mb, nb = -(-m // cap_m), -(-n // cap_n)
+        grid = self._rank_grid
+        if mb % grid.R or nb % grid.C:
+            raise ValueError(
+                f"the {mb} x {nb} capacity-block grid does not divide over "
+                f"the {grid.R} x {grid.C} mesh; pick a capacity/mesh so every "
+                f"rank owns an equal block window")
+        if grid.R > 1 and m != mb * cap_m:
+            raise ValueError(
+                f"m={m} must be a multiple of the capacity row size {cap_m} "
+                f"to row-shard a producer grid (produce padded blocks and "
+                f"declare the padded shape)")
+        if grid.C > 1 and n != nb * cap_n:
+            raise ValueError(
+                f"n={n} must be a multiple of the capacity column size "
+                f"{cap_n} to column-shard a producer grid")
+        at = None
+        if resident:
+            at = dist.make_distributed_streamed_program(
+                block_fn, self.cfg, self.mesh, self.row_axes, self.col_axis,
+                mb=mb, nb=nb)(key, eta=eta)
+        # One rank's footprint; the mean over the equal windows is its cost
+        # (the Figs. 4-5 convention).  Billed once, resident or not.
+        m_loc = m if grid.R == 1 else (mb // grid.R) * cap_m
+        n_loc = n if grid.C == 1 else (nb // grid.C) * cap_n
+        return AnalogMatrix(
+            engine=self, shape=(m, n), base_key=int(key),
+            write_stats=crossbar.matrix_write_cost(m_loc, n_loc, self.cfg),
+            block_fn=block_fn, mesh_sharded=True, at_ranks=at,
+            resident=resident, program_eta=None if resident else eta)
 
     def encode_dense(self, a, key: int) -> torch.Tensor:
         """The programmed image of ``a`` as a dense unpadded tensor."""
@@ -580,8 +754,10 @@ class AnalogEngine:
         ``execution="streamed"`` -- a sequence of ``block_fn(i, j)``
         producers with ``shape=(m, n)``.  Member ``g`` is programmed with
         ``fold_in(key, g)``: its image is that of a solo :meth:`program`
-        under that key.  ``eta`` ((g, mb, nb, cap_m, cap_n)) replaces the
-        programming draws.
+        under that key.  Under ``execution="distributed"`` each rank
+        programs its window of every member.  ``eta`` ((g, mb, nb, cap_m,
+        cap_n); distributed: (g, R, C, mb_loc, nb_loc, cap_m, cap_n))
+        replaces the programming draws.
         """
         leaves = _tree_leaves(source)
         if not leaves:
@@ -607,6 +783,18 @@ class AnalogEngine:
         size = len(members)
         m, n = members[0].shape
         member_keys = [fold_in(key, g) for g in range(size)]
+        if self.execution == "distributed":
+            stack = members if isinstance(members, torch.Tensor) \
+                else torch.stack(members)
+            at, da, stats = dist.make_distributed_group_program(
+                self.cfg, self.mesh, self.row_axes, self.col_axis)(
+                dist.shard_matrix(stack, self.mesh, self.row_axes,
+                                  self.col_axis), member_keys, eta=eta)
+            del stack
+            return AnalogMatrixGroup(
+                engine=self, size=size, shape=(m, n), base_key=int(key),
+                member_keys=member_keys, write_stats=stats,
+                mesh_sharded=True, at_ranks=at, da_ranks=da)
         at, da = crossbar.group_program_blocks(members, member_keys, self.cfg,
                                                eta=eta)
         return AnalogMatrixGroup(
@@ -618,6 +806,12 @@ class AnalogEngine:
 
     def _program_group_streamed(self, block_fns, key, shape, eta
                                 ) -> AnalogMatrixGroup:
+        if self.execution == "distributed":
+            raise ValueError(
+                "program_group does not take producer groups under "
+                "execution='distributed' (one producer already programs the "
+                "whole mesh); program members individually or use "
+                "execution='streamed'")
         if self.execution != "streamed":
             raise ValueError("a producer group requires execution='streamed'")
         if shape is None:
@@ -660,6 +854,10 @@ class AnalogEngine:
             if h.engine is not self and h.engine.cfg != self.cfg:
                 raise ValueError(f"group() member {g} was programmed by an "
                                  "incompatible engine configuration")
+            if h.mesh_sharded:
+                raise ValueError("group() stacks local handles; distributed "
+                                 "images group at program time via "
+                                 "program_group")
             if h.image_device != self.device:
                 raise ValueError(f"group() member {g} lives on "
                                  f"{h.image_device}, this engine on "
@@ -692,8 +890,9 @@ class AnalogEngine:
         ``x``: (n,) or (n, batch).  ``key`` overrides the call's DAC key;
         by default call ``c`` uses the handle's key schedule.  ``eta``
         replaces the DAC draws: ``(Np, batch)`` for a local handle on
-        ``backend="cuda"``, ``(mb, nb, cap_n, batch)`` otherwise (the
-        ``"reference"`` backend, and a streamed handle on either).
+        ``backend="cuda"``, ``(R, C, mb_loc, nb_loc, cap_n, batch)`` for a
+        dense distributed one, ``(mb, nb, cap_n, batch)`` otherwise (the
+        ``"reference"`` backend, and a producer handle on either).
         """
         y, _ = self._execute(A, x, key, eta)
         return y
@@ -711,7 +910,8 @@ class AnalogEngine:
         ``y``: (m,) or (m, batch); returns (n,) / (n, batch).  Only ``y``
         passes the DAC; tier-2 runs over the column output.  ``eta``
         replaces the DAC draws: ``(Mp, batch)`` for a local handle on
-        ``backend="cuda"``, ``(mb, nb, cap_m, batch)`` otherwise.
+        ``backend="cuda"``, ``(R, C, mb_loc, nb_loc, cap_m, batch)`` for a
+        dense distributed one, ``(mb, nb, cap_m, batch)`` otherwise.
         """
         z, _ = self._execute(A, y, key, eta, transpose=True)
         return z
@@ -725,8 +925,15 @@ class AnalogEngine:
     def input_write_stats(self, A: AnalogMatrix, batch: int = 1, *,
                           transpose: bool = False) -> WriteStats:
         """Per-execution input-write cost (x DAC pass + EC X^T replica;
-        ``transpose=True``: the m-length y pass + the row-dimension replica)."""
-        return crossbar.input_write_cost(A.m, A.n, self.cfg, batch=batch,
+        ``transpose=True``: the m-length y pass + the row-dimension replica).
+        Under ``execution="distributed"`` one rank's, the paper's Figs. 4-5
+        convention: the ceil-divided footprint, what a placement would pad
+        onto its largest window."""
+        m, n = A.m, A.n
+        if self.execution == "distributed":
+            m = -(-m // self._rank_grid.R)
+            n = -(-n // self._rank_grid.C)
+        return crossbar.input_write_cost(m, n, self.cfg, batch=batch,
                                          transpose=transpose)
 
     def _execute(self, A, x, key, eta, *, with_stats=False, transpose=False):
@@ -745,6 +952,7 @@ class AnalogEngine:
         if A.engine is not self and A.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrix was programmed by an incompatible "
                              "engine configuration")
+        self._check_placement(A, "AnalogMatrix")
         if A.image_device != self.device:
             raise ValueError(f"AnalogMatrix lives on {A.image_device} but "
                              f"this engine executes on {self.device}")
@@ -760,6 +968,9 @@ class AnalogEngine:
             # One call counter for both directions, as the JAX handle has.
             key = A.base_key if A.calls == 0 else fold_in(A.base_key, A.calls)
         A.calls += 1
+        if A.mesh_sharded:
+            return self._execute_distributed(A, xb, key, eta, squeeze,
+                                             with_stats, transpose)
         if A.streamed:
             run = crossbar.streamed_block_rmvm if transpose \
                 else crossbar.streamed_block_mvm
@@ -777,6 +988,53 @@ class AnalogEngine:
             if with_stats else None
         return (p[:, 0] if squeeze else p), stats
 
+    def _check_placement(self, A, what: str) -> None:
+        """A handle runs only on the placement that programmed it: a
+        distributed engine takes mesh-sharded operands (on its own mesh and
+        axes), the other engines take none."""
+        if self.execution == "distributed":
+            if not A.mesh_sharded:
+                raise ValueError(
+                    f"{what} holds a local or streamed image but this engine "
+                    f"executes distributed; program it with the distributed "
+                    f"engine")
+            e = A.engine
+            if (e.mesh, e.row_axes, e.col_axis) != \
+                    (self.mesh, self.row_axes, self.col_axis):
+                raise ValueError(f"{what} was placed on another mesh or "
+                                 f"other axes than this engine's")
+        elif A.mesh_sharded:
+            raise ValueError(
+                f"{what} holds mesh-sharded operands but this engine "
+                f"executes {self.execution!r}; program it with this engine")
+
+    def _execute_distributed(self, A, xb, key, eta, squeeze, with_stats,
+                             transpose):
+        """A distributed execute: every rank's window through the dense or
+        streamed stages, the partials summed over the contraction axis,
+        tier-2 per output segment, one global output."""
+        m, n = A.shape
+        axes = (self.mesh, self.row_axes, self.col_axis)
+        kernel = self._dist_kernels()
+        if A.streamed:
+            mb, nb = A._grid()
+            make = dist.make_distributed_streamed_rmvm if transpose \
+                else dist.make_distributed_streamed_mvm
+            p = make(A.block_fn, self.cfg, *axes, m=m, n=n, mb=mb, nb=nb,
+                     resident=A.resident, use_kernel=kernel)(
+                A.at_ranks, xb, key, eta=eta, program_eta=A.program_eta,
+                program_key=A.base_key)
+            stats = self.input_write_stats(A, xb.shape[1],
+                                           transpose=transpose) \
+                if with_stats else None
+        else:
+            make = dist.make_distributed_rmvm if transpose \
+                else dist.make_distributed_programmed_mvm
+            p, stats = make(self.cfg, *axes, use_kernel=kernel)(
+                A.at_ranks, A.da_ranks, xb, key, shape=(m, n), eta=eta)
+            stats = stats if with_stats else None
+        return (p[:, 0] if squeeze else p), stats
+
     def _streamed_kw(self) -> dict:
         """The streamed stages' switches on this backend: the ``cuda``
         backend runs each block's tier-1 product through the EC kernel and
@@ -788,14 +1046,9 @@ class AnalogEngine:
         """Tier-2 of a streamed execute on the ``cuda`` backend: one stencil
         or Thomas launch on the assembled ``(rows, columns)`` output, or on
         ``(g, rows, batch)`` as one ``(rows, g * batch)`` panel."""
-        if self.backend != "cuda" or not self.cfg.ec:
+        if self.backend != "cuda":
             return p
-        if p.ndim == 2:
-            return _tier2(p, self.cfg)
-        g, rows, batch = p.shape
-        panel = p.permute(1, 0, 2).reshape(rows, g * batch)
-        return _tier2(panel, self.cfg).view(rows, g, batch) \
-            .permute(1, 0, 2).contiguous()
+        return crossbar._denoise_output(p, self.cfg, use_kernel=True)
 
     # --------------------------------------------------------- group execution
     def group_mvm(self, G: AnalogMatrixGroup, x, *, key: Optional[int] = None,
@@ -809,7 +1062,8 @@ class AnalogEngine:
         ``fold_in(key, g)``; by default member ``g``'s call ``c`` draws what
         a solo handle with key ``member_keys[g]`` draws on its call ``c``.
         ``eta`` replaces the DAC draws: ``(size, Np, batch)`` for a local
-        group on ``backend="cuda"``, ``(size, mb, nb, cap_n, batch)``
+        group on ``backend="cuda"``, ``(size, R, C, mb_loc, nb_loc, cap_n,
+        batch)`` for a distributed one, ``(size, mb, nb, cap_n, batch)``
         otherwise.
         """
         y, _ = self._group_execute(G, x, key, eta)
@@ -855,7 +1109,7 @@ class AnalogEngine:
             raise TypeError("chain_mvm takes an AnalogMatrixGroup; wrap solo "
                             "handles with engine.group([...])")
         self._check_group(G)
-        if G.streamed:
+        if G.streamed or G.mesh_sharded:
             raise ValueError("chain_mvm needs a LOCAL resident group (dense "
                              "members with stacked at/da images)")
         if G.m != G.n:
@@ -889,6 +1143,7 @@ class AnalogEngine:
         if G.engine is not self and G.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrixGroup was programmed by an "
                              "incompatible engine configuration")
+        self._check_placement(G, "AnalogMatrixGroup")
         if G.image_device != self.device:
             raise ValueError(f"AnalogMatrixGroup lives on {G.image_device} "
                              f"but this engine executes on {self.device}")
@@ -938,6 +1193,14 @@ class AnalogEngine:
         keys = self._group_keys(G, key)
         G.calls += 1
         m, n = G.shape
+        if G.mesh_sharded:
+            make = dist.make_distributed_group_rmvm if transpose \
+                else dist.make_distributed_group_mvm
+            p, stats = make(self.cfg, self.mesh, self.row_axes,
+                            self.col_axis, use_kernel=self._dist_kernels())(
+                G.at_ranks, G.da_ranks, xb, keys, shape=(m, n), eta=eta)
+            return (p[:, :, 0] if squeeze else p), \
+                (stats if with_stats else None)
         if G.streamed:
             run = crossbar.grouped_streamed_block_rmvm if transpose \
                 else crossbar.grouped_streamed_block_mvm

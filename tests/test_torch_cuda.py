@@ -1182,3 +1182,130 @@ def test_registry_solver_on_card_ledger_contract(cuda_device, name):
         assert recorded <= max(spec.slack * rec, spec.floor), (rec, recorded)
     assert digital.converged == (recorded <= run["tol"])
     assert digital.ledger.total_energy_j == 0.0
+
+
+def _mesh(shape, dev):
+    from repro_torch.launch import make_mesh
+    return make_mesh(shape, ("data", "model"), device=dev)
+
+
+@pytest.mark.parametrize("method", ["neumann", "thomas"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_distributed_engine_on_card_matches_cpu_path(cuda_device, transpose,
+                                                     method):
+    """A dense handle over a 2 x 4 mesh on the card: one ``ec_matmul``
+    (``ec_rmatmul``) launch per capacity block of every rank's window and
+    one tier-2 launch per output segment (2 forward, 4 transposed), equal to
+    the same handle on the CPU (plain versions) under the same injected
+    draws, and, DAC off, to the ``reference`` backend on the card."""
+    import dataclasses
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 64, 64), lam=1e-2,
+                         denoise_method=method)
+    a = randn((600, 520), 96, "cpu")     # windows 300 x 130: 3 x 2 blocks
+    peta = randn((2, 4, 3, 2, 128, 128), 97, "cpu")
+    handles = [AnalogEngine(cfg, execution="distributed", backend="cuda",
+                            mesh=_mesh((2, 4), d)).program(
+        a.to(d), 1, eta=peta.to(d)) for d in ("cpu", cuda_device)]
+    C, G = handles
+    u = randn((600 if transpose else 520, 3), 98, "cpu")
+    dac = randn((2, 4, 3, 2, 128, 3), 99, "cpu")
+    kernels.reset_launches()
+    run = G.engine.rmvm if transpose else G.engine.mvm
+    got = run(G, u.to(cuda_device), eta=dac.to(cuda_device))
+    torch.cuda.synchronize()
+    name = "ec_rmatmul" if transpose else "ec_matmul"
+    tier2 = "thomas_solve" if method == "thomas" else "stencil_denoise"
+    assert kernels.LAUNCHES[name] == 8 * 3 * 2
+    assert kernels.LAUNCHES[tier2] == (4 if transpose else 2)
+    want = (C.engine.rmvm if transpose else C.engine.mvm)(C, u, eta=dac)
+    assert got.shape == want.shape and rel(got.cpu(), want) <= 1e-5
+    exact = dataclasses.replace(cfg, encode_inputs=False)
+    outs = []
+    for be in ("cuda", "reference"):
+        view = AnalogMatrix(
+            engine=AnalogEngine(exact, execution="distributed", backend=be,
+                                mesh=G.engine.mesh),
+            shape=G.shape, base_key=1, write_stats=G.write_stats,
+            mesh_sharded=True, at_ranks=G.at_ranks, da_ranks=G.da_ranks)
+        outs.append((view.engine.rmvm if transpose else view.engine.mvm)(
+            view, u.to(cuda_device)))
+    assert rel(outs[0], outs[1]) <= 1e-5
+
+
+def test_distributed_producer_on_card_equals_streamed(cuda_device):
+    """With the port's own draws on the card: a 1 x 1 producer mesh is the
+    streamed engine bit for bit in both directions, a 2 x 4 one equals it
+    to 1e-5, and ``resident=False`` equals the resident 2 x 4 handle bit
+    for bit at a call key other than the handle's."""
+    from repro_torch.core.matrices import ImplicitBandedMatrix
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 128, 128))
+    imp = ImplicitBandedMatrix(n=2048, cap_m=256, cap_n=256, seed=6,
+                               device=cuda_device)
+    x, y = randn((2048, 2), 100, cuda_device), randn((2048, 2), 101,
+                                                      cuda_device)
+    S = AnalogEngine(cfg, execution="streamed", backend="cuda",
+                     device=cuda_device).program(imp.block, 3,
+                                                 shape=(2048, 2048))
+    handles = {}
+    for label, shape, resident in (("1x1", (1, 1), True),
+                                   ("2x4", (2, 4), True),
+                                   ("2x4-nr", (2, 4), False)):
+        eng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                           mesh=_mesh(shape, cuda_device))
+        handles[label] = eng.program(imp.block, 3, shape=(2048, 2048),
+                                     resident=resident)
+
+    def both(A, key):
+        return A.engine.mvm(A, x, key=key), A.engine.rmvm(A, y, key=key)
+
+    s = both(S, 3)
+    one = both(handles["1x1"], 3)
+    assert all(torch.equal(p, q) for p, q in zip(one, s))
+    mesh = both(handles["2x4"], 3)
+    assert all(rel(p, q) <= 1e-5 for p, q in zip(mesh, s))
+    kernels.reset_launches()
+    nr = both(handles["2x4-nr"], 9)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_matmul"] == kernels.LAUNCHES["ec_rmatmul"] \
+        == 64
+    assert all(torch.equal(p, q) for p, q in zip(nr, both(handles["2x4"], 9)))
+    assert handles["2x4-nr"].image_nbytes == 0
+
+
+def test_distributed_group_on_card_is_one_launch_a_rank(cuda_device):
+    """A 3-member group over 2 x 4 on the card: one ``ec_group_matmul``
+    launch per rank's window (every row strip of every member in it), one
+    ``ec_group_rmatmul`` per rank's column block, one tier-2 launch per
+    segment, equal to the same group on the CPU under the same draws, and
+    member g equal to its solo distributed program bit for bit."""
+    from repro_torch.core.prng import fold_in
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 64, 64), lam=1e-2)
+    stack = randn((3, 600, 520), 102, "cpu")
+    peta = randn((3, 2, 4, 3, 2, 128, 128), 103, "cpu")
+    C, G = [AnalogEngine(cfg, execution="distributed", backend="cuda",
+                         mesh=_mesh((2, 4), d)).program_group(
+        stack.to(d), 2, eta=peta.to(d)) for d in ("cpu", cuda_device)]
+    x = randn((3, 520, 4), 104, "cpu")
+    y = randn((3, 600, 4), 105, "cpu")
+    fe, be = randn((3, 2, 4, 3, 2, 128, 4), 106, "cpu"), \
+        randn((3, 2, 4, 3, 2, 128, 4), 107, "cpu")
+    kernels.reset_launches()
+    got = G.engine.group_mvm(G, x.to(cuda_device), eta=fe.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_group_matmul"] == 8
+    assert kernels.LAUNCHES["stencil_denoise"] == 2
+    assert rel(got.cpu(), C.engine.group_mvm(C, x, eta=fe)) <= 1e-5
+    kernels.reset_launches()
+    got = G.engine.group_rmvm(G, y.to(cuda_device), eta=be.to(cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_group_rmatmul"] == 8 * 2
+    assert kernels.LAUNCHES["stencil_denoise"] == 4
+    assert rel(got.cpu(), C.engine.group_rmvm(C, y, eta=be)) <= 1e-5
+    solo = G.engine.program(stack[1].to(cuda_device), fold_in(2, 1),
+                            eta=peta[1].to(cuda_device))
+    assert all(torch.equal(p, q) for p, q in zip(
+        G.member(1).at_ranks + G.member(1).da_ranks,
+        solo.at_ranks + solo.da_ranks))

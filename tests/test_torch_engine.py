@@ -20,6 +20,7 @@ from repro.core import virtualization as jvirt
 from repro.engine import AnalogEngine as JaxEngine
 from repro_torch.engine import AnalogEngine
 from repro_torch.interop import config_from_dict, image_from_numpy
+from repro_torch.launch import make_mesh
 
 TOL = 1e-5
 M, N, BATCH = 150, 130, 3
@@ -223,10 +224,14 @@ def test_call_counter_key_schedule(problem):
 
 def test_guards():
     _, pcfg = configs()
-    # Streamed execution constructs; distributed placement is not ported.
+    # Streamed and distributed execution construct; distributed needs a
+    # mesh (tests/test_torch_distributed.py holds it to the JAX package).
     assert AnalogEngine(pcfg, execution="streamed",
                         device="cpu").execution == "streamed"
-    with pytest.raises(NotImplementedError, match="Queue A11"):
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    dist = AnalogEngine(pcfg, execution="distributed", mesh=mesh)
+    assert dist.execution == "distributed" and dist.device == mesh.lead_device
+    with pytest.raises(ValueError, match="requires a mesh"):
         AnalogEngine(pcfg, execution="distributed", device="cpu")
     with pytest.raises(ValueError):
         AnalogEngine(pcfg, execution="nope", device="cpu")

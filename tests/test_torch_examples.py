@@ -1,8 +1,8 @@
 """The port's example scripts run end to end on the CPU when asked to
 (``--torch-device cpu``): the quickstart's Table-1 grid, the solver
-example's asserts and the portfolio example's asserts; without a GPU and
-without that flag each exits non-zero with a message instead of falling
-back to the CPU."""
+example's asserts on a 2 x 4 mesh, the LP example's and the portfolio
+example's asserts; without a GPU and without that flag each exits non-zero
+with a message instead of falling back to the CPU."""
 import os
 import subprocess
 import sys
@@ -13,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py",
-            "meliso_portfolio_torch.py"]
+            "meliso_portfolio_torch.py", "meliso_lp_torch.py"]
 
 
 def run(script, *args):
@@ -45,15 +45,31 @@ def test_quickstart_grid_on_cpu():
 
 def test_meliso_solver_on_cpu():
     """The solver example's own asserts (auto-omega and CG in fewer
-    iterations than the fixed-omega baseline, x error <= tol) at n = 1,024,
-    one 1,024^2 capacity block."""
+    iterations than the fixed-omega baseline, x error <= tol) at n = 1,024
+    on the default 2 x 4 mesh, one 512 x 256 capacity block a rank."""
     out = run("meliso_solver_torch.py", "--torch-device", "cpu", "--n",
               "1024")
     assert out.returncode == 0, out.stderr
     names = [line.split()[0] for line in out.stdout.splitlines()
              if line.startswith(("richardson", "cg "))]
     assert names == ["richardson", "richardson", "cg"]
-    assert "placement=local" in out.stdout
+    assert "placement=distributed mesh=2x4 producer=False" in out.stdout
+
+
+def test_meliso_lp_on_cpu():
+    """The LP example's own asserts (both PDHG solves converge, the analog
+    objective within 1e-3 of the digital one, the analog x feasible) on a
+    2 x 4 mesh programmed from a producer, one 64^2 block a rank."""
+    out = run("meliso_lp_torch.py", "--torch-device", "cpu", "--mesh", "2,4",
+              "--producer", "--m", "128", "--n", "256")
+    assert out.returncode == 0, out.stderr
+    rows = {" ".join(line.split()[:2]): line.split()[2:]
+            for line in out.stdout.splitlines()
+            if line.startswith("pdhg ")}
+    assert set(rows) == {"pdhg digital", "pdhg analog"}
+    assert float(rows["pdhg digital"][-1]) == 0.0
+    assert float(rows["pdhg analog"][-1]) > 0.0
+    assert "mesh=2,4, producer=True, placement=distributed" in out.stdout
 
 
 def test_meliso_portfolio_on_cpu():
@@ -84,17 +100,19 @@ def test_examples_do_not_fall_back_to_the_cpu(script):
 
 @pytest.mark.parametrize("flag", [["--mesh", "1,1"], ["--producer"]])
 def test_solver_example_has_no_distributed_flags(flag):
-    """Distributed placement waits for ROADMAP A11: argparse refuses
-    ``--mesh``.  ``--producer`` programs through the streamed engine and
-    passes the example's own asserts at n = 1,024."""
-    if flag == ["--producer"]:
-        out = run("meliso_solver_torch.py", "--torch-device", "cpu", "--n",
-                  "1024", *flag)
-        assert out.returncode == 0, out.stderr
-        assert "placement=streamed" in out.stdout
-        names = [line.split()[0] for line in out.stdout.splitlines()
-                 if line.startswith(("richardson", "cg "))]
-        assert names == ["richardson", "richardson", "cg"]
-        return
-    out = run("meliso_solver_torch.py", "--torch-device", "cpu", *flag)
-    assert out.returncode == 2 and "unrecognized arguments" in out.stderr
+    """The solver example takes the JAX example's distributed flags:
+    ``--mesh 1,1`` (one rank) and ``--producer`` (each rank of the default
+    2 x 4 mesh programs its window from a producer) pass its own asserts at
+    n = 1,024; a malformed mesh exits with a message."""
+    out = run("meliso_solver_torch.py", "--torch-device", "cpu", "--n",
+              "1024", *flag)
+    assert out.returncode == 0, out.stderr
+    want = "mesh=1x1 producer=False" if flag[0] == "--mesh" \
+        else "mesh=2x4 producer=True"
+    assert f"placement=distributed {want}" in out.stdout
+    names = [line.split()[0] for line in out.stdout.splitlines()
+             if line.startswith(("richardson", "cg "))]
+    assert names == ["richardson", "richardson", "cg"]
+    bad = run("meliso_solver_torch.py", "--torch-device", "cpu", "--mesh",
+              "2x4")
+    assert bad.returncode != 0 and "R,C" in bad.stderr

@@ -1,5 +1,5 @@
 """The port stands alone: no file under src/repro_torch/, and none of
-chip_smoke.py, encode_probe.py, mvm_probe.py and the port's examples, imports
+chip_smoke.py, the three probes and the port's examples, imports
 ``jax`` or anything of ``repro``; and the package imports in a fresh
 interpreter without them being importable."""
 import ast
@@ -13,9 +13,11 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py",
+     REPO / "lp_probe.py",
      REPO / "examples" / "quickstart_torch.py",
      REPO / "examples" / "meliso_solver_torch.py",
-     REPO / "examples" / "meliso_portfolio_torch.py"]
+     REPO / "examples" / "meliso_portfolio_torch.py",
+     REPO / "examples" / "meliso_lp_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -47,6 +49,16 @@ def test_port_file_list_covers_the_main_path_slice():
                 "src/repro_torch/solvers/krylov.py",
                 "examples/quickstart_torch.py",
                 "examples/meliso_solver_torch.py"):
+        assert rel in names, rel
+
+
+def test_port_file_list_covers_the_distributed_slice():
+    """The import scan reaches the mesh, the distributed placement and the
+    LP example."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/launch/mesh.py",
+                "src/repro_torch/core/distributed.py",
+                "examples/meliso_lp_torch.py"):
         assert rel in names, rel
 
 
@@ -105,6 +117,9 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.solvers import (admm, admm_pipeline,\n"
         "    random_box_qp, SolverSpec, registry)\n"
         "assert len(registry()) == 12\n"
+        "from repro_torch.launch import make_mesh, psum\n"
+        "from repro_torch.core import (distributed_corrected_mvm,\n"
+        "    make_distributed_streamed_mvm, shard_matrix)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
