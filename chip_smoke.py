@@ -130,12 +130,31 @@ non-zero, printing no result, without them or without the repository's
      peak over the start under 12 capacity blocks; [10d] phase 6's
      Mixtral w1 group over 2 x 4: members 0 and 7 equal to their solo
      distributed programs bit for bit, one ec_group_matmul launch per
-     rank's window, DAC off cuda = reference (Neumann, Thomas).
+     rank's window, DAC off cuda = reference (Neumann, Thomas);
+ 11. device-lifetime reliability (``reliability_phase``): [11a] phase 4's
+     kind of matrix (R + R^T + 2I, 32,768^2, epiram, 8 x 8 MCAs of 512^2)
+     on the ``reference`` backend, the one that ages: CG fresh, aged to
+     about 64 latched cells (the count printed), CG aged (digital residual
+     over 1e-2 and the fresh one), one batch-8 probe call, a refresh of the
+     tiles whose score rose over 3 x their fresh score (fewer than all 64,
+     less energy than a full reprogram), CG again within 2 x the fresh
+     residual; a solve leaves the ledger as it was, a host A @ x adds one;
+     the aging transform's ms a call and its peak over the image; [11b]
+     ``ft_cg`` over a 2 x 4 mesh (``backend="cuda"``) with one bitline of
+     every MCA (column 5 of every 512-wide strip of the rank windows)
+     latched at the G_on rail at segment 1 and repaired:
+     converged at tol 1e-4 after at least one restore, one ec_matmul a
+     block an MVM; [11c] ``ft_pdhg`` on phase 5's LP with a NaN written into
+     block (0, 0) before segment 0 and repaired: converged after exactly one
+     restore; [11d] phase 6's Mixtral w1 group aged (50 MVMs, 3,600 s) on
+     the reference backend: members 0 and 7 equal to solo handles aged from
+     their own keys bit for bit, one group_mvm adds one to every member's
+     ledger, ``backend="cuda"`` refuses the aged group.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9 and 10's main calls, and
-read just after: every kernel must have run on the path that uses it.  The last three
-lines of output are the kernel table as JSON, the card's name and power
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10 and 11's main
+calls, and read just after: every kernel must have run on the path that
+uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
 """
@@ -146,6 +165,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -205,6 +225,14 @@ GEN_INSTRUCTIONS_PER_DRAW = 100
 # (the index keys a cell) and MVMs a cell.
 TABLE1_DEVICES = ("epiram", "ag-si", "alox-hfo2", "taox-hfox")
 TABLE1_REPS = 100
+LIFETIME_MAXITER = 30   # [11a]: CG's cap (kappa ~ 1.016: a few iterations)
+AGED_TOL = 1e-2         # [11a]: the aged solve's digital residual must exceed
+                        # it (benchmarks/reliability.py's AGED_TOL)
+REFRESH_RATIO = 3.0     # [11a]: refresh a tile whose probe score rose over
+                        # this multiple of its fresh score
+FT_PDHG_TOL = 5e-3      # [11c]: ft_pdhg's digital KKT tolerance (the
+                        # digital KKT of the analog iterate stalls near 1e-3:
+                        # 1.07e-3 on a 4,096 x 8,192 LP, 512^2 MCAs, CPU)
 
 
 class SmokeFailure(RuntimeError):
@@ -1482,6 +1510,297 @@ def distributed_phase(dev, gen, dub, *, n=N, d_ff=D_FF, d_model=D_MODEL,
     return counts
 
 
+def reliability_phase(dev, gen, *, n=N, geom=None, target_faults=64,
+                      lp_shape=LP_SHAPE, d_ff=D_FF, d_model=D_MODEL,
+                      experts=N_EXPERTS, mesh_shape=(2, 4)):
+    """Phase 11, device-lifetime reliability.  [11a] the [4] matrix (``R +
+    R^T + 2I``, n^2, epiram, ``backend="reference"``, the only backend that
+    ages): a fresh solve, the age that latches about ``target_faults``
+    cells, the aged solve (digital residual above AGED_TOL and the fresh
+    one), one probe call, a refresh of the tiles whose score rose over
+    REFRESH_RATIO x their fresh score, and the solve again (within 2 x the
+    fresh residual at less write energy than a full reprogram); a solve
+    leaves the ledger as it was, a host ``A @ x`` adds one; the aging
+    transform's time and peak.  [11b] ``ft_cg`` over an R x C mesh
+    (``backend="cuda"``) with column 5 of every MCA-wide strip of the rank
+    windows latched at the G_on rail at segment 1 and repaired: converged
+    at tol 1e-4 after at least one restore.  [11c] ``ft_pdhg`` on the [5]
+    LP with a NaN written into block (0, 0) before segment 0 and repaired:
+    converged after one restore.  [11d] the [6] Mixtral w1 group aged
+    (``advanced(50)``, ``elapsed(3600)``): members 0 and the last equal to
+    solo handles aged from their own keys bit for bit, one ``group_mvm``
+    adds one to every member, ``backend="cuda"`` refuses it.  Sizes are
+    arguments, so the phase can be rehearsed small on the CPU
+    (``reliability_probe.py rehearse``).  Returns the launches of the
+    phase's main runs."""
+    from repro_torch import kernels, solvers
+    from repro_torch.core import CrossbarConfig, MCAGeometry, get_device
+    from repro_torch.core.prng import fold_in
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.engine import AnalogEngine, AnalogMatrixGroup
+    from repro_torch.launch import make_mesh
+    from repro_torch.reliability import (RefreshPolicy, aged_blocks,
+                                         attach_age, ft_cg, ft_pdhg,
+                                         probe_tile_scores, refresh_tiles)
+    from repro_torch.reliability.aging import attach_group_age
+    gib = 2.0 ** 30
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+
+    def launches(fn):
+        """``fn()``'s result, its launches (tallied) and its wall ms."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        used = {k_: v_ for k_, v_ in kernels.LAUNCHES.items() if v_}
+        for k_, v_ in used.items():
+            counts[k_] += v_
+        return out, used, ms
+
+    # 11a. One image's lifetime.
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=geom or MCAGeometry())
+    cap = cfg.geom.capacity[0]
+    a = torch.randn(n, n, generator=gen, device=dev).div_(n)
+    a = a + a.T
+    a.diagonal().add_(2.0)
+    x_true = torch.randn(n, generator=gen, device=dev)
+    b = torch.matmul(a, x_true)
+    engine = AnalogEngine(cfg, backend="reference", device=dev)
+    A = engine.program(a, 2)
+    mb = A._grid()[0]
+
+    def solve(salt):
+        res, used, ms = launches(lambda: solvers.cg(
+            A, b, tol=1e-6, maxiter=LIFETIME_MAXITER, key=fold_in(0, salt),
+            backend="cuda"))
+        return res, rel_l2(torch.matmul(a, res.x), b), used, ms
+
+    res, fresh, used, ms = solve(11)
+    print(f"[11a] {n}^2 SPD image (epiram, {mb} x {mb} blocks of {cap}^2, "
+          f"reference backend): fresh CG {res.iterations} iterations in "
+          f"{ms:.1f} ms, digital residual {fresh:.3e}; launches {used}",
+          flush=True)
+    check(used.get("cg_update", 0) == res.iterations,
+          "[11a] not one cg_update an iteration")
+    floor = probe_tile_scores(A, key=fold_in(0, 10)).scores
+    mvms = max(1, round(target_faults
+                        / (cfg.device.fault_rate * n * n)))
+    led = attach_age(A).advanced(mvms)
+    A.age = led
+    at = A.at_blocks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    aged = aged_blocks(at, led, cfg.device)
+    peak = torch.cuda.max_memory_allocated() - base
+    moved = aged != at
+    latched = int(moved.sum())
+    diag = sum(int(moved[i, i].sum()) for i in range(mb))
+    rail = int((moved & (aged != 0)).sum())
+    del aged, moved
+    age_ms = call_time_ms(lambda: aged_blocks(at, led, cfg.device), 5)
+    split = kernel_split(lambda: aged_blocks(at, led, cfg.device), iters=2)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:4]
+    block_bytes = cap * cap * 4
+    print(f"[11a] aged to {mvms} MVMs (p = {mvms * cfg.device.fault_rate:.2e}"
+          f" a cell): {latched} cells changed by a latch ({rail} at the G_on "
+          f"rail, {diag} in diagonal blocks); the aging transform "
+          f"{age_ms:.2f} ms a call, peak over the image "
+          f"{peak / gib:.3f} GiB = {peak / A.at_pad.nbytes:.3f} images + "
+          f"{(peak - A.at_pad.nbytes) / block_bytes:.2f} capacity blocks; "
+          f"device busy {busy:.2f} ms of it, the largest: "
+          + ", ".join(f"{short_kernel_name(k_)} {v_:.3f}" for k_, v_ in top),
+          flush=True)
+    check(latched > 0 and diag > 0, "[11a] the age latched no cell of a "
+                                    "diagonal block")
+    check(peak <= A.at_pad.nbytes + 4 * block_bytes,
+          "[11a] the aging transform's peak is over the aged copy + 4 blocks")
+    x1 = x_true[:, None]
+    fresh_call = call_time_ms(
+        lambda: engine.mvm(dataclasses.replace(A, age=None), x1), 3)
+    before = A.age.mvms.clone()
+    res, aged_rel, used, ms = solve(12)
+    check(torch.equal(A.age.mvms, before), "[11a] a solve moved the ledger")
+    print(f"[11a] aged CG {res.iterations} iterations in {ms:.1f} ms "
+          f"({ms / (res.iterations + 1):.1f} ms an MVM against a fresh "
+          f"reference call's {fresh_call:.1f}), digital residual "
+          f"{aged_rel:.3e} (fresh {fresh:.3e}); the ledger unchanged "
+          f"({float(before[0, 0]):.0f} MVMs)", flush=True)
+    check(aged_rel > max(AGED_TOL, fresh),
+          f"[11a] the aged solve's residual {aged_rel:.3e} is not above "
+          f"{AGED_TOL} and the fresh {fresh:.3e}")
+    report, _, probe_ms = launches(lambda: probe_tile_scores(
+        A, key=fold_in(0, 13)))
+    ratio = report.scores / floor
+    print(f"[11a] probe: one batch-{report.n_probes} call in {probe_ms:.1f} "
+          f"ms; fresh scores {float(floor.min()):.2e}.."
+          f"{float(floor.max()):.2e}, aged "
+          f"{float(report.scores.min()):.2e}..{report.worst:.2e}; the "
+          f"ledger at {float(A.age.mvms[0, 0]):.0f} MVMs", flush=True)
+    check(float(A.age.mvms.min()) == mvms + report.n_probes,
+          "[11a] the probe did not age the image by nb read disturbs")
+    rr = refresh_tiles(A, ratio, RefreshPolicy(threshold=REFRESH_RATIO),
+                       key=fold_in(0, 14))
+    res, restored, used, ms = solve(15)
+    print(f"[11a] refreshed {len(rr.tiles)} of {mb * mb} tiles (score over "
+          f"{REFRESH_RATIO:g} x fresh; {sum(i == j for i, j in rr.tiles)} "
+          f"diagonal): write {rr.write_stats.energy_j:.4e} J against a full "
+          f"reprogram's {rr.full_rewrite_stats.energy_j:.4e} J "
+          f"({rr.energy_saving:.1%} saved); CG again {res.iterations} "
+          f"iterations, digital residual {restored:.3e} (fresh {fresh:.3e})",
+          flush=True)
+    check(0 < len(rr.tiles) < mb * mb
+          and rr.write_stats.energy_j < rr.full_rewrite_stats.energy_j,
+          "[11a] the refresh was not selective")
+    check(restored <= 2.0 * fresh,
+          f"[11a] the refreshed solve {restored:.3e} is over 2 x fresh")
+    n0 = float(A.age.mvms.max())
+    A @ x_true
+    check(float(A.age.mvms.max()) == n0 + 1,
+          "[11a] a host A @ x did not add one read disturb")
+    del A, engine, at, floor, ratio, report, rr, res
+    torch.cuda.empty_cache()
+
+    # 11b. ft_cg over the mesh: a column latched mid-solve.
+    R, C = mesh_shape
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    deng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                        mesh=mesh)
+    D = deng.program(a, 3)
+    del a
+    torch.cuda.empty_cache()
+    state = {}
+    cell = cfg.geom.cell_cols
+
+    def inject(seg, h):
+        # One bitline of every MCA stuck at the G_on rail of its cells'
+        # differential pairs (sign(w) * G_on, as aging latches a cell):
+        # column 5 of every MCA-wide strip of every rank window.  A single
+        # stuck column spoils a refinement step by about |r_5| / rms(r) of
+        # its residual, so it trips the detector only part of the time.
+        if seg == 1 and not state:
+            state["saved"] = [w[:, 5::cell].clone() for w in h.at_ranks]
+            g_on = max(float(w.abs().max()) for w in h.at_ranks)
+            for w in h.at_ranks:
+                cols = w[:, 5::cell]
+                cols.copy_(torch.sign(cols).mul_(g_on))
+
+    def repair(event, h):
+        for w, s in zip(h.at_ranks, state.pop("saved")):
+            w[:, 5::cell] = s
+        state["event"] = event
+
+    res, used, ms = launches(lambda: ft_cg(
+        D, b, tol=1e-4, maxiter=400, segment=25, key=9, segment_hook=inject,
+        on_fault=repair, backend="cuda",
+        manager=CheckpointManager(f"{ckpt.name}/ft_cg")))
+    err = rel_l2(res.x, x_true)
+    ev = state.get("event")
+    faults = ", ".join(f"{e.kind} at segment {e.segment}, digital "
+                       f"residual {e.residual:.3e}, restored to step "
+                       f"{e.restored_step}" for e in res.fault_events)
+    print(f"[11b] ft_cg over {R} x {C} ({n}^2, rank windows {n // R} x "
+          f"{n // C}; column 5 of every {cell}-wide MCA strip latched at "
+          f"segment 1): {res.iterations} accepted segments, "
+          f"{len(res.fault_events)} fault(s) ({faults}; repaired: "
+          f"{ev is not None}), "
+          f"{res.restores} restore(s), {res.ledger.mvms} MVMs, converged="
+          f"{res.converged}, digital residual {res.final_residual:.3e}, x err "
+          f"{err:.3e}, {ms / 1e3:.2f} s; launches {used}", flush=True)
+    blocks = (n // cap) ** 2
+    check(res.converged and res.restores >= 1,
+          "[11b] ft_cg did not converge after a restore")
+    check(used.get("ec_matmul", 0) == blocks * res.ledger.mvms
+          and used.get("cg_update", 0) > 0,
+          "[11b] not one ec_matmul a block an MVM, or no cg_update")
+    del D, deng, b, x_true, res
+    torch.cuda.empty_cache()
+
+    # 11c. ft_pdhg on the [5] LP: a NaN written into block (0, 0).
+    m_lp, n_lp = lp_shape
+    la, lb, lc, x_star, _ = solvers.random_feasible_lp(SEED, m_lp, n_lp,
+                                                       device=dev)
+    L = AnalogEngine(cfg, backend="cuda", device=dev).program(la, 4)
+    del la
+    torch.cuda.empty_cache()
+    lp_state = {}
+
+    def nan_hook(seg, h):
+        if not lp_state:
+            lp_state["saved"] = float(h.at_pad[0, 0])
+            h.at_pad[0, 0] = float("nan")
+
+    def nan_repair(event, h):
+        h.at_pad[0, 0] = lp_state["saved"]
+
+    res, used, ms = launches(lambda: ft_pdhg(
+        L, lb, lc, tol=FT_PDHG_TOL, maxiter=PDHG_MAXITER, segment=200,
+        key=12, segment_hook=nan_hook, on_fault=nan_repair,
+        manager=CheckpointManager(f"{ckpt.name}/ft_pdhg")))
+    obj = float(torch.dot(lc, x_star))
+    gap = abs(float(torch.dot(lc, res.x)) - obj) / (1 + abs(obj))
+    led = res.ledger
+    print(f"[11c] ft_pdhg {m_lp}x{n_lp}: {res.iterations} accepted segments, "
+          f"faults {[(e.kind, e.segment) for e in res.fault_events]}, "
+          f"{res.restores} restore(s), {led.mvms} + {led.mvms_t} transposed "
+          f"MVMs (+ {led.mvms_single} + {led.mvms_single_t} power steps), "
+          f"converged={res.converged}, digital KKT {res.final_residual:.3e}, "
+          f"objective gap {gap:.3e}, {ms / 1e3:.2f} s; launches {used}",
+          flush=True)
+    check(res.converged and res.restores == 1,
+          "[11c] ft_pdhg did not converge after exactly one restore")
+    check(used.get("ec_rmatmul", 0) == led.mvms_t + led.mvms_single_t,
+          "[11c] not every A.T @ y through ec_rmatmul")
+    del L, lb, lc, x_star, res
+    torch.cuda.empty_cache()
+
+    # 11d. The [6] Mixtral w1 group, aged.
+    gcfg = CrossbarConfig(device=get_device("taox-hfox"),
+                          geom=geom or MCAGeometry())
+    geng = AnalogEngine(gcfg, backend="reference", device=dev)
+    w1 = torch.randn(experts, d_ff, d_model, generator=gen,
+                     device=dev).div_(d_model ** 0.5)
+    G = geng.program_group(w1, 5)
+    del w1
+    torch.cuda.empty_cache()
+    G.ages = attach_group_age(G).advanced(50).elapsed(3600.0)
+    gx = torch.randn(d_model, 1, generator=gen, device=dev)
+    out, _, g_ms = launches(lambda: geng.group_mvm(G, gx))
+    moved = float(G.ages.mvms.min()) == float(G.ages.mvms.max()) == 51.0
+    same = []
+    for g_ in (0, experts - 1):
+        solo = G.member(g_)
+        solo.age = attach_age(solo).advanced(50).elapsed(3600.0)
+        same.append(torch.equal(out[g_], geng.mvm(solo, gx)))
+    try:
+        AnalogMatrixGroup(
+            engine=AnalogEngine(gcfg, backend="cuda", device=dev),
+            size=G.size, shape=G.shape, base_key=G.base_key,
+            member_keys=G.member_keys, write_stats=G.write_stats,
+            at_pad=G.at_pad, da_pad=G.da_pad, ages=G.ages) @ gx
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"[11d] {experts} experts' w1 ({d_ff} x {d_model}, taox-hfox) aged "
+          f"50 MVMs + 3,600 s: a group call {g_ms:.1f} ms; members 0 and "
+          f"{experts - 1} = solo aged handles bit for bit: {same}; every "
+          f"ledger at 51 after the call: {moved}; backend='cuda' refuses: "
+          f"{refused}", flush=True)
+    check(all(same) and moved and refused,
+          "[11d] the aged group differs from its solo members, its ledgers "
+          "did not advance together, or cuda took it")
+    del G, out, gx
+    torch.cuda.empty_cache()
+    ckpt.cleanup()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2521,6 +2840,12 @@ def main() -> int:
     print(f"[10] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    # ------------------------------- 11. device-lifetime reliability (main)
+    t0 = time.perf_counter()
+    rel_counts = reliability_phase(dev, gen)
+    print(f"[11] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
@@ -2553,7 +2878,7 @@ def main() -> int:
                         registry_counts, lstsq_counts, norm_counts,
                         admm_counts, lp_counts, group_counts,
                         chain_counts, encode_counts, table1_counts,
-                        streamed_counts, dist_counts))
+                        streamed_counts, dist_counts, rel_counts))
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({

@@ -71,6 +71,16 @@ system is cut at the segment edges) and returns one global tensor, the
 segments joined on the mesh's lead device: the solvers run on the handle
 unchanged.  See :mod:`repro_torch.core.distributed`.
 
+Aging: a local handle (or group) with a
+:class:`~repro_torch.reliability.aging.AgeLedger` attached
+(``reliability.attach_age`` / ``attach_group_age``) executes, on the
+``"reference"`` backend only, its aged image -- drift and stuck-at latches
+applied to ``A_tilde`` per call, ``dA`` as programmed -- and a host call
+adds one read disturb to the ledger (``advance_age=False``, which the
+solvers' operators pass, holds it, as a jitted solve does in the JAX
+engine).  The ``"cuda"`` backend, streamed and distributed handles,
+``group()`` of aged members and ``chain_mvm`` of an aged group refuse.
+
 Keys are integers (:mod:`repro_torch.core.prng`); call ``c`` of a handle, in
 either direction (one counter), draws its DAC noise from ``key`` for
 ``c == 0`` and ``fold_in(key, c)`` after, as the JAX engine does.
@@ -179,6 +189,9 @@ class AnalogMatrix:
     # The programming draws a non-resident handle re-encodes with, when
     # they were given (tests inject the reference's).
     program_eta: Optional[torch.Tensor] = None
+    # An attached repro_torch.reliability.AgeLedger (attach_age): every
+    # execute then reads the aged image (reference backend only).
+    age: Optional[object] = None
 
     @property
     def m(self) -> int:
@@ -399,6 +412,8 @@ class AnalogMatrixGroup:
     mesh_sharded: bool = False
     at_ranks: Optional[List[torch.Tensor]] = None   # per rank (size, Mw, Nw)
     da_ranks: Optional[List[torch.Tensor]] = None
+    # The members' stacked AgeLedger (reliability.attach_group_age).
+    ages: Optional[object] = None
 
     @property
     def m(self) -> int:
@@ -563,6 +578,22 @@ def _cuda_group_corrected(at: torch.Tensor, da: torch.Tensor,
     p = crossbar._denoise_output(run(at, da, panel(x_pad), panel(x_t)), cfg,
                                  use_kernel=True)
     return p.view(rows, g, batch).transpose(0, 1).contiguous()
+
+
+def _aged_execute(at_blocks: torch.Tensor, da_blocks: torch.Tensor,
+                  xb: torch.Tensor, key: int, cfg: CrossbarConfig, age, *,
+                  m: int, n: int, eta: Optional[torch.Tensor],
+                  transpose: bool) -> torch.Tensor:
+    """The ``reference`` backend's execute of an aged image: the physical
+    image drifted and latched by :func:`~repro_torch.reliability.aging.
+    aged_blocks`, against the program-time ``dA`` (so the corrected product
+    degrades with age), through the block loop of
+    :func:`crossbar.programmed_block_mvm` / ``_rmvm`` (the same draws)."""
+    from .reliability.aging import aged_blocks
+    aged = aged_blocks(at_blocks, age, cfg.device)
+    return crossbar._sweep(lambda i, j: (aged[i, j], da_blocks[i, j]),
+                           aged.shape, xb, key, cfg, m=m, n=n, tier2=True,
+                           use_kernel=False, eta=eta, transpose=transpose)
 
 
 class AnalogEngine:
@@ -835,8 +866,8 @@ class AnalogEngine:
         """Stack programmed handles into a group, no re-programming: member
         ``g`` is ``handles[g]``'s image bit for bit, with its base key.
         Members share this engine's configuration and one (m, n) shape, and
-        are all local or all streamed.  (The port's handles are unaged, so
-        there is no aged member to refuse.)"""
+        are all local or all streamed, and none has an age attached (group
+        first, then age the group with ``attach_group_age``)."""
         handles = list(handles)
         if not handles:
             raise ValueError("group() needs at least one handle")
@@ -858,6 +889,10 @@ class AnalogEngine:
                 raise ValueError("group() stacks local handles; distributed "
                                  "images group at program time via "
                                  "program_group")
+            if h.age is not None:
+                raise ValueError(
+                    f"group() member {g} has an AgeLedger attached; group "
+                    "first, then age the group via attach_group_age")
             if h.image_device != self.device:
                 raise ValueError(f"group() member {g} lives on "
                                  f"{h.image_device}, this engine on "
@@ -884,7 +919,8 @@ class AnalogEngine:
 
     # --------------------------------------------------------------- execution
     def mvm(self, A: AnalogMatrix, x, *, key: Optional[int] = None,
-            eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+            eta: Optional[torch.Tensor] = None,
+            advance_age: bool = True) -> torch.Tensor:
         """Corrected MVM against the programmed image: zero re-encode work.
 
         ``x``: (n,) or (n, batch).  ``key`` overrides the call's DAC key;
@@ -892,9 +928,12 @@ class AnalogEngine:
         replaces the DAC draws: ``(Np, batch)`` for a local handle on
         ``backend="cuda"``, ``(R, C, mb_loc, nb_loc, cap_n, batch)`` for a
         dense distributed one, ``(mb, nb, cap_n, batch)`` otherwise (the
-        ``"reference"`` backend, and a producer handle on either).
+        ``"reference"`` backend, and a producer handle on either).  A
+        handle with an age attached executes its aged image and, with
+        ``advance_age``, adds one read disturb to its ledger (a solver's
+        operator passes False: a solve holds the age fixed).
         """
-        y, _ = self._execute(A, x, key, eta)
+        y, _ = self._execute(A, x, key, eta, advance_age=advance_age)
         return y
 
     def mvm_with_stats(self, A: AnalogMatrix, x, *, key: Optional[int] = None,
@@ -904,7 +943,8 @@ class AnalogEngine:
         return self._execute(A, x, key, eta, with_stats=True)
 
     def rmvm(self, A: AnalogMatrix, y, *, key: Optional[int] = None,
-             eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+             eta: Optional[torch.Tensor] = None,
+             advance_age: bool = True) -> torch.Tensor:
         """Corrected transposed MVM ``A.T @ y`` against the same image.
 
         ``y``: (m,) or (m, batch); returns (n,) / (n, batch).  Only ``y``
@@ -912,8 +952,10 @@ class AnalogEngine:
         replaces the DAC draws: ``(Mp, batch)`` for a local handle on
         ``backend="cuda"``, ``(R, C, mb_loc, nb_loc, cap_m, batch)`` for a
         dense distributed one, ``(mb, nb, cap_m, batch)`` otherwise.
+        ``advance_age`` as for :meth:`mvm`.
         """
-        z, _ = self._execute(A, y, key, eta, transpose=True)
+        z, _ = self._execute(A, y, key, eta, transpose=True,
+                             advance_age=advance_age)
         return z
 
     def rmvm_with_stats(self, A: AnalogMatrix, y, *, key: Optional[int] = None,
@@ -936,7 +978,8 @@ class AnalogEngine:
         return crossbar.input_write_cost(m, n, self.cfg, batch=batch,
                                          transpose=transpose)
 
-    def _execute(self, A, x, key, eta, *, with_stats=False, transpose=False):
+    def _execute(self, A, x, key, eta, *, with_stats=False, transpose=False,
+                 advance_age=True):
         if isinstance(A, AnalogMatrixGroup):
             raise TypeError("mvm takes an AnalogMatrix; execute a group with "
                             "group_mvm / group_rmvm / chain_mvm")
@@ -948,7 +991,8 @@ class AnalogEngine:
                                  "incompatible engine configuration")
             return A.parent.engine._execute(A.parent, x, key, eta,
                                             with_stats=with_stats,
-                                            transpose=not transpose)
+                                            transpose=not transpose,
+                                            advance_age=advance_age)
         if A.engine is not self and A.engine.cfg != self.cfg:
             raise ValueError("AnalogMatrix was programmed by an incompatible "
                              "engine configuration")
@@ -967,11 +1011,22 @@ class AnalogEngine:
         if key is None:
             # One call counter for both directions, as the JAX handle has.
             key = A.base_key if A.calls == 0 else fold_in(A.base_key, A.calls)
+        if A.age is not None and (A.streamed or A.mesh_sharded
+                                  or self.backend != "reference"):
+            raise ValueError(
+                "an AgeLedger is attached but this execution path cannot "
+                "apply it: aged execution needs execution='local', "
+                "backend='reference' and resident at/da blocks")
         A.calls += 1
         if A.mesh_sharded:
             return self._execute_distributed(A, xb, key, eta, squeeze,
                                              with_stats, transpose)
-        if A.streamed:
+        if A.age is not None:
+            p = _aged_execute(A.at_blocks, A.da_blocks, xb, key, self.cfg,
+                              A.age, m=m, n=n, eta=eta, transpose=transpose)
+            if advance_age:
+                A.age = A.age.advanced(1)
+        elif A.streamed:
             run = crossbar.streamed_block_rmvm if transpose \
                 else crossbar.streamed_block_mvm
             p = self._streamed_tier2(
@@ -1112,6 +1167,9 @@ class AnalogEngine:
         if G.streamed or G.mesh_sharded:
             raise ValueError("chain_mvm needs a LOCAL resident group (dense "
                              "members with stacked at/da images)")
+        if G.ages is not None:
+            raise ValueError("chain_mvm does not apply attached ages; "
+                             "detach them or use group_mvm")
         if G.m != G.n:
             raise ValueError(
                 f"chain_mvm threads each member's output into the next, so "
@@ -1189,6 +1247,11 @@ class AnalogEngine:
     def _group_execute(self, G, x, key, eta, *, with_stats=False,
                        transpose=False):
         self._check_group(G)
+        if G.ages is not None and (G.streamed or G.mesh_sharded
+                                   or self.backend != "reference"):
+            raise ValueError(
+                "aged group execution needs execution='local', "
+                "backend='reference' and resident da blocks")
         xb, squeeze = self._group_input(G, self._as_tensor(x), transpose)
         keys = self._group_keys(G, key)
         G.calls += 1
@@ -1201,7 +1264,14 @@ class AnalogEngine:
                 G.at_ranks, G.da_ranks, xb, keys, shape=(m, n), eta=eta)
             return (p[:, :, 0] if squeeze else p), \
                 (stats if with_stats else None)
-        if G.streamed:
+        if G.ages is not None:
+            at_b, da_b = G.at_blocks, G.da_blocks
+            p = torch.stack([_aged_execute(
+                at_b[g], da_b[g], xb[g], keys[g], self.cfg, G.ages.member(g),
+                m=m, n=n, eta=None if eta is None else eta[g],
+                transpose=transpose) for g in range(G.size)])
+            G.ages = G.ages.advanced(1)
+        elif G.streamed:
             run = crossbar.grouped_streamed_block_rmvm if transpose \
                 else crossbar.grouped_streamed_block_mvm
             p = self._streamed_tier2(

@@ -28,7 +28,7 @@ from ..core.write_verify import WriteStats
 from ..engine import AnalogMatrix, TransposedAnalogMatrix
 
 __all__ = ["LinearOperator", "SolveLedger", "SolveResult", "as_operator",
-           "col_norms", "init_history", "use_cuda", "pack_result",
+           "col_norms", "diverged", "init_history", "use_cuda", "pack_result",
            "as_panel"]
 
 _TINY = 1e-30
@@ -46,6 +46,17 @@ def use_cuda(backend: Optional[str]) -> bool:
 def col_norms(v: torch.Tensor) -> torch.Tensor:
     """Column-wise l2 norms of an (n, batch) panel -> (batch,)."""
     return torch.sqrt(torch.sum(v * v, dim=0))
+
+
+def diverged(rel: torch.Tensor, best: torch.Tensor,
+             divergence: Optional[float], tol: float) -> bool:
+    """The in-loop fault detector of CG and PDHG (``divergence=``): a NaN
+    column, or one above ``divergence`` x its best residual (floored at
+    ``tol``); always False when ``divergence`` is None."""
+    if divergence is None:
+        return False
+    return bool(torch.any(torch.isnan(rel)) or torch.any(
+        rel > divergence * torch.clamp(best, min=tol)))
 
 
 def init_history(maxiter: int, batch: int, device) -> torch.Tensor:
@@ -115,10 +126,13 @@ def as_operator(A, *, shape: Optional[Tuple[int, int]] = None,
     if isinstance(A, TransposedAnalogMatrix):
         return as_operator(A.parent).T
     if isinstance(A, AnalogMatrix):
+        # A solve holds an attached AgeLedger fixed (advance_age=False), as
+        # the reference's jitted solve does; wrappers bill its MVMs after.
         eng = A.engine
         return LinearOperator(
-            matvec=lambda v, k: eng.mvm(A, v, key=k),
-            rmatvec=lambda u, k: eng.rmvm(A, u, key=k), shape=A.shape,
+            matvec=lambda v, k: eng.mvm(A, v, key=k, advance_age=False),
+            rmatvec=lambda u, k: eng.rmvm(A, u, key=k, advance_age=False),
+            shape=A.shape,
             write_stats=A.write_stats,
             input_stats=lambda batch: eng.input_write_stats(A, batch),
             input_stats_t=lambda batch: eng.input_write_stats(
@@ -211,6 +225,8 @@ class SolveResult:
     ``iterations`` are NaN.  ``initial_residual`` is the worst-column
     relative residual at entry (NaN for solvers without an init MVM).
     ``dual`` is PDHG's dual variable y (None for the other solvers);
+    ``restores`` the checkpoint rollbacks of a fault-tolerant wrapper
+    (``ft_cg`` / ``ft_pdhg``, which also set ``fault_events``);
     ``eigenvalues`` the eigen solvers' estimates, ascending, matching the
     columns of ``x`` (None for the other solvers).
     """
@@ -223,6 +239,9 @@ class SolveResult:
     solver: str
     initial_residual: float = float("nan")
     dual: Optional[torch.Tensor] = None
+    # Checkpoint restores a fault-tolerant wrapper made to finish this solve
+    # (repro_torch.reliability.ft_solve); 0 for a clean run.
+    restores: int = 0
     eigenvalues: Optional[torch.Tensor] = None
 
     @property

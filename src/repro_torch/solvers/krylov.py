@@ -24,7 +24,7 @@ import torch
 from .. import kernels
 from ..core.prng import fold_in
 from .base import (LinearOperator, SolveResult, as_operator, as_panel,
-                   col_norms, init_history, pack_result, use_cuda)
+                   col_norms, diverged, init_history, pack_result, use_cuda)
 
 __all__ = ["cg", "bicgstab", "gmres"]
 
@@ -59,20 +59,25 @@ def _prep(op: LinearOperator, b, x0):
 # --------------------------------------------------------------------------- #
 
 def _cg_core(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, key: int,
-             *, tol: float, maxiter: int, kernel: bool):
+             *, tol: float, maxiter: int, kernel: bool,
+             divergence: Optional[float] = None):
     """CG on (n, batch) panels; returns ``(x, history, iterations, MVMs,
-    relative residual at entry)`` as the reference's ``_cg_core`` does."""
+    relative residual at entry)`` as the reference's ``_cg_core`` does.
+    With a ``divergence`` factor the loop also tracks each column's best
+    residual and exits on a NaN or on ``rel > divergence * max(best, tol)``;
+    None runs the plain loop."""
     batch = b.shape[1]
     bn = torch.clamp(col_norms(b), min=_TINY)
     x = x0
     r = b - op.matvec(x, fold_in(key, 0))
     rho = _cdot(r, r)
     rel0 = torch.sqrt(rho) / bn
-    rel = rel0
+    rel = best = rel0
     p = r
     hist = init_history(maxiter, batch, op.device)
     k, mvms = 0, 1
-    while k < maxiter and _unconverged(rel, tol):
+    while k < maxiter and _unconverged(rel, tol) \
+            and not diverged(rel, best, divergence, tol):
         ap = op.matvec(p, fold_in(key, 1 + k))
         alpha = rho / torch.clamp(_cdot(p, ap), min=_TINY)
         if kernel:
@@ -86,6 +91,8 @@ def _cg_core(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, key: int,
         rel = torch.sqrt(rho_new) / bn
         hist[k] = rel
         rho = rho_new
+        if divergence is not None:
+            best = torch.minimum(best, rel)
         k += 1
         mvms += 1
     return x, hist, k, mvms, rel0
@@ -93,13 +100,18 @@ def _cg_core(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, key: int,
 
 def cg(A, b, *, tol: float = 1e-6, maxiter: int = 200, x0=None,
        key: int = 0, backend: Optional[str] = None,
-       device=None) -> SolveResult:
-    """Conjugate gradients for SPD ``A``; one MVM per iteration."""
+       divergence: Optional[float] = None, device=None) -> SolveResult:
+    """Conjugate gradients for SPD ``A``; one MVM per iteration.
+
+    ``divergence`` (a factor) exits early on a NaN or on a residual above
+    ``divergence`` x the best seen (the reliability wrappers' in-loop fault
+    detector); the default None keeps the plain loop."""
     op = as_operator(A, device=device)
     kernel = use_cuda(backend)
     b, x, squeeze = _prep(op, b, x0)
     x, hist, k, mvms, rel0 = _cg_core(op, b, x, key, tol=tol,
-                                      maxiter=maxiter, kernel=kernel)
+                                      maxiter=maxiter, kernel=kernel,
+                                      divergence=divergence)
     return pack_result(op, "cg", x, hist, k, mvms, tol, squeeze, rel0=rel0)
 
 

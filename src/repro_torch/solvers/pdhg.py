@@ -17,10 +17,9 @@ iteration, from the host; ``A x_{k+1}`` comes from the over-relaxation
 identity ``(A x_bar + A x_k) / 2``, so the test costs no MVM.  Key folds
 follow the reference: ``900_003`` (power iteration; ``0`` its start vector,
 ``1 + 2i`` / ``2 + 2i`` its MVMs), ``0`` / ``1`` (init ``A'y0`` / ``A x0``)
-and ``2 + 2k`` / ``3 + 2k`` (iteration ``k``).
-
-The reference's ``divergence=`` fault tracking, used by its reliability
-wrappers, is not ported here (ROADMAP Queue A10).
+and ``2 + 2k`` / ``3 + 2k`` (iteration ``k``).  ``divergence=`` adds the
+reliability wrappers' in-loop fault detector on the KKT residual (see
+:func:`~repro_torch.solvers.base.diverged`).
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ import torch
 
 from ..core.prng import fold_in, generator
 from .base import (LinearOperator, SolveResult, as_operator, as_panel,
-                   col_norms, init_history, pack_result)
+                   col_norms, diverged, init_history, pack_result)
 
 __all__ = ["pdhg", "random_feasible_lp"]
 
@@ -98,7 +97,8 @@ def _kkt(b, c, bn, cn, x, y, ax, aty) -> torch.Tensor:
 def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
          eta: float = 0.9, tau: Optional[float] = None,
          sigma: Optional[float] = None, x0=None, y0=None, key: int = 0,
-         power_iters: int = 16, device=None) -> SolveResult:
+         power_iters: int = 16, divergence: Optional[float] = None,
+         device=None) -> SolveResult:
     """Solve ``min c'x s.t. A x = b, x >= 0`` by PDHG, matvec/rmatvec-only.
 
     ``A`` is anything :func:`~repro_torch.solvers.as_operator` accepts that
@@ -108,7 +108,9 @@ def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
     batch-1 setup MVMs).  Returns a :class:`SolveResult` whose ``x`` is the
     primal solution, ``dual`` the dual ``y`` and ``residuals`` the
     per-iteration KKT residual; the ledger bills the two directions
-    separately.
+    separately.  ``divergence`` (a factor) exits early on a NaN or on a KKT
+    residual above ``divergence`` x the best seen; None runs the plain
+    loop.
     """
     op = as_operator(A, device=device)
     if op.rmatvec is None:
@@ -141,10 +143,11 @@ def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
 
     aty = op.rmatvec(y, fold_in(key, 0))
     ax = op.matvec(x, fold_in(key, 1))
-    rel0 = rel = _kkt(bb, cc, bn, cn, x, y, ax, aty)
+    rel0 = rel = best = _kkt(bb, cc, bn, cn, x, y, ax, aty)
     hist = init_history(maxiter, bb.shape[1], op.device)
     k = 0
-    while k < maxiter and not bool(torch.all(rel <= tol)):
+    while k < maxiter and not bool(torch.all(rel <= tol)) \
+            and not diverged(rel, best, divergence, tol):
         x_new = torch.clamp(x - tau_v * (cc + aty), min=0.0)
         ax_bar = op.matvec(2.0 * x_new - x, fold_in(key, 2 + 2 * k))
         y = y + sigma_v * (ax_bar - bb)
@@ -155,6 +158,8 @@ def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
         x = x_new
         rel = _kkt(bb, cc, bn, cn, x, y, ax, aty)
         hist[k] = rel
+        if divergence is not None:
+            best = torch.minimum(best, rel)
         k += 1
     # Forward MVMs: init + one per iteration; the transposed count mirrors
     # it, and the power iteration adds pi_mvms of each at batch 1.

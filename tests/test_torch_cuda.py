@@ -1309,3 +1309,114 @@ def test_distributed_group_on_card_is_one_launch_a_rank(cuda_device):
     assert all(torch.equal(p, q) for p, q in zip(
         G.member(1).at_ranks + G.member(1).da_ranks,
         solo.at_ranks + solo.da_ranks))
+
+
+def test_aged_execute_on_card_matches_cpu_path(cuda_device):
+    """The aging transform on the card: with the same injected fault draws
+    the card's aged image equals the CPU's of the same stored image bit for
+    bit, and an aged ``A @ x`` /
+    ``A.T @ y`` (reference backend) the CPU path's to 1e-5; on the card's
+    own draws the faulted set replays and only grows with age; the ``cuda``
+    backend refuses an aged handle."""
+    from repro_torch.reliability import aged_blocks, attach_age
+    cfg = CrossbarConfig(device=get_device("ag-si"),
+                         geom=MCAGeometry(2, 2, 64, 64))
+    a = randn((256, 256), 110, "cpu")
+    peta = randn((2, 2, 128, 128), 111, "cpu")
+    draws = torch.rand((2, 2, 2, 128, 128),
+                       generator=torch.Generator().manual_seed(112))
+    n1 = int(40.0 / (cfg.device.fault_rate * 256 * 256))
+    C, G = [AnalogEngine(cfg, device=d).program(a.to(d), 1, eta=peta.to(d))
+            for d in ("cpu", cuda_device)]
+    for h in (C, G):
+        h.age = attach_age(h, draws=draws).advanced(n1).elapsed(600.0)
+    aged = aged_blocks(G.at_blocks, G.age, cfg.device)
+    assert torch.equal(aged.cpu(), aged_blocks(G.at_blocks.cpu(), C.age,
+                                               cfg.device))
+    u = randn((256, 3), 113, "cpu")
+    dac = randn((2, 2, 128, 3), 114, "cpu")
+    for run in ("mvm", "rmvm"):
+        got = getattr(G.engine, run)(G, u.to(cuda_device),
+                                     eta=dac.to(cuda_device))
+        want = getattr(C.engine, run)(C, u, eta=dac)
+        assert rel(got.cpu(), want) <= 1e-5
+    assert float(G.age.mvms.min()) == n1 + 2
+    G.age = attach_age(G).advanced(n1)
+
+    def stuck(age):
+        return (aged_blocks(G.at_blocks, age, cfg.device)
+                - G.at_blocks).abs() > 1e-9
+
+    s1 = stuck(G.age)
+    assert torch.equal(s1, stuck(G.age)) and int(s1.sum()) >= 10
+    s2 = stuck(G.age.advanced(4 * n1))
+    assert bool(s2[s1].all()) and int(s2.sum()) > int(s1.sum())
+    K = AnalogEngine(cfg, backend="cuda", device=cuda_device).program(
+        a.to(cuda_device), 1)
+    attach_age(K)
+    with pytest.raises(ValueError, match="backend='reference'"):
+        K @ u[:, 0].to(cuda_device)
+
+
+def test_ft_solves_on_card_recover(cuda_device, tmp_path):
+    """``ft_cg`` over a 2 x 4 mesh on the card (``cuda`` backend, the
+    ``cg_update`` kernel inside): a column latched at the G_on rail in
+    segment 1 is caught, rolled back and repaired, and the solve converges;
+    ``ft_pdhg`` survives a NaN written into block (0, 0) with one
+    restore."""
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.reliability import ft_cg, ft_pdhg
+    n = 256
+    r = randn((n, n), 115, cuda_device) / n
+    a = r + r.T + 2.0 * torch.eye(n, device=cuda_device)
+    b = a @ randn((n,), 116, cuda_device)
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 16, 16), k_iters=5)
+    A = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                     mesh=_mesh((2, 4), cuda_device)).program(a, 3)
+    saved = {}
+
+    def inject(seg, h):
+        if seg == 1 and not saved:
+            saved["w"] = [w.clone() for w in h.at_ranks]
+            rail = max(float(w.abs().max()) for w in h.at_ranks)
+            for w, (_, c) in zip(h.at_ranks, h.engine._rank_grid.rc):
+                if c == 0:
+                    w[:, 5] = rail
+
+    def repair(event, h):
+        for w, s in zip(h.at_ranks, saved["w"]):
+            w.copy_(s)
+
+    kernels.reset_launches()
+    res = ft_cg(A, b, tol=1e-4, segment=25, key=9, segment_hook=inject,
+                on_fault=repair, backend="cuda",
+                manager=CheckpointManager(str(tmp_path / "cg")))
+    torch.cuda.synchronize()
+    assert res.converged and res.restores >= 1
+    assert res.fault_events[0].segment == 1
+    assert kernels.LAUNCHES["cg_update"] > 0
+    # 64 capacity blocks of 32^2, one ec_matmul each, every inner MVM.
+    assert kernels.LAUNCHES["ec_matmul"] == 64 * res.ledger.mvms
+    lp_a, lp_b, lp_c, _, _ = solvers.random_feasible_lp(0, 48, 64,
+                                                        device=cuda_device)
+    lcfg = CrossbarConfig(device=get_device("epiram"),
+                          geom=MCAGeometry(2, 2, 16, 16), k_iters=5)
+    L = AnalogEngine(lcfg, backend="cuda", device=cuda_device).program(
+        lp_a, 4)
+    state = {}
+
+    def nan_hook(seg, h):
+        if not state:
+            state["at"] = h.at_pad
+            h.at_pad = h.at_pad.clone()
+            h.at_pad[0, 0] = float("nan")
+
+    def nan_repair(event, h):
+        h.at_pad = state["at"]
+
+    res = ft_pdhg(L, lp_b, lp_c, tol=5e-2, maxiter=3000, segment=200,
+                  key=12, segment_hook=nan_hook, on_fault=nan_repair,
+                  manager=CheckpointManager(str(tmp_path / "lp")))
+    assert res.converged and res.restores == 1
+    assert [e.segment for e in res.fault_events] == [0]

@@ -1,7 +1,8 @@
 """The port's example scripts run end to end on the CPU when asked to
 (``--torch-device cpu``): the quickstart's Table-1 grid, the solver
-example's asserts on a 2 x 4 mesh, the LP example's and the portfolio
-example's asserts; without a GPU and without that flag each exits non-zero
+example's asserts on a 2 x 4 mesh, the LP example's, the portfolio
+example's and the reliability example's asserts; without a GPU and
+without that flag each exits non-zero
 with a message instead of falling back to the CPU."""
 import os
 import subprocess
@@ -13,7 +14,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py",
-            "meliso_portfolio_torch.py", "meliso_lp_torch.py"]
+            "meliso_portfolio_torch.py", "meliso_lp_torch.py",
+            "meliso_reliability_torch.py"]
 
 
 def run(script, *args):
@@ -87,6 +89,24 @@ def test_meliso_portfolio_on_cpu():
     assert float(rows["admm analog"][-1]) > 0.0
     assert "torch_device=cpu" in out.stdout
     assert "of the digital oracle" in out.stdout
+
+
+def test_meliso_reliability_on_cpu():
+    """The reliability example's own asserts: the aged solve worse than the
+    fresh one, a selective refresh (fewer tiles than the image has, less
+    energy than a full reprogram) restoring it within 2x, and the
+    fault-tolerant CG over the default 2 x 4 mesh converging after at least
+    one restore."""
+    out = run("meliso_reliability_torch.py", "--torch-device", "cpu")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    refreshed = [ln for ln in lines if ln.startswith("[lifetime] refreshed")]
+    assert len(refreshed) == 1
+    done, total = refreshed[0].split()[2].split("/")
+    assert 0 < int(done) < int(total) == 16
+    assert any("column 5 latched" in ln for ln in lines)
+    assert any(ln.startswith("[fault]    detected") for ln in lines)
+    assert "converged=True" in lines[-1] and "2 x 4 mesh" in lines[-1]
 
 
 @pytest.mark.parametrize("script", EXAMPLES)

@@ -1,5 +1,5 @@
 """The port stands alone: no file under src/repro_torch/, and none of
-chip_smoke.py, the three probes and the port's examples, imports
+chip_smoke.py, the four probes and the port's examples, imports
 ``jax`` or anything of ``repro``; and the package imports in a fresh
 interpreter without them being importable."""
 import ast
@@ -13,11 +13,12 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py",
-     REPO / "lp_probe.py",
+     REPO / "lp_probe.py", REPO / "reliability_probe.py",
      REPO / "examples" / "quickstart_torch.py",
      REPO / "examples" / "meliso_solver_torch.py",
      REPO / "examples" / "meliso_portfolio_torch.py",
-     REPO / "examples" / "meliso_lp_torch.py"]
+     REPO / "examples" / "meliso_lp_torch.py",
+     REPO / "examples" / "meliso_reliability_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -72,6 +73,22 @@ def test_port_file_list_covers_the_solver_registry_slice():
         assert rel in names, rel
 
 
+def test_port_file_list_covers_the_reliability_slice():
+    """The import scan reaches the reliability package, the checkpoint
+    manager and the reliability example."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/reliability/__init__.py",
+                "src/repro_torch/reliability/aging.py",
+                "src/repro_torch/reliability/probes.py",
+                "src/repro_torch/reliability/refresh.py",
+                "src/repro_torch/reliability/ft_solve.py",
+                "src/repro_torch/distributed/__init__.py",
+                "src/repro_torch/distributed/fault_tolerance.py",
+                "examples/meliso_reliability_torch.py",
+                "reliability_probe.py"):
+        assert rel in names, rel
+
+
 def test_port_file_list_covers_the_group_slice():
     """The import scan reaches the grouped-execution and encode modules."""
     names = {str(p.relative_to(REPO)) for p in PORT_FILES}
@@ -120,6 +137,9 @@ def test_package_imports_with_jax_and_repro_blocked():
         "from repro_torch.launch import make_mesh, psum\n"
         "from repro_torch.core import (distributed_corrected_mvm,\n"
         "    make_distributed_streamed_mvm, shard_matrix)\n"
+        "from repro_torch.reliability import (AgeLedger, ft_cg, ft_pdhg,\n"
+        "    probe_tile_scores, refresh_tiles)\n"
+        "from repro_torch.distributed import CheckpointManager, Watchdog\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
