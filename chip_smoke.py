@@ -149,10 +149,25 @@ non-zero, printing no result, without them or without the repository's
      restore; [11d] phase 6's Mixtral w1 group aged (50 MVMs, 3,600 s) on
      the reference backend: members 0 and 7 equal to solo handles aged from
      their own keys bit for bit, one group_mvm adds one to every member's
-     ledger, ``backend="cuda"`` refuses the aged group.
+     ledger, ``backend="cuda"`` refuses the aged group;
+ 12. the transformer LM served on the programmed image (``lm_phase``):
+     qwen3-1.7b at its published widths and depth (28 layers, d_model
+     2,048, 16 / 8 heads of 128, d_ff 6,144, vocab 151,936 padded to
+     152,064) in float32, random weights from seed 0, every linear kernel
+     programmed once (taox-hfox, k = 5, EC, 512^2 cells, dw float32); the
+     analog dense (one ec_rmatmul launch per 8 rows + one stencil_denoise)
+     against its plain twin at the five kernel shapes and 1 / 4 / 8 / 64
+     rows, bit for bit run to run; 4 prompts of 64 tokens -> 32 new and 1
+     prompt of 1,024 tokens -> 16 new (its prefill through the chunked
+     flash attention) served with the DAC on, every launch counted (197
+     ec_rmatmul + 197 stencil_denoise a decode step at 4 rows); DAC off,
+     prefill's logits within 1e-4 of the digital model; DAC on, two
+     generate calls under one key equal; program, prefill and decode times,
+     device busy against wall over the decode loop, and a decode step's EC
+     kernels against their byte bound.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10 and 11's main
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11 and 12's main
 calls, and read just after: every kernel must have run on the path that
 uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
@@ -233,6 +248,21 @@ REFRESH_RATIO = 3.0     # [11a]: refresh a tile whose probe score rose over
 FT_PDHG_TOL = 5e-3      # [11c]: ft_pdhg's digital KKT tolerance (the
                         # digital KKT of the analog iterate stalls near 1e-3:
                         # 1.07e-3 on a 4,096 x 8,192 LP, 512^2 MCAs, CPU)
+LM_ARCH = "qwen3-1.7b"  # [12]: its published widths and depth, float32
+LM_SEED = 0
+LM_DAC_KEY = 9          # [12]: the runtime key of the served model's DAC
+LM_CHECK_KEY = 11       # [12]: the key of the dense-vs-plain checks
+# [12]: (batch, prompt tokens, new tokens, max_len): four 64-token prompts,
+# and one 1,024-token prompt whose prefill (t * s over the flash
+# threshold) takes the chunked attention.
+LM_REQUESTS = ((4, 64, 32, 128), (1, 1024, 16, 1040))
+LM_RT_KW = {"q_chunk": 512, "kv_chunk": 520}   # chunks that divide 1,024
+                                                # and 1,040
+LM_DENSE_ROWS = (1, 4, 8, 64)  # [12]: decode panels checked, beside each
+                               # request's prefill panel (b * t rows)
+LM_DIGITAL_TOL = 1e-4   # [12]: DAC-off logits against the digital model
+LM_TIMING_REPS = 3
+LM_PROFILE_STEPS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -1801,12 +1831,307 @@ def reliability_phase(dev, gen, *, n=N, geom=None, target_faults=64,
     return counts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False); nothing was run", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
+             dense_rows=LM_DENSE_ROWS, rt_kw=None,
+             profile_steps=LM_PROFILE_STEPS):
+    """[12] the transformer LM served on the programmed image: by default
+    qwen3-1.7b at its published widths and depth in float32, weights from
+    seed LM_SEED, taox-hfox (k = 5, EC, 512^2 cells, lam 1e-12, dw in
+    float32).  Holds the analog ``dense`` to its plain twin at every kernel
+    shape of the model, serves ``requests`` ((batch, prompt tokens, new
+    tokens, max_len) each) with the DAC on and counts the EC launches,
+    holds the DAC-off model to the digital one and the DAC-on model to
+    itself run to run, and times program, prefill and decode.  Returns the
+    main path's launch counts.  A function with size arguments, so that it
+    can be rehearsed on the CPU at a reduced config."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.core.prng import fold_in
+    from repro_torch.models import flash
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    from repro_torch.models.rram import (analog_image_bytes,
+                                         programmed_kernel_shapes,
+                                         strip_rram)
+    from repro_torch.train.serve import Server
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    rt_kw = dict(LM_RT_KW if rt_kw is None else rt_kw)
+    gib = 2.0 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PM.materialize(tf.init_specs(cfg), LM_SEED,
+                            dtype=PM.torch_dtype(cfg.param_dtype), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = Server(tf, cfg, params, rt=Runtime(rram=rram, key=LM_DAC_KEY,
+                                             **rt_kw),
+                 max_len=requests[0][3])
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    prog = srv.params
+    shapes = programmed_kernel_shapes(prog)
+    per_pass = sum(l_ for l_, _, _ in shapes)     # analog denses a pass
+    elems = sum(l_ * m * n for l_, m, n in shapes)
+    w_bytes = sum(int(t.nbytes) for _, t in PM.tree_paths(params))
+    img_bytes = analog_image_bytes(prog)
+    peak = torch.cuda.max_memory_allocated()
+    ws = srv.write_stats
+    print(f"[12] {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_pad}), "
+          f"{cfg.param_dtype}; materialized in {init_s:.2f} s; programmed "
+          f"{per_pass} kernels in {len(shapes)} tensors ({elems / 1e9:.4f} G "
+          f"elements, "
+          f"{srv.program_dispatches} shape buckets; {rram.device}, k = "
+          f"{rram.k_iters}, {rram.cell_rows}^2 cells, dw {rram.dw_dtype}) in "
+          f"{program_s:.2f} s; w {w_bytes / 1e9:.3f} GB + w_tilde + dw "
+          f"{img_bytes / 1e9:.3f} GB; held at the start "
+          f"{start_bytes / gib:.2f} GiB, peak {peak / gib:.2f} GiB "
+          f"({(peak - start_bytes) / gib:.2f} over the start); write "
+          f"{ws.energy_j:.4e} J, {ws.latency_s:.4e} s", flush=True)
+    check(rram.dw_dtype != "float32" or img_bytes == 8 * elems,
+          "[12] the analog image's bytes do not match its kernels")
+
+    # The analog dense's kernel path against its plain twin at every
+    # kernel shape of the model (layer 0's views and the head), on the
+    # decode panels and each request's prefill panel.  At the served lam
+    # (1e-12) the stencil term is far below fp32's resolution, so the
+    # check runs at STENCIL_CHECK_LAM, where it shows.
+    layer = PM.tree_map(lambda t: t[0], prog["layers"])
+    views = {"wq": layer["attn"]["wq"], "wk": layer["attn"]["wk"],
+             "wu": layer["mlp"]["wu"], "wd": layer["mlp"]["wd"]}
+    if not cfg.tie_embeddings:
+        views["lm_head"] = prog["lm_head"]
+    rows_checked = sorted(set(dense_rows) | {b * t for b, t, _, _ in requests})
+    rram_chk = dataclasses.replace(rram, lam=STENCIL_CHECK_LAM)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    dense_err = {}
+    for name, p in views.items():
+        d_in, d_out = p["w"].shape
+        for rows in rows_checked:
+            x = torch.randn(rows, d_in, generator=gen, device=dev)
+            got = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            again = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            want = dense_plain(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            err = rel_l2(got, want)
+            dense_err[(name, rows)] = err
+            check(err <= EC_TOL and torch.equal(got, again),
+                  f"[12] dense {d_in}->{d_out} at {rows} rows: rel-L2 "
+                  f"{err:.2e} against its plain twin, or not the same run "
+                  f"to run")
+    print(f"[12] analog dense (ec_rmatmul + stencil_denoise, lam "
+          f"{STENCIL_CHECK_LAM:g}) vs its plain twin, rel-L2 at "
+          + " / ".join(map(str, rows_checked)) + " rows: "
+          + "; ".join(f"{name} {tuple(p['w'].shape)} " + " / ".join(
+              f"{dense_err[(name, r)]:.1e}" for r in rows_checked)
+              for name, p in views.items()) + "; each bit for bit run to run",
+          flush=True)
+    # The EC kernel on the decode panel, timed at an MLP kernel's and the
+    # head's shape beside its plain version and cuBLAS.
+    b0 = requests[0][0]
+    for name in ("wu", "lm_head"):
+        if name not in views:
+            continue
+        at, da = views[name]["w_tilde"], views[name]["dw"]
+        m, k = at.shape
+        y = torch.randn(m, b0, generator=gen, device=dev)
+        y_t = torch.randn(m, b0, generator=gen, device=dev)
+        row = compare(f"ec_rmatmul {m}x{k} batch {b0}",
+                      lambda: kernels.ec_rmatmul(at, da, y, y_t),
+                      lambda: kernels.ec_rmatmul_plain(at, da, y, y_t),
+                      EC_TOL, nbytes=4 * (2 * m * k + 2 * m * b0 + k * b0),
+                      flops=4 * m * k * b0, iters=20,
+                      library_fn=lambda: torch.matmul(at.T, y)
+                      + torch.matmul(da.T, y_t))
+        row.update(shape=f"{m}x{k} (LM {name})", batch=b0)
+        more_shapes.append({"ec_rmatmul": row})
+
+    # The main path: every request served with the DAC on, counted.
+    batches = []
+    for i, (b, t, _, _) in enumerate(requests):
+        toks = torch.randint(0, cfg.vocab, (b, t), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(LM_SEED + 10 + i))
+        batches.append({"tokens": toks})
+    servers = [srv] + [Server(tf, cfg, prog, rt=srv.rt, max_len=ml)
+                       for _, _, _, ml in requests[1:]]
+    check(all(s.program_dispatches == 0 for s in servers[1:]),
+          "[12] a server programmed an already programmed image again")
+    flash_calls = [0]
+    real_flash = flash.flash_attention
+
+    def counting_flash(*a, **kw):
+        flash_calls[0] += 1
+        return real_flash(*a, **kw)
+
+    flash.flash_attention = counting_flash
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = [s.generate(bt, n) for s, bt, (_, _, n, _) in
+                zip(servers, batches, requests)]
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        flash.flash_attention = real_flash
+    for out, (b, t, n, _) in zip(outs, requests):
+        check(tuple(out.shape) == (b, n) and bool((out >= 0).all())
+              and bool((out < cfg.vocab).all()),
+              f"[12] generate returned {tuple(out.shape)} or a token out of "
+              f"the vocabulary")
+    n_head = per_pass - cfg.n_layers * (per_pass // cfg.n_layers)
+    # Prefill: the layers on b x t rows, the head on the last token's b;
+    # each decode step: every dense on b rows.  One launch per 8 rows.
+    want_ec = sum((per_pass - n_head) * -(-b * t // 8) + n_head * -(-b // 8)
+                  + (n - 1) * per_pass * -(-b // 8)
+                  for b, t, n, _ in requests)
+    want_flash = sum(cfg.n_layers for _, t, _, ml in requests
+                     if t > 1 and t * ml > srv.rt.flash_threshold)
+    print(f"[12] served " + ", ".join(
+        f"{b} x {t} prompt -> {n} new (max_len {ml})"
+        for b, t, n, ml in requests)
+        + f" with the DAC on: launches {counts} (ec_rmatmul expected "
+        f"{want_ec}); flash attention {flash_calls[0]} calls (expected "
+        f"{want_flash}: prefill where t x s > {srv.rt.flash_threshold})",
+        flush=True)
+    check(counts["ec_rmatmul"] == want_ec
+          and counts["stencil_denoise"] == per_pass * sum(
+              n for _, _, n, _ in requests),
+          "[12] not one ec_rmatmul launch per 8 rows and one "
+          "stencil_denoise launch per analog dense")
+    check(all(v == 0 for k_, v in counts.items()
+              if k_ not in ("ec_rmatmul", "stencil_denoise")),
+          f"[12] another kernel ran on the LM path: {counts}")
+    check(flash_calls[0] == want_flash, "[12] flash attention did not run "
+          "exactly where t x s is over the threshold")
+
+    # One prefill and one decode step of the first request, counted.
+    b, t, n, ml = requests[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tok, caches = srv.prefill(batches[0])
+    torch.cuda.synchronize()
+    pre_counts = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    srv.decode_tokens(tok, caches, 1)
+    torch.cuda.synchronize()
+    step_counts = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+    want_pre = (per_pass - n_head) * -(-b * t // 8) + n_head * -(-b // 8)
+    print(f"[12] prefill of {b} x {t}: launches {pre_counts} (ec_rmatmul "
+          f"expected {want_pre}); one decode step at {b} rows: {step_counts}"
+          f" ({cfg.n_layers} layers x {(per_pass - n_head) // cfg.n_layers}"
+          f" + {n_head} head)", flush=True)
+    check(pre_counts.get("ec_rmatmul") == want_pre,
+          "[12] prefill's ec_rmatmul launches")
+    check(b > 8 or step_counts == {"ec_rmatmul": per_pass,
+                                   "stencil_denoise": per_pass},
+          f"[12] a decode step's launches are not {per_pass} + {per_pass}")
+
+    # Times: host clock around synchronised work (every path warmed above).
+    for s, bt, (b, t, n, ml) in zip(servers, batches, requests):
+        pre = []
+        for _ in range(LM_TIMING_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, caches = s.prefill(bt)
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        s.decode_tokens(tok, caches, n - 1)
+        torch.cuda.synchronize()
+        dec = (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
+        print(f"[12] request {b} x {t} -> {n}: prefill "
+              f"{statistics.median(pre):.2f} ms (min {min(pre):.2f}), "
+              f"decode {dec:.3f} ms a token = {b * 1e3 / dec:.1f} tokens/s "
+              f"at batch {b}", flush=True)
+
+    # Where a decode step's time goes: device busy (torch.profiler over
+    # ``steps`` steps) against the unprofiled wall, and the EC kernels'
+    # device ms against their byte bound (each image read once, the panels
+    # read and written once).
+    b, t, n, ml = requests[0]
+    steps = max(1, min(profile_steps, (ml - t) // 3))   # 3 runs, one cache
+    tok, caches = srv.prefill(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.decode_tokens(tok, caches, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    split = {k_: v / steps for k_, v in kernel_split(
+        lambda: srv.decode_tokens(tok, caches, steps), iters=1).items()}
+    ec_keys = ("ec_rmatmul", "partial_sum_kernel", "stencil_kernel")
+    ec_ms = sum(v for k_, v in split.items()
+                if any(e in k_ for e in ec_keys))
+    busy = sum(split.values())
+    ec_bytes = sum(l_ * (8 * m * n_ + 8 * m * b + 12 * n_ * b)
+                   for l_, m, n_ in shapes)
+    ec_bound = ec_bytes / HBM_BYTES_PER_S * 1e3
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[12] a decode step at {b} rows ({steps} steps): wall "
+          f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.3f}); EC kernels {ec_ms:.3f} ms against "
+          f"their byte bound {ec_bound:.3f} ms ({ec_bytes / 1e9:.3f} GB a "
+          f"step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"{ec_bound / ec_ms if ec_ms else 0.0:.3f} of the bound); the "
+          f"largest: " + ", ".join(f"{short_kernel_name(k_)} {v:.3f}"
+                                   for k_, v in top), flush=True)
+
+    # DAC off: the analog model against the digital one on the same w.
+    digital = strip_rram(prog)
+    dig_rt = Runtime(**rt_kw)
+    off_rt = Runtime(rram=dataclasses.replace(rram, encode_inputs=False),
+                     **rt_kw)
+    b, t, n, ml = requests[0]
+    # The vocabulary's live columns (the padded ones are -1e30 on both).
+    live = slice(0, cfg.vocab)
+    logits_dig, _ = tf.prefill(digital, batches[0], cfg, dig_rt, ml)
+    logits_off, _ = tf.prefill(prog, batches[0], cfg, off_rt, ml)
+    off_err = rel_l2(logits_off[:, -1, live], logits_dig[:, -1, live])
+    tok_dig = Server(tf, cfg, digital, rt=dig_rt, max_len=ml) \
+        .generate(batches[0], n)
+    tok_off = Server(tf, cfg, prog, rt=off_rt, max_len=ml) \
+        .generate(batches[0], n)
+    agree_off = float((tok_off == tok_dig).float().mean())
+    # DAC on: the same key twice, and the deviation from the digital model.
+    again = srv.generate(batches[0], n)
+    logits_on, _ = tf.prefill(prog, batches[0], cfg,
+                              srv._rt_for(fold_in(LM_DAC_KEY, 0)), ml)
+    on_err = rel_l2(logits_on[:, -1, live], logits_dig[:, -1, live])
+    agree_on = float((outs[0] == tok_dig).float().mean())
+    print(f"[12] DAC off: prefill's last-token logits vs the digital model "
+          f"rel-L2 {off_err:.3e} (tf32 off), greedy tokens agree on "
+          f"{agree_off:.4f} of {tok_dig.numel()}; DAC on: logits vs digital "
+          f"{on_err:.3e}, tokens agree on {agree_on:.4f}; two generate "
+          f"calls under one key equal bit for bit: "
+          f"{torch.equal(again, outs[0])}", flush=True)
+    check(bool(torch.isfinite(logits_on).all())
+          and bool(torch.isfinite(logits_off).all())
+          and bool((logits_on[..., cfg.vocab:] == -1e30).all()),
+          "[12] non-finite logits, or a padded column not masked")
+    check(off_err <= LM_DIGITAL_TOL, f"[12] DAC-off logits {off_err:.3e} "
+          f"from the digital model's")
+    check(torch.equal(again, outs[0]), "[12] two generate calls under one "
+          "key differ")
+    return counts
+
+
+def kernel_phases():
+    """Phases [1]-[11]; returns what the report needs: the nvidia-smi line,
+    the kernel rows of [2], the other shapes' rows and the main paths'
+    launch counts."""
     import numpy as np
     from repro_torch import kernels, solvers
     from repro_torch.core import (CrossbarConfig, MCAGeometry,
@@ -1832,7 +2157,6 @@ def main() -> int:
           f"{torch.__version__} cuda {torch.version.cuda} | tf32 off",
           flush=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    t_start = time.perf_counter()
 
     # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
@@ -2846,6 +3170,28 @@ def main() -> int:
     print(f"[11] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
+    return smi, rows, more_shapes, [
+        served, served_t, solve_counts, eigen_counts, registry_counts,
+        lstsq_counts, norm_counts, admm_counts, lp_counts, group_counts,
+        chain_counts, encode_counts, table1_counts, streamed_counts,
+        dist_counts, rel_counts]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    t_start = time.perf_counter()
+    smi, rows, more_shapes, all_counts = kernel_phases()
+
+    # --------------- 12. the transformer LM served on the programmed image
+    t0 = time.perf_counter()
+    all_counts.append(lm_phase(torch.device("cuda"), more_shapes))
+    print(f"[12] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
     # ---------------------------------------------------------- report
     sources = {
         "ec_matmul": ("src/repro_torch/kernels/csrc/rram_mvm.cu",
@@ -2873,12 +3219,7 @@ def main() -> int:
     }
     table = []
     for name, (source, replaces) in sources.items():
-        launches = sum(counts[name] for counts in
-                       (served, served_t, solve_counts, eigen_counts,
-                        registry_counts, lstsq_counts, norm_counts,
-                        admm_counts, lp_counts, group_counts,
-                        chain_counts, encode_counts, table1_counts,
-                        streamed_counts, dist_counts, rel_counts))
+        launches = sum(counts[name] for counts in all_counts)
         check(launches > 0, f"{name} was not launched on the main path")
         row = rows[1][name]
         table.append({

@@ -767,10 +767,12 @@ class AnalogEngine:
             block_fn=block_fn, mesh_sharded=True, at_ranks=at,
             resident=resident, program_eta=None if resident else eta)
 
-    def encode_dense(self, a, key: int) -> torch.Tensor:
-        """The programmed image of ``a`` as a dense unpadded tensor."""
+    def encode_dense(self, a, key: int, *,
+                     eta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The programmed image of ``a`` as a dense unpadded tensor; ``eta``
+        ((mb, nb, cap_m, cap_n)) replaces the programming draws."""
         a = self._as_tensor(a)
-        at, _ = crossbar.program_blocks(a, key, self.cfg)
+        at, _ = crossbar.program_blocks(a, key, self.cfg, eta=eta)
         return crossbar.assemble_blocks(at, *a.shape)
 
     # ------------------------------------------------------ group programming

@@ -11,7 +11,11 @@ neither ``jax`` nor ``repro``:
     execute the same image;
   * ``group_from_numpy(np.asarray(G.at_blocks), np.asarray(G.da_blocks),
     G.shape, cfg, device)`` does the same for a JAX
-    ``AnalogMatrixGroup``'s (g, mb, nb, cap_m, cap_n) stacks.
+    ``AnalogMatrixGroup``'s (g, mb, nb, cap_m, cap_n) stacks;
+  * ``params_from_numpy(jax.tree.map(np.asarray, params), device)`` turns a
+    model's parameter tree (programmed ``w_tilde`` / ``dw`` siblings
+    included) into the port's, so both packages compute with the same
+    weights.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from .core.virtualization import MCAGeometry
 from .core.prng import fold_in
 from .engine import AnalogEngine, AnalogMatrix, AnalogMatrixGroup, _scale_stats
 
-__all__ = ["config_from_dict", "image_from_numpy", "group_from_numpy"]
+__all__ = ["config_from_dict", "image_from_numpy", "group_from_numpy",
+           "params_from_numpy"]
 
 
 def config_from_dict(d: Mapping[str, Any]) -> CrossbarConfig:
@@ -110,3 +115,20 @@ def group_from_numpy(at_blocks_g: np.ndarray, da_blocks_g: np.ndarray,
         member_keys=keys,
         write_stats=_scale_stats(crossbar.matrix_write_cost(m, n, cfg), size),
         at_pad=at, da_pad=da)
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16
+        return torch.from_numpy(np.array(a.view(np.int16))).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def params_from_numpy(tree: Any, device) -> Any:
+    """The port's parameter tree from the reference's as nested dicts of
+    numpy arrays: the same keys (sorted, as ``jax.tree.unflatten`` leaves
+    them), each array a tensor of its dtype on ``device``."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(tree[k], device) for k in sorted(tree)}
+    return _tensor_from_numpy(tree, device)

@@ -98,3 +98,60 @@ def group_whole_dac_eta(key, np_, batch, size, transpose=False):
     """(size, Np, batch): each member's whole-vector DAC draw."""
     return np.stack([whole_dac_eta(k, np_, batch, transpose)
                      for k in member_keys(key, size)])
+
+
+# Model programming and serving: the reference's draws in its key schedule.
+
+def rram_program_etas(params, cfg, key):
+    """One entry per programmed kernel of ``repro.models.rram.program_rram``'s
+    walk over ``params`` (dict insertion order): kernel ``c`` keyed
+    ``fold_in(key, c)``; a stacked (L, m, n) kernel's layers keyed
+    ``split(fold_in(key, c), L)``.  ``cfg`` is the reference's
+    ``crossbar_cfg``; the port's ``program_rram(eta=...)`` takes the list."""
+    cap_m, cap_n = cfg.geom.capacity
+    out = []
+
+    def visit(tree):
+        for name, sub in tree.items():
+            if name == "w" and getattr(sub, "ndim", 0) in (2, 3):
+                k = jax.random.fold_in(key, len(out) + 1)
+                m, n = sub.shape[-2:]
+                mb, nb = -(-m // cap_m), -(-n // cap_n)
+                if sub.ndim == 2:
+                    out.append(program_eta(k, cfg, mb, nb))
+                else:
+                    out.append(np.stack([
+                        program_eta(kl, cfg, mb, nb)
+                        for kl in jax.random.split(k, sub.shape[0])]))
+            elif isinstance(sub, dict):
+                visit(sub)
+
+    visit(params)
+    return out
+
+
+class DacDraws:
+    """The ``Runtime.draw`` hook that hands the port the reference's DAC
+    draws.  The port keys a dense call ``fold_in(fold_in(base, step),
+    salt)`` (or ``fold_in(base, salt)`` with ``steps=None``) with its own
+    integer ``fold_in``; the reference ``jax.random.fold_in`` of its base
+    key the same way.  ``calls`` records the (step, salt) of every draw;
+    an unknown key raises."""
+
+    def __init__(self, jax_base, port_base, steps=None, salts=16):
+        from repro_torch.core.prng import fold_in
+        self.keys = {}
+        self.calls = []
+        for step in (steps if steps is not None else [None]):
+            jb = jax_base if step is None else jax.random.fold_in(jax_base,
+                                                                  step)
+            pb = port_base if step is None else fold_in(port_base, step)
+            for salt in range(1, salts + 1):
+                self.keys[fold_in(pb, salt)] = (
+                    (step, salt), jax.random.fold_in(jb, salt))
+
+    def __call__(self, key, shape):
+        where, jkey = self.keys[key]
+        self.calls.append(where)
+        return torch.from_numpy(np.asarray(
+            jax.random.normal(jkey, shape, dtype=np.float32)))

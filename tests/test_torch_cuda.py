@@ -1420,3 +1420,74 @@ def test_ft_solves_on_card_recover(cuda_device, tmp_path):
                   manager=CheckpointManager(str(tmp_path / "lp")))
     assert res.converged and res.restores == 1
     assert [e.segment for e in res.fault_events] == [0]
+
+
+# ------------------------------------------------------- the LM on the card
+QWEN3_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048),
+                (2048, 152064)]
+
+
+@pytest.mark.parametrize("shape", QWEN3_SHAPES,
+                         ids=[f"{m}x{n}" for m, n in QWEN3_SHAPES])
+def test_lm_dense_on_card_matches_plain_twin(cuda_device, shape):
+    """The analog ``dense`` at qwen3-1.7b's five kernel shapes, 1 / 4 / 8 /
+    64 rows (decode) and 256 / 1,024 (prefill's panels):
+    ``ceil(rows / 8)`` ``ec_rmatmul`` launches and one
+    ``stencil_denoise`` launch a call, within 1e-5 of its plain twin on the
+    same x_tilde, bit for bit run to run (lam 1e-2, so tier-2 shows)."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    d_in, d_out = shape
+    w = randn((d_in, d_out), 120, cuda_device) / d_in ** 0.5
+    wt = w * (1 + 0.05 * randn((d_in, d_out), 121, cuda_device))
+    p = {"w": w, "w_tilde": wt, "dw": (w - wt).to(torch.bfloat16)}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2)
+    for rows in (1, 4, 8, 64, 256, 1024):
+        x = randn((rows, d_in), 122 + rows, cuda_device)
+        kernels.reset_launches()
+        got = dense(p, x, Runtime(rram=rcfg, key=3))
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {
+            **{k: 0 for k in kernels.LAUNCHES},
+            "ec_rmatmul": -(-rows // 8), "stencil_denoise": 1}
+        assert rel(got, dense_plain(p, x, Runtime(rram=rcfg, key=3))) <= 1e-5
+        assert torch.equal(got, dense(p, x, Runtime(rram=rcfg, key=3)))
+
+
+def test_lm_decode_step_launch_count_on_card(cuda_device):
+    """A reduced qwen3-1.7b programmed on the card: a decode step at 4
+    rows launches 2 x 7 + 1 ``ec_rmatmul`` and as many ``stencil_denoise``
+    and no other kernel; prefill at 4 x 6 = 24 rows three ``ec_rmatmul``
+    a layer dense; its logits equal the CPU's on the same image to 1e-5
+    with the DAC off."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.serve import Server
+    cfg = get_arch("qwen3-1.7b").reduced()
+    params = PM.materialize(tf.init_specs(cfg), 0, device=cuda_device)
+    rt = Runtime(rram=RRAMBackendConfig(enabled=True, cell_rows=32,
+                                        cell_cols=32))
+    srv = Server(tf, cfg, params, rt=rt, max_len=16)
+    tokens = torch.randint(0, cfg.vocab, (4, 6),
+                           generator=torch.Generator().manual_seed(0))
+    kernels.reset_launches()
+    tok, caches = srv.prefill({"tokens": tokens.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_rmatmul"] == 2 * 7 * 3 + 1
+    kernels.reset_launches()
+    srv.decode_tokens(tok, caches, 1)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_rmatmul": 2 * 7 + 1, "stencil_denoise": 2 * 7 + 1}
+    off = dataclasses.replace(rt.rram, encode_inputs=False)
+    cpu_params = PM.tree_map(lambda t: t.cpu(), srv.params)
+    want, _ = tf.prefill(cpu_params, {"tokens": tokens}, cfg,
+                         Runtime(rram=off), 16)
+    got, _ = tf.prefill(srv.params, {"tokens": tokens.to(cuda_device)}, cfg,
+                        Runtime(rram=off), 16)
+    assert rel(got.cpu(), want) <= 1e-5

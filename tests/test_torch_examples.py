@@ -1,7 +1,8 @@
 """The port's example scripts run end to end on the CPU when asked to
 (``--torch-device cpu``): the quickstart's Table-1 grid, the solver
 example's asserts on a 2 x 4 mesh, the LP example's, the portfolio
-example's and the reliability example's asserts; without a GPU and
+example's and the reliability example's asserts, and the LM serving
+example, digital and analog; without a GPU and
 without that flag each exits non-zero
 with a message instead of falling back to the CPU."""
 import os
@@ -15,7 +16,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py",
             "meliso_portfolio_torch.py", "meliso_lp_torch.py",
-            "meliso_reliability_torch.py"]
+            "meliso_reliability_torch.py", "serve_lm_torch.py"]
 
 
 def run(script, *args):
@@ -107,6 +108,26 @@ def test_meliso_reliability_on_cpu():
     assert any("column 5 latched" in ln for ln in lines)
     assert any(ln.startswith("[fault]    detected") for ln in lines)
     assert "converged=True" in lines[-1] and "2 x 4 mesh" in lines[-1]
+
+
+@pytest.mark.parametrize("rram", [False, True])
+def test_serve_lm_on_cpu(rram):
+    """The LM serving example on the reduced qwen3-1.7b: a digital and an
+    analog run (one-time write billed), each generating batch x tokens
+    tokens; the same prompt and seed give the same sequence twice."""
+    args = ["--torch-device", "cpu", "--tokens", "4", "--batch", "2",
+            "--prompt-len", "8"] + (["--rram"] if rram else [])
+    out = run("serve_lm_torch.py", *args)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("analog programming: E=") == rram
+    assert f"backend={'rram' if rram else 'digital'} batch=2 full=False " \
+        "torch_device=cpu" in out.stdout
+    assert any(ln.startswith("generated 8 tokens") for ln in lines)
+    first = [ln for ln in lines if ln.startswith("first sequence:")]
+    assert len(first) == 1 and len(first[0].split(",")) == 4
+    assert run("serve_lm_torch.py", *args).stdout.splitlines()[-1] == \
+        first[0]
 
 
 @pytest.mark.parametrize("script", EXAMPLES)

@@ -1,5 +1,5 @@
 """The port stands alone: no file under src/repro_torch/, and none of
-chip_smoke.py, the four probes and the port's examples, imports
+chip_smoke.py, the five probes and the port's examples, imports
 ``jax`` or anything of ``repro``; and the package imports in a fresh
 interpreter without them being importable."""
 import ast
@@ -14,11 +14,13 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "encode_probe.py", REPO / "mvm_probe.py",
      REPO / "lp_probe.py", REPO / "reliability_probe.py",
+     REPO / "lm_probe.py",
      REPO / "examples" / "quickstart_torch.py",
      REPO / "examples" / "meliso_solver_torch.py",
      REPO / "examples" / "meliso_portfolio_torch.py",
      REPO / "examples" / "meliso_lp_torch.py",
-     REPO / "examples" / "meliso_reliability_torch.py"]
+     REPO / "examples" / "meliso_reliability_torch.py",
+     REPO / "examples" / "serve_lm_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -96,6 +98,48 @@ def test_port_file_list_covers_the_group_slice():
                 "src/repro_torch/core/crossbar.py",
                 "src/repro_torch/interop.py"):
         assert rel in names, rel
+
+
+def test_port_file_list_covers_the_lm_serving_slice():
+    """The import scan reaches the configs, the models, the server and the
+    LM serving example."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/configs/base.py",
+                "src/repro_torch/configs/registry.py",
+                "src/repro_torch/configs/qwen3_1p7b.py",
+                "src/repro_torch/models/params.py",
+                "src/repro_torch/models/common.py",
+                "src/repro_torch/models/flash.py",
+                "src/repro_torch/models/rram.py",
+                "src/repro_torch/models/transformer.py",
+                "src/repro_torch/train/serve.py",
+                "examples/serve_lm_torch.py", "lm_probe.py"):
+        assert rel in names, rel
+
+
+def test_lm_serving_imports_with_jax_and_repro_blocked():
+    """The configs (the port's own copies), every arch file, the models and
+    the server import with ``jax`` and ``repro`` made unimportable, and
+    ``model_module`` hands out the port's transformer."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.configs import ARCHS, get_arch, model_module\n"
+        "from repro_torch.models import transformer\n"
+        "from repro_torch.train.serve import Server, greedy_generate\n"
+        "from repro_torch.interop import params_from_numpy\n"
+        "archs = [get_arch(a) for a in ARCHS + ('meliso-mvm',)]\n"
+        "assert model_module(get_arch('qwen3-1.7b').model) is transformer\n"
+        "print(len(archs))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["11"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
