@@ -164,11 +164,31 @@ non-zero, printing no result, without them or without the repository's
      prefill's logits within 1e-4 of the digital model; DAC on, two
      generate calls under one key equal; program, prefill and decode times,
      device busy against wall over the decode loop, and a decode step's EC
-     kernels against their byte bound.
+     kernels against their byte bound;
+ 13. the attention-based families served (``families_phase``, float32,
+     weights from seed 0, the [12] backend, each model freed before the
+     next): [13a] Mixtral-8x7B at its published widths, 8 of its 32
+     layers, one request of 4 x 64 -> 32 tokens: its experts' 4-D stacks
+     stay digital (the reference's rule), every attention dense and the
+     head analog (33 ec_rmatmul + 33 stencil_denoise a decode step); [13b]
+     layer 0's MoE tree programmed on its own, whose (8, 4,096, 14,336)
+     stacks take the expert EC: expert_mm against its plain twin at lam
+     1e-2 and 1e-12, moe_apply on 4 and 256 tokens (one ec_group_rmatmul
+     per 8 capacity slots a stack, one stencil_denoise a stack), DAC off
+     against the digital experts; [13c] whisper-tiny whole, 1,500 frames
+     and a 16-token prompt -> 16 (the decoder's cross-attention projects
+     the 1,500 frames again every step: 1,537 ec_rmatmul a decode step);
+     [13d] Llama-3.2-Vision-11B at its published widths, one super layer
+     (4 self + 1 cross of 40), 4,096 patches, 32 -> 8 tokens, the cross
+     gate set to 1.0 (zero at init); for [13a], [13c] and [13d] the dense
+     twin at the family's kernel shapes, every launch counted against the
+     families' analog denses, DAC-off logits within 1e-4 of the digital
+     model, two generate calls under one key equal, times, the idle share
+     and a decode step's bytes against HBM's rate.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11 and 12's main
-calls, and read just after: every kernel must have run on the path that
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12 and 13's
+main calls, and read just after: every kernel must have run on the path that
 uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -263,6 +283,21 @@ LM_DENSE_ROWS = (1, 4, 8, 64)  # [12]: decode panels checked, beside each
 LM_DIGITAL_TOL = 1e-4   # [12]: DAC-off logits against the digital model
 LM_TIMING_REPS = 3
 LM_PROFILE_STEPS = 8
+# [13]: the attention-based families, float32, weights from LM_SEED.
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYERS = 8          # [13a]: of 32; 8 layers and their images are ~51 GB
+MOE_REQUEST = (4, 64, 32, 128)
+MOE_EXPERT_TOKENS = (4, 256)   # [13b]: moe_apply's decode / prefill inputs
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_FRAMES = 1500   # [13c]: Whisper's 30 s window at 50 frames a second
+WHISPER_REQUEST = (1, 16, 16, 32)
+WHISPER_RT_KW = {"q_chunk": 500, "kv_chunk": 500}   # divide 1,500
+VISION_ARCH = "llama-3.2-vision-11b"
+VISION_LAYERS = 5       # [13d]: one super layer (4 self + 1 cross) of 40
+VISION_REQUEST = (1, 32, 8, 48)
+VISION_GATE = 1.0       # [13d]: every cross layer's gate after materialize
+FAMILY_DENSE_ROWS = (1, 4, 8)  # [13]: decode panels of the dense twin check
+FAMILY_PROFILE_STEPS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -1831,6 +1866,38 @@ def reliability_phase(dev, gen, *, n=N, geom=None, target_faults=64,
     return counts
 
 
+def dense_twin_check(tag, views, rram, gen, dev) -> None:
+    """The analog dense's kernel path (``models.common.dense``: ec_rmatmul
+    + stencil_denoise) against its plain twin (``dense_plain``: the same
+    DAC draw, layout and casts) on every view at each of its row counts,
+    each also bit for bit run to run.  At a served lam of 1e-12 the stencil
+    term is far below fp32's resolution, so the check runs at
+    STENCIL_CHECK_LAM, where it shows.  ``views``: (name, programmed kernel
+    dict, row counts) triples."""
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    rram_chk = dataclasses.replace(rram, lam=STENCIL_CHECK_LAM)
+    parts = []
+    for name, p, rows_list in views:
+        d_in, d_out = p["w"].shape
+        errs = []
+        for rows in rows_list:
+            x = torch.randn(rows, d_in, generator=gen, device=dev)
+            got = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            again = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            want = dense_plain(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+            err = rel_l2(got, want)
+            check(err <= EC_TOL and torch.equal(got, again),
+                  f"{tag} dense {d_in}->{d_out} at {rows} rows: rel-L2 "
+                  f"{err:.2e} against its plain twin, or not the same run "
+                  f"to run")
+            errs.append(f"{err:.1e}")
+        parts.append(f"{name} {d_in}x{d_out} " + " / ".join(errs) + " at "
+                     + " / ".join(map(str, rows_list)) + " rows")
+    print(f"{tag} analog dense (ec_rmatmul + stencil_denoise, lam "
+          f"{STENCIL_CHECK_LAM:g}) vs its plain twin, rel-L2: "
+          + "; ".join(parts) + "; each bit for bit run to run", flush=True)
+
+
 def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
              dense_rows=LM_DENSE_ROWS, rt_kw=None,
              profile_steps=LM_PROFILE_STEPS):
@@ -1852,7 +1919,7 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     from repro_torch.models import flash
     from repro_torch.models import params as PM
     from repro_torch.models import transformer as tf
-    from repro_torch.models.common import Runtime, dense, dense_plain
+    from repro_torch.models.common import Runtime
     from repro_torch.models.rram import (analog_image_bytes,
                                          programmed_kernel_shapes,
                                          strip_rram)
@@ -1905,40 +1972,18 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     check(rram.dw_dtype != "float32" or img_bytes == 8 * elems,
           "[12] the analog image's bytes do not match its kernels")
 
-    # The analog dense's kernel path against its plain twin at every
-    # kernel shape of the model (layer 0's views and the head), on the
-    # decode panels and each request's prefill panel.  At the served lam
-    # (1e-12) the stencil term is far below fp32's resolution, so the
-    # check runs at STENCIL_CHECK_LAM, where it shows.
+    # The analog dense against its plain twin at every kernel shape of the
+    # model (layer 0's views and the head), on the decode panels and each
+    # request's prefill panel.
     layer = PM.tree_map(lambda t: t[0], prog["layers"])
     views = {"wq": layer["attn"]["wq"], "wk": layer["attn"]["wk"],
              "wu": layer["mlp"]["wu"], "wd": layer["mlp"]["wd"]}
     if not cfg.tie_embeddings:
         views["lm_head"] = prog["lm_head"]
     rows_checked = sorted(set(dense_rows) | {b * t for b, t, _, _ in requests})
-    rram_chk = dataclasses.replace(rram, lam=STENCIL_CHECK_LAM)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
-    dense_err = {}
-    for name, p in views.items():
-        d_in, d_out = p["w"].shape
-        for rows in rows_checked:
-            x = torch.randn(rows, d_in, generator=gen, device=dev)
-            got = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
-            again = dense(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
-            want = dense_plain(p, x, Runtime(rram=rram_chk, key=LM_CHECK_KEY))
-            err = rel_l2(got, want)
-            dense_err[(name, rows)] = err
-            check(err <= EC_TOL and torch.equal(got, again),
-                  f"[12] dense {d_in}->{d_out} at {rows} rows: rel-L2 "
-                  f"{err:.2e} against its plain twin, or not the same run "
-                  f"to run")
-    print(f"[12] analog dense (ec_rmatmul + stencil_denoise, lam "
-          f"{STENCIL_CHECK_LAM:g}) vs its plain twin, rel-L2 at "
-          + " / ".join(map(str, rows_checked)) + " rows: "
-          + "; ".join(f"{name} {tuple(p['w'].shape)} " + " / ".join(
-              f"{dense_err[(name, r)]:.1e}" for r in rows_checked)
-              for name, p in views.items()) + "; each bit for bit run to run",
-          flush=True)
+    dense_twin_check("[12]", [(name, p, rows_checked)
+                              for name, p in views.items()], rram, gen, dev)
     # The EC kernel on the decode panel, timed at an MLP kernel's and the
     # head's shape beside its plain version and cuBLAS.
     b0 = requests[0][0]
@@ -2126,6 +2171,503 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     check(torch.equal(again, outs[0]), "[12] two generate calls under one "
           "key differ")
     return counts
+
+
+def analog_calls(cfg, b, t, ctx=0, prefill=True):
+    """(d_in, d_out, rows) of every analog dense call of one pass at batch
+    ``b`` over ``t`` tokens a sequence (a decode step: t = 1), by the
+    reference's programming rule: 2-D and 3-D kernels named "w" are
+    programmed, so the MoE experts' (L, E, D, F) stacks and llama-vision's
+    (n_super, per, D, F) self layers stay digital (and the MoE router's
+    image is never read).  ``ctx``: whisper's encoder frames (its encoder
+    runs in prefill only) or llama-vision's patches, which every pass
+    projects through the cross layers' wk / wv again."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+
+    def attn(rows_q, rows_kv):
+        return [(d, q, rows_q), (d, kv, rows_kv), (d, kv, rows_kv),
+                (q, d, rows_q)]
+
+    def mlp(rows):
+        gate = [(d, f, rows)] if cfg.act == "silu_gated" else []
+        return gate + [(d, f, rows), (f, d, rows)]
+
+    n = b * t
+    if cfg.family == "moe":
+        calls = attn(n, n) * cfg.n_layers
+    elif cfg.family == "whisper":
+        enc = (attn(b * ctx, b * ctx) + mlp(b * ctx)) * cfg.n_enc_layers
+        calls = (enc if prefill else []) + (
+            attn(n, n) + attn(n, b * ctx) + mlp(n)) * cfg.n_layers
+    else:
+        calls = (attn(n, b * ctx) + mlp(n)) * (cfg.n_layers
+                                                // cfg.cross_attn_every)
+    return calls + [(d, cfg.vocab_pad, b)]      # the head: the last token
+
+
+def ec_launches(calls) -> int:
+    """One ec_rmatmul launch per 8 rows of every analog dense."""
+    return sum(-(-rows // 8) for _, _, rows in calls)
+
+
+def ec_bytes(calls) -> int:
+    """Bytes the EC launches of ``calls`` move: each launch reads both fp32
+    images (w_tilde, dw), every call its two input panels and its output."""
+    return sum(-(-r // 8) * 8 * m * n + 4 * r * (2 * m + n)
+               for m, n, r in calls)
+
+
+def digital_weight_bytes(params) -> int:
+    """Bytes of every kernel named "w" that carries no image (read whole by
+    each pass's digital product); the embedding table is gathered, not
+    read, and the router's programmed w is read digitally (d x E, left
+    out)."""
+    if not isinstance(params, dict):
+        return 0
+    own = int(params["w"].nbytes) if isinstance(params.get("w"),
+                                                torch.Tensor) \
+        and "w_tilde" not in params else 0
+    return own + sum(digital_weight_bytes(v) for k, v in params.items()
+                     if isinstance(v, dict))
+
+
+def free_cuda() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
+                 rt_kw, views, ctx, profile_steps):
+    """Serve one request ((batch, prompt tokens, new tokens, max_len) and
+    ``extra`` -- frames or patches) of a family's model with the DAC on,
+    programmed once by its Server, and hold it to the phase's checks:
+    the dense twin at ``views``, every EC launch counted against
+    :func:`analog_calls` (prefill, one decode step, the request), nothing
+    else launched, DAC-off logits within LM_DIGITAL_TOL of the digital
+    model, two generate calls under one key equal; times and a decode
+    step's idle share against its byte bound.  Returns (launch counts of
+    the request, the server)."""
+    from repro_torch import kernels
+    from repro_torch.core.prng import fold_in
+    from repro_torch.models import params as PM
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import (analog_image_bytes,
+                                         programmed_kernel_shapes,
+                                         strip_rram)
+    from repro_torch.train.serve import Server
+
+    gib = 2.0 ** 30
+    b, t, n, ml = request
+    t0 = time.perf_counter()
+    srv = Server(mod, cfg, params, rt=Runtime(rram=rram, key=LM_DAC_KEY,
+                                              **rt_kw), max_len=ml)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    prog = srv.params
+    shapes = programmed_kernel_shapes(prog)
+    elems = sum(l_ * m * k for l_, m, k in shapes)
+    w_bytes = sum(int(a.nbytes) for _, a in PM.tree_paths(params))
+    img_bytes = analog_image_bytes(prog)
+    print(f"{tag} programmed {sum(l_ for l_, _, _ in shapes)} kernels in "
+          f"{len(shapes)} tensors ({elems / 1e9:.4f} G elements) in "
+          f"{program_s:.2f} s; w {w_bytes / 1e9:.3f} GB + w_tilde + dw "
+          f"{img_bytes / 1e9:.3f} GB; digital kernels "
+          f"{digital_weight_bytes(prog) / 1e9:.3f} GB; peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; write "
+          f"{srv.write_stats.energy_j:.4e} J, "
+          f"{srv.write_stats.latency_s:.4e} s", flush=True)
+    check(rram.dw_dtype != "float32" or img_bytes == 8 * elems,
+          f"{tag} the analog image's bytes do not match its kernels")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    dense_twin_check(tag, views(prog), rram, gen, dev)
+
+    toks = torch.randint(0, cfg.vocab, (b, t), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(LM_SEED + 10))
+    batch = {"tokens": toks, **extra}
+    pre_calls = analog_calls(cfg, b, t, ctx, prefill=True)
+    step_calls = analog_calls(cfg, b, 1, ctx, prefill=False)
+    # The main path: the request served with the DAC on, counted.
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = srv.generate(batch, n)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    want_ec = ec_launches(pre_calls) + (n - 1) * ec_launches(step_calls)
+    want_st = len(pre_calls) + (n - 1) * len(step_calls)
+    print(f"{tag} served {b} x {t} prompt -> {n} new (max_len {ml}) with "
+          f"the DAC on: launches "
+          f"{ {k_: v for k_, v in counts.items() if v} } (expected "
+          f"ec_rmatmul {want_ec}, stencil_denoise {want_st})", flush=True)
+    check(tuple(out.shape) == (b, n) and bool((out >= 0).all())
+          and bool((out < cfg.vocab).all()),
+          f"{tag} generate returned {tuple(out.shape)} or a token out of "
+          f"the vocabulary")
+    check(counts["ec_rmatmul"] == want_ec
+          and counts["stencil_denoise"] == want_st
+          and all(v == 0 for k_, v in counts.items()
+                  if k_ not in ("ec_rmatmul", "stencil_denoise")),
+          f"{tag} launches {counts} are not one ec_rmatmul per 8 rows and "
+          f"one stencil_denoise per analog dense")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    tok, caches = srv.prefill(batch)
+    torch.cuda.synchronize()
+    pre_counts = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+    kernels.reset_launches()
+    srv.decode_tokens(tok, caches, 1)
+    torch.cuda.synchronize()
+    step_counts = {k_: v for k_, v in kernels.LAUNCHES.items() if v}
+    print(f"{tag} prefill: {pre_counts} (expected ec_rmatmul "
+          f"{ec_launches(pre_calls)}); a decode step: {step_counts} "
+          f"(expected {ec_launches(step_calls)} + {len(step_calls)})",
+          flush=True)
+    check(pre_counts == {"ec_rmatmul": ec_launches(pre_calls),
+                         "stencil_denoise": len(pre_calls)}
+          and step_counts == {"ec_rmatmul": ec_launches(step_calls),
+                              "stencil_denoise": len(step_calls)},
+          f"{tag} a pass's launches differ from the expected")
+
+    # Times: host clock around synchronised work (every path warmed above).
+    pre = []
+    for _ in range(LM_TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = srv.prefill(batch)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    srv.decode_tokens(tok, caches, n - 1)
+    torch.cuda.synchronize()
+    dec = (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
+    # A decode step: device busy (torch.profiler) against the unprofiled
+    # wall, and its bytes (the EC launches' images and panels, the digital
+    # kernels read whole) against HBM's rate.
+    steps = max(1, min(profile_steps, (ml - t) // 3))   # 3 runs, one cache
+    tok, caches = srv.prefill(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.decode_tokens(tok, caches, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    split = {k_: v / steps for k_, v in kernel_split(
+        lambda: srv.decode_tokens(tok, caches, steps), iters=1).items()}
+    busy = sum(split.values())
+    ec_ms = sum(v for k_, v in split.items() if any(
+        e in k_ for e in ("ec_rmatmul", "partial_sum_kernel",
+                          "stencil_kernel")))
+    step_bytes = ec_bytes(step_calls) + digital_weight_bytes(prog)
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
+    print(f"{tag} prefill {statistics.median(pre):.2f} ms (min "
+          f"{min(pre):.2f}), decode {dec:.3f} ms a token = "
+          f"{b * 1e3 / dec:.1f} tokens/s at batch {b}; a decode step "
+          f"({steps} steps): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"(idle share {1 - busy / wall:.3f}), EC kernels {ec_ms:.3f} ms; "
+          f"bytes {step_bytes / 1e9:.3f} GB (EC "
+          f"{ec_bytes(step_calls) / 1e9:.3f}), bound {bound:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the largest: "
+          + ", ".join(f"{short_kernel_name(k_)} {v:.3f}" for k_, v in top),
+          flush=True)
+
+    # DAC off: the analog model against the digital one on the same w.
+    digital = strip_rram(prog)
+    dig_rt = Runtime(**rt_kw)
+    off_rt = Runtime(rram=dataclasses.replace(rram, encode_inputs=False),
+                     **rt_kw)
+    live = slice(0, cfg.vocab)
+    logits_dig, _ = mod.prefill(digital, batch, cfg, dig_rt, ml)
+    logits_off, _ = mod.prefill(prog, batch, cfg, off_rt, ml)
+    off_err = rel_l2(logits_off[:, -1, live], logits_dig[:, -1, live])
+    tok_dig = Server(mod, cfg, digital, rt=dig_rt, max_len=ml) \
+        .generate(batch, n)
+    tok_off = Server(mod, cfg, prog, rt=off_rt, max_len=ml) \
+        .generate(batch, n)
+    again = srv.generate(batch, n)
+    logits_on, _ = mod.prefill(prog, batch, cfg,
+                               srv._rt_for(fold_in(LM_DAC_KEY, 0)), ml)
+    on_err = rel_l2(logits_on[:, -1, live], logits_dig[:, -1, live])
+    print(f"{tag} DAC off: prefill's last-token logits vs the digital "
+          f"model rel-L2 {off_err:.3e}, greedy tokens agree on "
+          f"{float((tok_off == tok_dig).float().mean()):.4f} of "
+          f"{tok_dig.numel()}; DAC on: logits vs digital {on_err:.3e}, "
+          f"tokens agree on {float((out == tok_dig).float().mean()):.4f}; "
+          f"two generate calls under one key equal: "
+          f"{torch.equal(again, out)}; peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+    check(bool(torch.isfinite(logits_on).all())
+          and bool(torch.isfinite(logits_off).all())
+          and bool((logits_on[..., cfg.vocab:] == -1e30).all()),
+          f"{tag} non-finite logits, or a padded column not masked")
+    check(off_err <= LM_DIGITAL_TOL, f"{tag} DAC-off logits {off_err:.3e} "
+          f"from the digital model's")
+    check(torch.equal(again, out), f"{tag} two generate calls under one "
+          f"key differ")
+    return counts, srv
+
+
+def experts_phase(dev, more_shapes, cfg, tree, rram, tokens):
+    """[13b] one MoE layer's tree (router and the (E, D, F) / (E, F, D)
+    stacks) programmed on its own -- its stacks are 3-D, so each expert is
+    programmed and ``moe_apply`` takes the EC branch: ``expert_mm`` against
+    its plain twin on the dispatch buffers' shapes (lam STENCIL_CHECK_LAM
+    and the served lam), ``moe_apply`` on ``tokens`` tokens each with the
+    DAC on and counted (3 ec_group_rmatmul launches per 8 capacity slots,
+    3 stencil_denoise), DAC off against the digital experts, timed against
+    its byte bound.  Returns the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.models import moe
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import program_rram, strip_rram
+
+    gib = 2.0 ** 30
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    t0 = time.perf_counter()
+    prog, ws = program_rram(tree, rram, 7)
+    torch.cuda.synchronize()
+    print(f"[13b] layer 0's MoE tree programmed on its own in "
+          f"{time.perf_counter() - t0:.2f} s: router {tuple(tree['router']['w'].shape)}"
+          f", wg / wu {(e, d, f)}, wd {(e, f, d)}, each expert its image "
+          f"({3 * e * d * f * 8 / 1e9:.3f} GB of w_tilde + dw); write "
+          f"{ws.energy_j:.4e} J; peak "
+          f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB", flush=True)
+    check(all("w_tilde" in prog[k] for k in ("router", "wg", "wu", "wd")),
+          "[13b] a kernel of the single-layer tree was not programmed")
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    caps = [moe._capacity(n, cfg) for n in tokens]
+    errs = []
+    for cap in caps:
+        xin = torch.randn(e, cap, d, generator=gen, device=dev)
+        h = torch.randn(e, cap, f, generator=gen, device=dev)
+        for name, x in (("wg", xin), ("wu", xin), ("wd", h)):
+            for lam in (STENCIL_CHECK_LAM, rram.lam):
+                r = dataclasses.replace(rram, lam=lam)
+                got = moe.expert_mm(prog[name], x,
+                                    Runtime(rram=r, key=LM_CHECK_KEY))
+                again = moe.expert_mm(prog[name], x,
+                                      Runtime(rram=r, key=LM_CHECK_KEY))
+                want = moe.expert_mm_plain(prog[name], x,
+                                           Runtime(rram=r, key=LM_CHECK_KEY))
+                err = rel_l2(got, want)
+                errs.append(err)
+                check(err <= EC_TOL and torch.equal(got, again),
+                      f"[13b] expert_mm {name} at capacity {cap}, lam "
+                      f"{lam:g}: rel-L2 {err:.2e} against its plain twin, "
+                      f"or not the same run to run")
+    print(f"[13b] expert_mm (ec_group_rmatmul + stencil_denoise) vs its "
+          f"plain twin at capacities {caps} x wg / wu / wd x lam "
+          f"{STENCIL_CHECK_LAM:g} / {rram.lam:g}: rel-L2 {min(errs):.1e}-"
+          f"{max(errs):.1e}, each bit for bit run to run", flush=True)
+    # The grouped kernel alone at the decode buffer's panels.
+    at, da = prog["wg"]["w_tilde"], prog["wg"]["dw"]
+    cols = e * caps[0]
+    y = torch.randn(d, cols, generator=gen, device=dev)
+    y_t = torch.randn(d, cols, generator=gen, device=dev)
+    row = compare(f"ec_group_rmatmul {e}x{d}x{f} batch {caps[0]}",
+                  lambda: kernels.ec_group_rmatmul(at, da, y, y_t),
+                  lambda: kernels.ec_group_rmatmul_plain(at, da, y, y_t),
+                  EC_TOL, nbytes=4 * (2 * e * d * f + 2 * d * cols
+                                      + f * cols),
+                  flops=4 * e * d * f * caps[0], iters=20,
+                  library_fn=lambda: torch.bmm(
+                      at.transpose(1, 2), y.view(d, e, -1).transpose(0, 1))
+                  + torch.bmm(da.transpose(1, 2),
+                              y_t.view(d, e, -1).transpose(0, 1)))
+    row.update(shape=f"{e}x{d}x{f} (MoE wg)", batch=caps[0])
+    more_shapes.append({"ec_group_rmatmul": row})
+
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    digital = strip_rram(prog)
+    off = dataclasses.replace(rram, encode_inputs=False)
+    for n_tok, cap in zip(tokens, caps):
+        x = torch.randn(1, n_tok, d, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, aux = moe.moe_apply(prog, x, cfg,
+                                 Runtime(rram=rram, key=LM_DAC_KEY))
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        for k_, v in got.items():
+            counts[k_] += v
+        again, _ = moe.moe_apply(prog, x, cfg,
+                                 Runtime(rram=rram, key=LM_DAC_KEY))
+        want = 3 * -(-cap // 8)
+        dig, _ = moe.moe_apply(digital, x, cfg, None)
+        off_out, _ = moe.moe_apply(prog, x, cfg, Runtime(rram=off))
+        off_err, on_err = rel_l2(off_out, dig), rel_l2(out, dig)
+        call = lambda: moe.moe_apply(prog, x, cfg,   # noqa: E731
+                                     Runtime(rram=rram, key=LM_DAC_KEY))
+        dev_ms, call_ms = device_time_ms(call, 5), call_time_ms(call, 5)
+        nbytes = 3 * (-(-cap // 8) * 8 * e * d * f) \
+            + 4 * e * cap * (2 * d + f) * 3
+        print(f"[13b] moe_apply on {n_tok} tokens (capacity {cap}): "
+              f"launches {({k_: v for k_, v in got.items() if v})} "
+              f"(expected ec_group_rmatmul {want}, stencil_denoise 3); "
+              f"DAC off vs the digital experts rel-L2 {off_err:.3e}, DAC "
+              f"on {on_err:.3e}, run to run equal {torch.equal(out, again)}"
+              f"; device {dev_ms:.3f} ms, per call {call_ms:.3f} ms, byte "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"({nbytes / 1e9:.3f} GB); aux {float(aux):.4f}", flush=True)
+        check(got["ec_group_rmatmul"] == want
+              and got["stencil_denoise"] == 3
+              and all(v == 0 for k_, v in got.items()
+                      if k_ not in ("ec_group_rmatmul", "stencil_denoise")),
+              f"[13b] launches {got}: not {want} ec_group_rmatmul + 3 "
+              f"stencil_denoise")
+        check(bool(torch.isfinite(out).all()) and torch.equal(out, again)
+              and off_err <= LM_DIGITAL_TOL,
+              f"[13b] moe_apply: non-finite, not the same run to run, or "
+              f"DAC off {off_err:.3e} from the digital experts")
+    return counts
+
+
+def families_phase(dev, more_shapes, *, cfgs=None, rram=None,
+                   moe_request=MOE_REQUEST, expert_tokens=MOE_EXPERT_TOKENS,
+                   whisper_request=WHISPER_REQUEST, frames=WHISPER_FRAMES,
+                   whisper_rt_kw=None, vision_request=VISION_REQUEST,
+                   profile_steps=FAMILY_PROFILE_STEPS):
+    """[13] the attention-based families served on the programmed image,
+    float32, random weights from LM_SEED, taox-hfox (k = 5, EC, 512^2
+    cells, lam 1e-12, dw float32), each model freed before the next:
+    [13a] Mixtral-8x7B at its published widths, MOE_LAYERS of 32 layers;
+    [13b] its layer 0's MoE tree programmed on its own (the expert EC);
+    [13c] whisper-tiny whole, 1,500 frames; [13d] Llama-3.2-Vision-11B at
+    its published widths, one super layer (4 self + 1 cross of 40), every
+    cross layer's tanh gate set to VISION_GATE after materialize on the
+    analog and the digital side alike (the reference initialises it to
+    zero, and tanh(0) = 0 would hide the cross path from the logits).
+    ``cfgs`` ({"moe", "whisper", "vision"} -> ModelConfig) replaces the
+    models, so that the phase can be rehearsed on the CPU.  Returns the
+    main path's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import llama_vision, moe, whisper
+    from repro_torch.models import params as PM
+
+    def full(arch, **kw):
+        return dataclasses.replace(get_arch(arch).model,
+                                   param_dtype="float32",
+                                   compute_dtype="float32", **kw)
+
+    cfgs = cfgs or {"moe": full(MOE_ARCH, n_layers=MOE_LAYERS),
+                    "whisper": full(WHISPER_ARCH),
+                    "vision": full(VISION_ARCH, n_layers=VISION_LAYERS)}
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    total = {}
+
+    def add(counts):
+        for k_, v in counts.items():
+            total[k_] = total.get(k_, 0) + v
+
+    def layer0(tree):
+        return PM.tree_map(lambda a: a[0], tree)
+
+    # [13a] Mixtral-8x7B served.
+    t0 = time.perf_counter()
+    cfg = cfgs["moe"]
+    free_cuda()
+    params = PM.materialize(moe.init_specs(cfg), LM_SEED, device=dev)
+    b, t, _, _ = moe_request
+    print(f"[13a] {cfg.n_layers} layers (depth cut), d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads} / {cfg.n_kv_heads} of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token}, SWA {cfg.swa_window}, vocab "
+          f"{cfg.vocab} (padded {cfg.vocab_pad}), {cfg.param_dtype}",
+          flush=True)
+    rows = sorted(set(FAMILY_DENSE_ROWS) | {b * t})
+    counts, srv = serve_family(
+        "[13a]", dev, moe, cfg, params, rram, moe_request, {},
+        rt_kw={}, ctx=0, profile_steps=profile_steps,
+        views=lambda prog: [
+            (name, layer0(prog["layers"])["attn"][name], rows)
+            for name in ("wq", "wk", "wo")] + [
+            ("lm_head", prog["lm_head"], FAMILY_DENSE_ROWS)])
+    add(counts)
+    # Layer 0's MoE tree, digital, kept for [13b]; the model freed.
+    tree = PM.tree_map(lambda a: a[0].clone(),
+                       {k_: {"w": v["w"]} for k_, v in
+                        srv.params["layers"]["moe"].items()})
+    del params, srv
+    print(f"[13a] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [13b] the expert EC on that tree.
+    t0 = time.perf_counter()
+    free_cuda()
+    add(experts_phase(dev, more_shapes, cfg, tree, rram, expert_tokens))
+    del tree
+    print(f"[13b] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [13c] whisper-tiny, whole.
+    t0 = time.perf_counter()
+    cfg = cfgs["whisper"]
+    free_cuda()
+    params = PM.materialize(whisper.init_specs(cfg), LM_SEED, device=dev)
+    b, t, _, _ = whisper_request
+    fr = torch.randn(b, frames, cfg.d_model, device=dev,
+                     generator=torch.Generator(device=dev)
+                     .manual_seed(LM_SEED + 20))
+    print(f"[13c] {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_pad}); "
+          f"{frames} frames", flush=True)
+    rows = sorted(set(FAMILY_DENSE_ROWS) | {b * t, b * frames})
+    counts, srv = serve_family(
+        "[13c]", dev, whisper, cfg, params, rram, whisper_request,
+        {"frames": fr}, rt_kw=dict(whisper_rt_kw or WHISPER_RT_KW),
+        ctx=frames, profile_steps=profile_steps,
+        views=lambda prog: [
+            ("enc wq", layer0(prog["enc_layers"])["attn"]["wq"], rows),
+            ("enc wu", layer0(prog["enc_layers"])["mlp"]["wu"], rows),
+            ("enc wd", layer0(prog["enc_layers"])["mlp"]["wd"], rows),
+            ("cross wk", layer0(prog["dec_layers"])["cross_attn"]["wk"],
+             rows),
+            ("lm_head", prog["lm_head"], FAMILY_DENSE_ROWS)])
+    add(counts)
+    del params, srv, fr
+    print(f"[13c] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [13d] Llama-3.2-Vision-11B, one super layer, gates at VISION_GATE.
+    t0 = time.perf_counter()
+    cfg = cfgs["vision"]
+    free_cuda()
+    params = PM.materialize(llama_vision.init_specs(cfg), LM_SEED,
+                            device=dev)
+    params["super"]["cross"]["attn"]["gate"].fill_(VISION_GATE)
+    b, t, _, _ = vision_request
+    patches = torch.randn(b, cfg.n_patches, cfg.d_model, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(LM_SEED + 30))
+    n_super = cfg.n_layers // cfg.cross_attn_every
+    print(f"[13d] {n_super} super layer(s) of {cfg.cross_attn_every - 1} "
+          f"self + 1 cross ({cfg.n_layers} layers, depth cut), d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads} / {cfg.n_kv_heads} of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_patches} patches; cross gate {VISION_GATE}", flush=True)
+    rows = sorted(set(FAMILY_DENSE_ROWS) | {b * t})
+    counts, srv = serve_family(
+        "[13d]", dev, llama_vision, cfg, params, rram, vision_request,
+        {"patches": patches}, rt_kw={}, ctx=cfg.n_patches,
+        profile_steps=profile_steps,
+        views=lambda prog: [
+            ("cross wq", layer0(prog["super"]["cross"])["attn"]["wq"], rows),
+            ("cross wk", layer0(prog["super"]["cross"])["attn"]["wk"],
+             sorted(set(rows) | {b * cfg.n_patches})),
+            ("cross wu", layer0(prog["super"]["cross"])["mlp"]["wu"], rows),
+            ("cross wd", layer0(prog["super"]["cross"])["mlp"]["wd"], rows),
+            ("lm_head", prog["lm_head"], FAMILY_DENSE_ROWS)])
+    add(counts)
+    del params, srv, patches
+    free_cuda()
+    print(f"[13d] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return total
 
 
 def kernel_phases():
@@ -3190,6 +3732,13 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(lm_phase(torch.device("cuda"), more_shapes))
     print(f"[12] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ------------ 13. the attention-based families served (MoE, whisper,
+    # llama-vision)
+    t0 = time.perf_counter()
+    all_counts.append(families_phase(torch.device("cuda"), more_shapes))
+    print(f"[13] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

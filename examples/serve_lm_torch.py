@@ -11,7 +11,9 @@ two-tier error-corrected analog product: on the card one ``ec_rmatmul``
 launch per 8 rows and one ``stencil_denoise`` launch a layer.  The model is
 the arch's reduced config (cells of 32 x 32, as the JAX example), or with
 --full its published widths and depth in float32 (cells of 512 x 512, dw
-in float32).  Weights are random, made from seed 0.
+in float32).  Weights are random, made from seed 0; whisper's frames and
+llama-vision's patches (their frontends are stubs) are random too, made
+from seed 2.
 
 It runs on the GPU (``--torch-device cuda``, the default) and exits with an
 error where there is none; the CPU is used only when asked for.
@@ -77,8 +79,18 @@ def main(argv=None):
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen).to(dev)
+    batch = {"tokens": prompts}
+    # The stubbed frontends' inputs: whisper's frame embeddings, one a
+    # prompt token, and llama-vision's patch embeddings.
+    gen = torch.Generator().manual_seed(2)
+    if cfg.family == "whisper":
+        batch["frames"] = torch.randn(args.batch, args.prompt_len,
+                                      cfg.d_model, generator=gen).to(dev)
+    if cfg.family == "llama_vision":
+        batch["patches"] = torch.randn(args.batch, cfg.n_patches,
+                                       cfg.d_model, generator=gen).to(dev)
     t0 = time.perf_counter()
-    out = srv.generate({"tokens": prompts}, args.tokens)
+    out = srv.generate(batch, args.tokens)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -3,6 +3,7 @@
 
     python3 lm_probe.py host [--steps 4]
     python3 lm_probe.py rehearse [--arch qwen3-1.7b]
+    python3 lm_probe.py rehearse-families
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
 on the card and runs ``--steps`` decode steps under ``cProfile``, each
@@ -18,6 +19,8 @@ split stubbed, the timing of the kernel rows replaced by one checked call,
 and the ``kernels.*`` wrappers counting their launches as the CUDA path
 does (one ``ec_rmatmul`` launch per 8 columns): its checks and launch
 counts, without a GPU (its times are then the CPU's, not device numbers).
+``rehearse-families`` does the same for phase 13 (``families_phase``) at
+the reduced mixtral-8x7b, whisper-tiny and llama-3.2-vision-11b.
 """
 import argparse
 import sys
@@ -35,20 +38,27 @@ REHEARSAL_REQUESTS = ((4, 8, 4, 16), (1, 24, 3, 32))
 REHEARSAL_RT_KW = {"flash_threshold": 256, "q_chunk": 8, "kv_chunk": 16}
 
 
-def rehearse(args) -> None:
+def _rehearsal_shims():
+    """Import chip_smoke with the CPU stand-ins: the ``kernels.*`` wrappers
+    count their launches as the CUDA path does, ``torch.cuda``'s
+    synchronise and memory calls do nothing, a kernel row is one checked
+    call, the profiler split and the device timers run the call once and
+    report nothing."""
     from repro_torch import kernels
-    from repro_torch.configs import get_arch
-    from repro_torch.configs.base import RRAMBackendConfig
     from repro_torch.kernels import build
 
-    def launches(name, u):
-        # The CUDA wrappers' count: ec products one launch per 8 columns.
-        return -(-u.shape[1] // 8) if name.startswith("ec_") else 1
+    def launches(name, at, u):
+        # The CUDA wrappers' count: ec products one launch per 8 columns
+        # (of one member, for the grouped ones).
+        if not name.startswith("ec_"):
+            return 1
+        cols = u.shape[1] // (at.shape[0] if "group" in name else 1)
+        return -(-cols // 8)
 
     for name in list(build.LAUNCHES):
         def counted(*a, _run=getattr(kernels, name), _name=name, **kw):
-            build.LAUNCHES[_name] += launches(_name, a[2] if len(a) > 2
-                                              else a[0])
+            build.LAUNCHES[_name] += launches(
+                _name, a[0], a[2] if len(a) > 2 else a[0])
             return _run(*a, **kw)
         setattr(kernels, name, counted)
     for stub in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
@@ -67,8 +77,21 @@ def rehearse(args) -> None:
         fn()                    # the card's warm-up call: the cache moves on
         return {}               # no device trace here
 
+    def time_none(fn, iters, warmup=2):
+        fn()
+        return 0.0
+
     chip_smoke.compare = compare_once
     chip_smoke.kernel_split = split_none
+    chip_smoke.device_time_ms = chip_smoke.call_time_ms = time_none
+    return chip_smoke
+
+
+def rehearse(args) -> None:
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
     cfg = get_arch(args.arch).reduced()
     rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
                              cell_cols=32)
@@ -79,6 +102,35 @@ def rehearse(args) -> None:
         rt_kw=REHEARSAL_RT_KW, profile_steps=2)
     print(f"rehearsal of {args.arch} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on the CPU passed in "
+          f"{time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def rehearse_families(args) -> None:
+    """chip_smoke.py's phase 13 at the reduced mixtral-8x7b, whisper-tiny
+    (40 frames, the encoder's attention over a lowered flash threshold)
+    and llama-3.2-vision-11b (two super layers of one self + one cross
+    layer), cells of 32^2."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
+    cfgs = {"moe": get_arch("mixtral-8x7b").reduced(),
+            "whisper": get_arch("whisper-tiny").reduced(),
+            "vision": dataclasses.replace(
+                get_arch("llama-3.2-vision-11b").reduced(), n_layers=4)}
+    rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
+                             cell_cols=32)
+    t0 = time.perf_counter()
+    counts = chip_smoke.families_phase(
+        torch.device("cpu"), [], cfgs=cfgs, rram=rram,
+        moe_request=(4, 8, 4, 16), expert_tokens=(4, 64),
+        whisper_request=(1, 4, 3, 16), frames=40,
+        whisper_rt_kw=REHEARSAL_RT_KW | {"q_chunk": 8, "kv_chunk": 8},
+        vision_request=(1, 4, 3, 16), profile_steps=2)
+    print(f"rehearsal of phase 13 (mixtral-8x7b, whisper-tiny, "
+          f"llama-3.2-vision-11b reduced) on the CPU passed in "
           f"{time.perf_counter() - t0:.1f} s; calls "
           f"{ {k: v for k, v in counts.items() if v} }")
 
@@ -150,13 +202,17 @@ def host(args, dev=None, cfg=None) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("host", "rehearse"))
+    ap.add_argument("what", choices=("host", "rehearse",
+                                     "rehearse-families"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args(argv)
     if args.what == "host":
         return host(args)
-    rehearse(args)
+    if args.what == "rehearse":
+        rehearse(args)
+    else:
+        rehearse_families(args)
     return 0
 
 

@@ -31,6 +31,9 @@ ARCHS = tuple(k for k in _MODULES if k != "meliso-mvm")
 
 _FAMILY_MODULES = {
     "transformer": "repro_torch.models.transformer",
+    "moe": "repro_torch.models.moe",
+    "whisper": "repro_torch.models.whisper",
+    "llama_vision": "repro_torch.models.llama_vision",
 }
 
 
@@ -44,6 +47,6 @@ def get_arch(name: str) -> ArchConfig:
 def model_module(cfg: ModelConfig):
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP A12b)")
+            f"the {cfg.family!r} family is not ported yet (ROADMAP A12b-2)")
     return importlib.import_module(_FAMILY_MODULES[cfg.family])
 

@@ -1491,3 +1491,123 @@ def test_lm_decode_step_launch_count_on_card(cuda_device):
     got, _ = tf.prefill(srv.params, {"tokens": tokens.to(cuda_device)}, cfg,
                         Runtime(rram=off), 16)
     assert rel(got.cpu(), want) <= 1e-5
+
+
+# ------------------------------------ the attention-based families on the card
+# Mixtral-8x7B's attention and head, whisper-tiny's kernels and head, and
+# Llama-3.2-Vision-11B's MLP and head (its attention shapes are Mixtral's).
+FAMILY_SHAPES = [(4096, 4096), (4096, 1024), (4096, 32000), (384, 384),
+                 (384, 1536), (1536, 384), (384, 51968), (4096, 14336),
+                 (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("shape", FAMILY_SHAPES,
+                         ids=[f"{m}x{n}" for m, n in FAMILY_SHAPES])
+def test_family_dense_on_card_matches_plain_twin(cuda_device, shape):
+    """The analog ``dense`` at the new families' kernel shapes, on decode
+    panels (1 / 4 / 8 rows), prompts (16 / 256) and whisper's 1,500 encoder
+    frames: ``ceil(rows / 8)`` ``ec_rmatmul`` launches and one
+    ``stencil_denoise`` a call, within 1e-5 of its plain twin, bit for bit
+    run to run (lam 1e-2, dw in float32)."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    d_in, d_out = shape
+    w = randn((d_in, d_out), 130, cuda_device) / d_in ** 0.5
+    wt = w * (1 + 0.05 * randn((d_in, d_out), 131, cuda_device))
+    p = {"w": w, "w_tilde": wt, "dw": w - wt}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    for rows in (1, 4, 8, 16, 256, 1500):
+        x = randn((rows, d_in), 132 + rows, cuda_device)
+        kernels.reset_launches()
+        got = dense(p, x, Runtime(rram=rcfg, key=3))
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {
+            **{k: 0 for k in kernels.LAUNCHES},
+            "ec_rmatmul": -(-rows // 8), "stencil_denoise": 1}
+        assert rel(got, dense_plain(p, x, Runtime(rram=rcfg, key=3))) <= 1e-5
+        assert torch.equal(got, dense(p, x, Runtime(rram=rcfg, key=3)))
+
+
+@pytest.mark.parametrize("cap", [8, 12, 80])
+def test_expert_ec_on_card_matches_plain_twin(cuda_device, cap):
+    """``moe.expert_mm`` on a programmed (E, D, F) stack and its (E, F, D)
+    twin: one ``ec_group_rmatmul`` launch per 8 capacity slots and one
+    ``stencil_denoise`` a call, within 1e-5 of ``expert_mm_plain`` with the
+    same DAC draw, bit for bit run to run; DAC off within 1e-5 of the
+    digital batched product."""
+    import dataclasses
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import moe
+    from repro_torch.models.common import Runtime
+    e, d, f = 4, 512, 1536
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    for shape, seed in (((e, d, f), 140), ((e, f, d), 150)):
+        w = randn(shape, seed, cuda_device) / shape[1] ** 0.5
+        wt = w * (1 + 0.05 * randn(shape, seed + 1, cuda_device))
+        p = {"w": w, "w_tilde": wt, "dw": w - wt}
+        x = randn((e, cap, shape[1]), seed + 2, cuda_device)
+        kernels.reset_launches()
+        got = moe.expert_mm(p, x, Runtime(rram=rcfg, key=4))
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {
+            **{k: 0 for k in kernels.LAUNCHES},
+            "ec_group_rmatmul": -(-cap // 8), "stencil_denoise": 1}
+        assert got.shape == (e, cap, shape[2])
+        assert rel(got, moe.expert_mm_plain(
+            p, x, Runtime(rram=rcfg, key=4))) <= 1e-5
+        assert torch.equal(got, moe.expert_mm(p, x,
+                                              Runtime(rram=rcfg, key=4)))
+        off = Runtime(rram=dataclasses.replace(rcfg, encode_inputs=False,
+                                               lam=1e-12))
+        assert rel(moe.expert_mm(p, x, off), torch.bmm(x, w)) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-tiny",
+                                  "llama-3.2-vision-11b"])
+def test_family_decode_step_launch_count_on_card(cuda_device, arch):
+    """A reduced model of each new family programmed on the card (cells of
+    32^2): a decode step launches one ``ec_rmatmul`` per 8 rows of every
+    analog dense (the MoE experts' and llama-vision's self layers' 4-D
+    stacks are digital; whisper's cross-attention projects its 24 encoder
+    frames, llama-vision's its 16 patches, again) and one
+    ``stencil_denoise`` each, nothing else; the prefill's logits with the
+    DAC off equal the CPU's on the same image to 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_arch, model_module
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.serve import Server
+    cfg = get_arch(arch).reduced()
+    mod = model_module(cfg)
+    params = PM.materialize(mod.init_specs(cfg), 0, device=cuda_device)
+    rt = Runtime(rram=RRAMBackendConfig(enabled=True, cell_rows=32,
+                                        cell_cols=32))
+    srv = Server(mod, cfg, params, rt=rt, max_len=16)
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 6), generator=gen)}
+    if cfg.family == "whisper":
+        batch["frames"] = torch.randn(4, 24, cfg.d_model, generator=gen)
+        # 2 layers x (self 4 + cross wq, wk, wv on 4 x 24 rows, wo + mlp 2)
+        per_step = 2 * (4 + 1 + 2 * 12 + 1 + 2) + 1
+    elif cfg.family == "llama_vision":
+        batch["patches"] = torch.randn(4, cfg.n_patches, cfg.d_model,
+                                       generator=gen)
+        per_step = 1 + 2 * 8 + 1 + 3 + 1      # one cross layer + head
+    else:
+        per_step = 2 * 4 + 1                  # attention 4 a layer + head
+    stencils = {"whisper-tiny": 2 * 10 + 1, "llama-3.2-vision-11b": 8,
+                "mixtral-8x7b": 9}[arch]
+    on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+    tok, caches = srv.prefill(on_card)
+    kernels.reset_launches()
+    srv.decode_tokens(tok, caches, 1)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_rmatmul": per_step, "stencil_denoise": stencils}
+    off = dataclasses.replace(rt.rram, encode_inputs=False)
+    cpu_params = PM.tree_map(lambda t: t.cpu(), srv.params)
+    want, _ = mod.prefill(cpu_params, batch, cfg, Runtime(rram=off), 16)
+    got, _ = mod.prefill(srv.params, on_card, cfg, Runtime(rram=off), 16)
+    assert rel(got.cpu(), want) <= 1e-5

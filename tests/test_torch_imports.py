@@ -142,6 +142,39 @@ def test_lm_serving_imports_with_jax_and_repro_blocked():
     assert out.stdout.split() == ["11"]
 
 
+def test_port_file_list_covers_the_attention_families_slice():
+    """The import scan reaches the MoE, whisper and llama-vision modules."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/models/moe.py",
+                "src/repro_torch/models/whisper.py",
+                "src/repro_torch/models/llama_vision.py"):
+        assert rel in names, rel
+
+
+def test_attention_families_import_with_jax_and_repro_blocked():
+    """The three families import with ``jax`` and ``repro`` made
+    unimportable, and ``model_module`` hands each arch its module."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.configs import get_arch, model_module\n"
+        "from repro_torch.models import llama_vision, moe, whisper\n"
+        "for arch, mod in (('mixtral-8x7b', moe),\n"
+        "                  ('phi3.5-moe-42b-a6.6b', moe),\n"
+        "                  ('whisper-tiny', whisper),\n"
+        "                  ('llama-3.2-vision-11b', llama_vision)):\n"
+        "    assert model_module(get_arch(arch).model) is mod, arch\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):

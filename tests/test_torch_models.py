@@ -87,10 +87,8 @@ def test_configs_are_copies_of_the_reference():
         dataclasses.asdict(JRRAM())
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "rwkv6-1.6b",
-                                  "zamba2-1.2b", "whisper-tiny",
-                                  "llama-3.2-vision-11b", "meliso-mvm",
-                                  "no-such-family"])
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "zamba2-1.2b",
+                                  "meliso-mvm", "no-such-family"])
 def test_model_module_names_the_missing_family(name):
     """Every family without a module of the port, named or not."""
     if name == "no-such-family":
@@ -99,6 +97,19 @@ def test_model_module_names_the_missing_family(name):
         cfg = get_arch(name).model
     with pytest.raises(NotImplementedError, match="A12b"):
         model_module(cfg)
+
+
+@pytest.mark.parametrize("name,module", [
+    ("mixtral-8x7b", "moe"), ("phi3.5-moe-42b-a6.6b", "moe"),
+    ("whisper-tiny", "whisper"), ("llama-3.2-vision-11b", "llama_vision")])
+def test_model_module_maps_the_attention_families(name, module):
+    """The families ported after the transformer (moved here from the
+    missing-family cases)."""
+    import importlib
+    assert model_module(get_arch(name).model) is \
+        importlib.import_module(f"repro_torch.models.{module}")
+    assert model_module(get_arch(name).reduced()).__name__ == \
+        f"repro_torch.models.{module}"
 
 
 def test_model_module_maps_the_transformer_family():

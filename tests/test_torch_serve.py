@@ -253,3 +253,34 @@ def test_chip_smoke_lm_phase_rehearses_on_cpu():
     assert any("{'ec_rmatmul': 15, 'stencil_denoise': 15}" in ln
                for ln in lines)
     assert any("flash attention 2 calls (expected 2" in ln for ln in lines)
+
+
+def test_chip_smoke_families_phase_rehearses_on_cpu():
+    """chip_smoke.py's phase 13 at the reduced mixtral-8x7b, whisper-tiny
+    and llama-3.2-vision-11b on the CPU (``lm_probe.py rehearse-families``,
+    the same stand-ins as phase 12's rehearsal): every check passes, the
+    served requests' EC launches are what the families' analog denses
+    give (one ec_rmatmul per 8 rows, the MoE experts and llama-vision's
+    self layers digital), and the expert EC runs one ec_group_rmatmul
+    launch per 8 capacity slots a stack."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, str(repo / "lm_probe.py"), "rehearse-families"],
+        text=True, capture_output=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1].startswith("rehearsal of phase 13")
+    assert "'ec_rmatmul': 288, 'ec_group_rmatmul': 18, " \
+        "'stencil_denoise': 162" in lines[-1]
+    for tag in ("[13a]", "[13c]", "[13d]"):
+        served = [ln for ln in lines if ln.startswith(f"{tag} served")]
+        assert len(served) == 1, tag
+    assert any("{'ec_group_rmatmul': 3, 'stencil_denoise': 3} (expected "
+               "ec_group_rmatmul 3" in ln for ln in lines)
+    assert any("a decode step: {'ec_rmatmul': 37, 'stencil_denoise': 21}"
+               in ln for ln in lines)
