@@ -184,11 +184,23 @@ non-zero, printing no result, without them or without the repository's
      twin at the family's kernel shapes, every launch counted against the
      families' analog denses, DAC-off logits within 1e-4 of the digital
      model, two generate calls under one key equal, times, the idle share
-     and a decode step's bytes against HBM's rate.
+     and a decode step's bytes against HBM's rate;
+ 14. the recurrent families served (``recurrent_phase``, after [13], the
+     same backend and checks): [14a] rwkv6-1.6b whole (24 layers, d_model
+     2,048, 32 heads of 64, d_ff 7,168, vocab 65,536): nine analog denses
+     a layer (w_lora_b is read digitally), 217 ec_rmatmul + 217
+     stencil_denoise a decode step at 4 rows; 4 x 64 -> 32 and 1 x 1,024
+     -> 16 (32 chunks of the inter-chunk scan; the decode step's time
+     against the short prompt's); [14b] zamba2-1.2b whole (38 layers = 6
+     groups of 6 digital mamba blocks, a shared attention block after each
+     group, an analog tail of 2; d_inner 4,096, 64 SSM heads, vocab
+     32,000): 49 + 49 a decode step, 4 x 64 -> 32; for each the dense twin
+     at its five kernel shapes, and the chunked WKV / SSD alone over 1,024
+     tokens against its single-token recurrence, device ms.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12 and 13's
-main calls, and read just after: every kernel must have run on the path that
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13 and
+14's main calls, and read just after: every kernel must have run on the path that
 uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -298,6 +310,15 @@ VISION_REQUEST = (1, 32, 8, 48)
 VISION_GATE = 1.0       # [13d]: every cross layer's gate after materialize
 FAMILY_DENSE_ROWS = (1, 4, 8)  # [13]: decode panels of the dense twin check
 FAMILY_PROFILE_STEPS = 4
+# [14]: the recurrent families at their published widths and depth, float32,
+# weights from LM_SEED.  (batch, prompt tokens, new tokens, max_len): a
+# prompt over 32 tokens must be a multiple of the recurrence's 32-token
+# chunk; rwkv6's second prompt is 32 chunks of the inter-chunk scan.
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_REQUESTS = ((4, 64, 32, 128), (1, 1024, 16, 1040))
+ZAMBA_ARCH = "zamba2-1.2b"
+ZAMBA_REQUEST = (4, 64, 32, 128)
+RECURRENT_SCAN_TOKENS = 1024   # [14]: the chunked WKV / SSD timed alone
 
 
 class SmokeFailure(RuntimeError):
@@ -2178,10 +2199,11 @@ def analog_calls(cfg, b, t, ctx=0, prefill=True):
     ``b`` over ``t`` tokens a sequence (a decode step: t = 1), by the
     reference's programming rule: 2-D and 3-D kernels named "w" are
     programmed, so the MoE experts' (L, E, D, F) stacks and llama-vision's
-    (n_super, per, D, F) self layers stay digital (and the MoE router's
-    image is never read).  ``ctx``: whisper's encoder frames (its encoder
-    runs in prefill only) or llama-vision's patches, which every pass
-    projects through the cross layers' wk / wv again."""
+    (n_super, per, D, F) self layers and zamba2's (groups, per, D, F)
+    mamba blocks stay digital (and the images of the MoE router and of
+    rwkv6's w_lora_b are never read).  ``ctx``: whisper's encoder frames
+    (its encoder runs in prefill only) or llama-vision's patches, which
+    every pass projects through the cross layers' wk / wv again."""
     d, f = cfg.d_model, cfg.d_ff
     q, kv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
 
@@ -2196,6 +2218,17 @@ def analog_calls(cfg, b, t, ctx=0, prefill=True):
     n = b * t
     if cfg.family == "moe":
         calls = attn(n, n) * cfg.n_layers
+    elif cfg.family == "rwkv6":
+        # time mix wr, wk, wv, wg, w_lora_a, wo; channel mix wk, wr, wv
+        calls = ([(d, d, n)] * 4 + [(d, 64, n), (d, d, n), (d, f, n),
+                                    (d, d, n), (f, d, n)]) * cfg.n_layers
+    elif cfg.family == "zamba2":
+        groups, tail = divmod(cfg.n_layers, cfg.attn_every)
+        di, st, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        shared = [(2 * d, d, n)] + attn(n, n) + [(d, d, n)]
+        mamba = [(d, di, n), (d, di, n), (d, st, n), (d, st, n), (d, h, n),
+                 (di, d, n)]
+        calls = shared * groups + mamba * tail
     elif cfg.family == "whisper":
         enc = (attn(b * ctx, b * ctx) + mlp(b * ctx)) * cfg.n_enc_layers
         calls = (enc if prefill else []) + (
@@ -2221,8 +2254,8 @@ def ec_bytes(calls) -> int:
 def digital_weight_bytes(params) -> int:
     """Bytes of every kernel named "w" that carries no image (read whole by
     each pass's digital product); the embedding table is gathered, not
-    read, and the router's programmed w is read digitally (d x E, left
-    out)."""
+    read, and the programmed w of the MoE router (d x E) and of rwkv6's
+    w_lora_b (64 x d a layer) are read digitally (left out)."""
     if not isinstance(params, dict):
         return 0
     own = int(params["w"].nbytes) if isinstance(params.get("w"),
@@ -2238,6 +2271,56 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+
+
+def counted_request(what, srv, cfg, batch, n, ctx=0):
+    """``srv.generate(batch, n)`` with the launch counts zeroed just before
+    and read just after, held to :func:`analog_calls` (one ec_rmatmul per
+    8 rows and one stencil_denoise per analog dense, nothing else) and the
+    tokens to the vocabulary.  Returns (tokens, counts, the prefill's
+    calls, a decode step's calls)."""
+    from repro_torch import kernels
+    b, t = batch["tokens"].shape
+    pre_calls = analog_calls(cfg, b, t, ctx, prefill=True)
+    step_calls = analog_calls(cfg, b, 1, ctx, prefill=False)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = srv.generate(batch, n)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    want_ec = ec_launches(pre_calls) + (n - 1) * ec_launches(step_calls)
+    want_st = len(pre_calls) + (n - 1) * len(step_calls)
+    print(f"{what} with the DAC on: launches "
+          f"{ {k_: v for k_, v in counts.items() if v} } (expected "
+          f"ec_rmatmul {want_ec}, stencil_denoise {want_st})", flush=True)
+    check(tuple(out.shape) == (b, n) and bool((out >= 0).all())
+          and bool((out < cfg.vocab).all()),
+          f"{what}: generate returned {tuple(out.shape)} or a token out of "
+          f"the vocabulary")
+    check(counts["ec_rmatmul"] == want_ec
+          and counts["stencil_denoise"] == want_st
+          and all(v == 0 for k_, v in counts.items()
+                  if k_ not in ("ec_rmatmul", "stencil_denoise")),
+          f"{what}: launches {counts} are not one ec_rmatmul per 8 rows and "
+          f"one stencil_denoise per analog dense")
+    return out, counts, pre_calls, step_calls
+
+
+def serve_times(srv, batch, n):
+    """Host clock around synchronised work (the path warmed before):
+    LM_TIMING_REPS prefills (ms each) and ``n - 1`` decode steps after the
+    last (ms a step)."""
+    pre = []
+    for _ in range(LM_TIMING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, caches = srv.prefill(batch)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    srv.decode_tokens(tok, caches, n - 1)
+    torch.cuda.synchronize()
+    return pre, (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
 
 
 def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
@@ -2289,30 +2372,10 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
                          generator=torch.Generator(device=dev)
                          .manual_seed(LM_SEED + 10))
     batch = {"tokens": toks, **extra}
-    pre_calls = analog_calls(cfg, b, t, ctx, prefill=True)
-    step_calls = analog_calls(cfg, b, 1, ctx, prefill=False)
     # The main path: the request served with the DAC on, counted.
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    out = srv.generate(batch, n)
-    torch.cuda.synchronize()
-    counts = dict(kernels.LAUNCHES)
-    want_ec = ec_launches(pre_calls) + (n - 1) * ec_launches(step_calls)
-    want_st = len(pre_calls) + (n - 1) * len(step_calls)
-    print(f"{tag} served {b} x {t} prompt -> {n} new (max_len {ml}) with "
-          f"the DAC on: launches "
-          f"{ {k_: v for k_, v in counts.items() if v} } (expected "
-          f"ec_rmatmul {want_ec}, stencil_denoise {want_st})", flush=True)
-    check(tuple(out.shape) == (b, n) and bool((out >= 0).all())
-          and bool((out < cfg.vocab).all()),
-          f"{tag} generate returned {tuple(out.shape)} or a token out of "
-          f"the vocabulary")
-    check(counts["ec_rmatmul"] == want_ec
-          and counts["stencil_denoise"] == want_st
-          and all(v == 0 for k_, v in counts.items()
-                  if k_ not in ("ec_rmatmul", "stencil_denoise")),
-          f"{tag} launches {counts} are not one ec_rmatmul per 8 rows and "
-          f"one stencil_denoise per analog dense")
+    out, counts, pre_calls, step_calls = counted_request(
+        f"{tag} served {b} x {t} prompt -> {n} new (max_len {ml})", srv,
+        cfg, batch, n, ctx)
     torch.cuda.synchronize()
     kernels.reset_launches()
     tok, caches = srv.prefill(batch)
@@ -2332,18 +2395,7 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
                               "stencil_denoise": len(step_calls)},
           f"{tag} a pass's launches differ from the expected")
 
-    # Times: host clock around synchronised work (every path warmed above).
-    pre = []
-    for _ in range(LM_TIMING_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tok, caches = srv.prefill(batch)
-        torch.cuda.synchronize()
-        pre.append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    srv.decode_tokens(tok, caches, n - 1)
-    torch.cuda.synchronize()
-    dec = (time.perf_counter() - t0) * 1e3 / max(n - 1, 1)
+    pre, dec = serve_times(srv, batch, n)
     # A decode step: device busy (torch.profiler) against the unprofiled
     # wall, and its bytes (the EC launches' images and panels, the digital
     # kernels read whole) against HBM's rate.
@@ -2666,6 +2718,201 @@ def families_phase(dev, more_shapes, *, cfgs=None, rram=None,
     del params, srv, patches
     free_cuda()
     print(f"[13d] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return total
+
+
+def long_context(tag, dev, mod, cfg, srv, request):
+    """A second request on ``srv``'s programmed model (no programming):
+    served with the DAC on and counted; prefill and decode timed, and the
+    decode step after the full prompt against one after its first 32
+    tokens at the same batch (a recurrent step carries a fixed-size state,
+    so its time should not grow with the context).  Returns the request's
+    launch counts."""
+    from repro_torch.train.serve import Server
+
+    b, t, n, ml = request
+    s = Server(mod, cfg, srv.params, rt=srv.rt, max_len=ml)
+    toks = torch.randint(0, cfg.vocab, (b, t), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(LM_SEED + 11))
+    batch = {"tokens": toks}
+    out, counts, pre_calls, step_calls = counted_request(
+        f"{tag} served {b} x {t} prompt -> {n} new", s, cfg, batch, n)
+    pre, dec = serve_times(s, batch, n)
+    _, short = serve_times(s, {"tokens": toks[:, :32]}, n)
+    again = s.generate(batch, n)
+    print(f"{tag} {b} x {t}: {ec_launches(pre_calls)} + {len(pre_calls)} "
+          f"launches a prefill, {ec_launches(step_calls)} + "
+          f"{len(step_calls)} a decode step; prefill "
+          f"{statistics.median(pre):.2f} ms (min {min(pre):.2f}), decode "
+          f"{dec:.3f} ms a token after {t} tokens of context, {short:.3f} "
+          f"after 32; two generate calls under one key equal: "
+          f"{torch.equal(again, out)}", flush=True)
+    check(torch.equal(again, out), f"{tag} {b} x {t}: two generate calls "
+          f"under one key differ")
+    return counts
+
+
+def recurrence_ms(tag, dev, cfg, t):
+    """The chunked WKV (rwkv6) or SSD (zamba2) alone at batch 1 over ``t``
+    tokens with the model's heads: device ms (``torch.profiler``'s kernel
+    sum; "not measured" when the trace holds no kernel) and host-clock ms
+    a call, its single-token step's host-clock ms a call (the profiler
+    misses some of a step's few short kernels, so the step gets no
+    device reading), and the chunked form's agreement with ``t`` steps
+    run in order (the same recurrence; every log-decay inside both
+    clamps)."""
+    from repro_torch.models import linear_attention as la
+
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 40)
+    if cfg.family == "rwkv6":
+        dk = dv = cfg.ssm_head_dim
+        h = cfg.d_model // dk
+        lshape = (1, t, h, dk)
+    else:
+        h, dk, dv = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        lshape = (1, t, h)
+    q = torch.randn(1, t, h, dk, generator=gen, device=dev)
+    k = torch.randn(1, t, h, dk, generator=gen, device=dev) / dk ** 0.5
+    v = torch.randn(1, t, h, dv, generator=gen, device=dev)
+    logd = -torch.exp(torch.randn(lshape, generator=gen, device=dev)
+                      - 1.0).clamp(1e-6, 1.5)
+    u = torch.randn(h, dk, generator=gen, device=dev) * 0.1
+    s0 = torch.zeros(1, h, dk, dv, device=dev)
+    if cfg.family == "rwkv6":
+        name = "chunked_wkv"
+        chunked = lambda: la.chunked_wkv(q, k, v, logd, u, s0)   # noqa: E731
+        step = lambda: la.wkv_decode_step(                       # noqa: E731
+            q[:, 0], k[:, 0], v[:, 0], logd[:, 0], u, s0)
+    else:
+        name = "chunked_ssd"
+        chunked = lambda: la.chunked_ssd(q, k, v, logd, s0)      # noqa: E731
+        step = lambda: la.ssd_decode_step(                       # noqa: E731
+            q[:, 0], k[:, 0], v[:, 0], logd[:, 0], s0)
+    out, s_fin = chunked()
+    s_seq = s0
+    outs = []
+    for i in range(t):
+        args = (q[:, i], k[:, i], v[:, i], logd[:, i])
+        o, s_seq = la.wkv_decode_step(*args, u, s_seq) \
+            if cfg.family == "rwkv6" else la.ssd_decode_step(*args, s_seq)
+        outs.append(o)
+    err = max(rel_l2(out, torch.stack(outs, dim=1)), rel_l2(s_fin, s_seq))
+    split = kernel_split(chunked, iters=3)
+    dev_ms = f"{sum(split.values()):.3f} ms" if split else "not measured"
+    wall = call_time_ms(chunked, 3)
+    step_wall = call_time_ms(step, 20)
+    print(f"{tag} {name} alone, batch 1 x {t} tokens, {h} heads of {dk} x "
+          f"{dv}, {t // 32} chunks of 32: device {dev_ms}, a call "
+          f"{wall:.3f} ms; its single-token step: a call {step_wall:.4f} "
+          f"ms; chunked vs {t} steps in order rel-L2 {err:.2e}", flush=True)
+    check(err <= 1e-4 and bool(torch.isfinite(out).all()),
+          f"{tag} {name} differs from its token recurrence ({err:.2e})")
+
+
+def recurrent_phase(dev, more_shapes, *, cfgs=None, rram=None,
+                    rwkv_requests=RWKV_REQUESTS, zamba_request=ZAMBA_REQUEST,
+                    scan_tokens=RECURRENT_SCAN_TOKENS,
+                    profile_steps=FAMILY_PROFILE_STEPS):
+    """[14] the recurrent families served on the programmed image at their
+    published widths and depth, float32, random weights from LM_SEED, the
+    [12] backend (taox-hfox, k = 5, EC, 512^2 cells, lam 1e-12, dw fp32),
+    each model freed before the next: [14a] rwkv6-1.6b (24 layers; nine
+    analog denses a layer, w_lora_b digital) on 4 x 64 -> 32 and 1 x 1,024
+    -> 16; [14b] zamba2-1.2b (38 layers: 6 groups of 6 digital mamba blocks
+    with a shared attention block after each, and an analog tail of 2) on
+    4 x 64 -> 32.  Each through :func:`serve_family`'s checks, and the
+    chunked WKV / SSD timed alone over ``scan_tokens`` tokens.  ``cfgs``
+    ({"rwkv6", "zamba2"} -> ModelConfig) replaces the models, so that the
+    phase can be rehearsed on the CPU.  Returns the main path's launch
+    counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models import rwkv6, zamba2
+
+    def full(arch):
+        return dataclasses.replace(get_arch(arch).model,
+                                   param_dtype="float32",
+                                   compute_dtype="float32")
+
+    cfgs = cfgs or {"rwkv6": full(RWKV_ARCH), "zamba2": full(ZAMBA_ARCH)}
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    total = {}
+
+    def add(counts):
+        for k_, v in counts.items():
+            total[k_] = total.get(k_, 0) + v
+
+    def layer0(tree):
+        return PM.tree_map(lambda a: a[0], tree)
+
+    # [14a] rwkv6-1.6b, whole.
+    t0 = time.perf_counter()
+    cfg = cfgs["rwkv6"]
+    free_cuda()
+    params = PM.materialize(rwkv6.init_specs(cfg), LM_SEED, device=dev)
+    b, t, _, _ = rwkv_requests[0]
+    print(f"[14a] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.d_model // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}, "
+          f"d_ff {cfg.d_ff}, LoRA rank {rwkv6.LORA_R}, vocab {cfg.vocab} "
+          f"(padded {cfg.vocab_pad}), {cfg.param_dtype}", flush=True)
+    rows = sorted(set(FAMILY_DENSE_ROWS) | {b * t})
+    counts, srv = serve_family(
+        "[14a]", dev, rwkv6, cfg, params, rram, rwkv_requests[0], {},
+        rt_kw={}, ctx=0, profile_steps=profile_steps,
+        views=lambda prog: [
+            ("tm wr", layer0(prog["layers"])["tm"]["wr"], rows),
+            ("tm w_lora_a", layer0(prog["layers"])["tm"]["w_lora_a"], rows),
+            ("cm wk", layer0(prog["layers"])["cm"]["wk"], rows),
+            ("cm wv", layer0(prog["layers"])["cm"]["wv"], rows),
+            ("lm_head", prog["lm_head"], FAMILY_DENSE_ROWS)])
+    add(counts)
+    add(long_context("[14a]", dev, rwkv6, cfg, srv, rwkv_requests[1]))
+    del params, srv
+    free_cuda()
+    recurrence_ms("[14a]", dev, cfg, scan_tokens)
+    print(f"[14a] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [14b] zamba2-1.2b, whole.
+    t0 = time.perf_counter()
+    cfg = cfgs["zamba2"]
+    free_cuda()
+    params = PM.materialize(zamba2.init_specs(cfg), LM_SEED, device=dev)
+    groups, tail = divmod(cfg.n_layers, cfg.attn_every)
+    b, t, _, _ = zamba_request
+    print(f"[14b] {cfg.n_layers} layers = {groups} groups of "
+          f"{cfg.attn_every} digital mamba blocks (4-D stacks) + a shared "
+          f"attention block after each + an analog tail of {tail}; d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, N {cfg.ssm_state}, "
+          f"{cfg.n_ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+          f"{cfg.n_heads} attention heads of {cfg.d_head}, vocab "
+          f"{cfg.vocab} (padded {cfg.vocab_pad}), {cfg.param_dtype}",
+          flush=True)
+    rows = sorted(set(FAMILY_DENSE_ROWS) | {b * t})
+    tail_views = (lambda prog: [
+        ("tail wz", layer0(prog["tail"])["wz"], rows),
+        ("tail wB", layer0(prog["tail"])["wB"], rows)]) if tail else \
+        (lambda prog: [])
+    counts, srv = serve_family(
+        "[14b]", dev, zamba2, cfg, params, rram, zamba_request, {},
+        rt_kw={}, ctx=0, profile_steps=profile_steps,
+        views=lambda prog: [
+            ("adapter in", layer0(prog["adapters_in"]), rows),
+            ("attn wq", prog["shared_attn"]["attn"]["wq"], rows)]
+        + tail_views(prog) + [
+            ("lm_head", prog["lm_head"], FAMILY_DENSE_ROWS)])
+    add(counts)
+    check(all("w_tilde" not in layer0(layer0(srv.params["groups"]))[k_]
+              for k_ in ("wz", "wx", "wB", "wC", "wdt", "out")),
+          "[14b] a grouped mamba kernel was programmed (4-D stacks stay "
+          "digital)")
+    del params, srv
+    free_cuda()
+    recurrence_ms("[14b]", dev, cfg, scan_tokens)
+    print(f"[14b] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
     return total
 
@@ -3739,6 +3986,12 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(families_phase(torch.device("cuda"), more_shapes))
     print(f"[13] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # -------- 14. the recurrent families served (rwkv6-1.6b, zamba2-1.2b)
+    t0 = time.perf_counter()
+    all_counts.append(recurrent_phase(torch.device("cuda"), more_shapes))
+    print(f"[14] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

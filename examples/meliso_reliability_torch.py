@@ -68,13 +68,15 @@ def lifetime_act(n: int, device: str, dev) -> None:
         res = cg(A, b, tol=1e-6, maxiter=120, key=fold_in(0, salt))
         return float(torch.linalg.vector_norm(b - a @ res.x)) / bn
 
+    # The fresh and the aged solve run under one DAC key, so that what
+    # differs between them is the age, not the input noise.
     fresh = digital_rel(11)
     # Age until ~8 cells of the image have latched under read disturb.
     mvms = max(1, int(8.0 / (fdev.fault_rate * n * n)))
     A.age = A.age.advanced(mvms)
     pred = predicted_residual(fdev, k_iters=cfg.k_iters, seconds=0.0,
                               mvms=mvms, n=n)
-    aged = digital_rel(12)
+    aged = digital_rel(11)
     print(f"[lifetime] n={n} device={device} torch_device={dev}: fresh "
           f"solve {fresh:.2e}, after {mvms} MVMs aged solve {aged:.2e} "
           f"(analytic prediction {pred:.2e})")

@@ -13,7 +13,9 @@ the arch's reduced config (cells of 32 x 32, as the JAX example), or with
 --full its published widths and depth in float32 (cells of 512 x 512, dw
 in float32).  Weights are random, made from seed 0; whisper's frames and
 llama-vision's patches (their frontends are stubs) are random too, made
-from seed 2.
+from seed 2.  The recurrent families (``--arch rwkv6-1.6b`` /
+``zamba2-1.2b``) take a prompt of at most 32 tokens or a multiple of 32
+(the chunk of their recurrence).
 
 It runs on the GPU (``--torch-device cuda``, the default) and exits with an
 error where there is none; the CPU is used only when asked for.

@@ -4,6 +4,7 @@
     python3 lm_probe.py host [--steps 4]
     python3 lm_probe.py rehearse [--arch qwen3-1.7b]
     python3 lm_probe.py rehearse-families
+    python3 lm_probe.py rehearse-recurrent
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
 on the card and runs ``--steps`` decode steps under ``cProfile``, each
@@ -20,7 +21,9 @@ and the ``kernels.*`` wrappers counting their launches as the CUDA path
 does (one ``ec_rmatmul`` launch per 8 columns): its checks and launch
 counts, without a GPU (its times are then the CPU's, not device numbers).
 ``rehearse-families`` does the same for phase 13 (``families_phase``) at
-the reduced mixtral-8x7b, whisper-tiny and llama-3.2-vision-11b.
+the reduced mixtral-8x7b, whisper-tiny and llama-3.2-vision-11b, and
+``rehearse-recurrent`` for phase 14 (``recurrent_phase``) at the reduced
+rwkv6-1.6b and zamba2-1.2b at 5 layers (two groups and an analog tail).
 """
 import argparse
 import sys
@@ -135,6 +138,31 @@ def rehearse_families(args) -> None:
           f"{ {k: v for k, v in counts.items() if v} }")
 
 
+def rehearse_recurrent(args) -> None:
+    """chip_smoke.py's phase 14 at the reduced rwkv6-1.6b (4 x 8 -> 4, then
+    1 x 64 -> 3: two chunks of the inter-chunk scan) and zamba2-1.2b at 5
+    layers (4 x 8 -> 4), the chunked forms alone over 64 tokens, cells of
+    32^2."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
+    cfgs = {"rwkv6": get_arch("rwkv6-1.6b").reduced(),
+            "zamba2": dataclasses.replace(get_arch("zamba2-1.2b").reduced(),
+                                          n_layers=5)}
+    rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
+                             cell_cols=32)
+    t0 = time.perf_counter()
+    counts = chip_smoke.recurrent_phase(
+        torch.device("cpu"), [], cfgs=cfgs, rram=rram,
+        rwkv_requests=((4, 8, 4, 16), (1, 64, 3, 72)),
+        zamba_request=(4, 8, 4, 16), scan_tokens=64, profile_steps=2)
+    print(f"rehearsal of phase 14 (rwkv6-1.6b, zamba2-1.2b reduced) on "
+          f"the CPU passed in {time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
 def host(args, dev=None, cfg=None) -> int:
     """``dev`` / ``cfg`` default to the card and phase 12's model."""
     if dev is None and not torch.cuda.is_available():
@@ -203,7 +231,8 @@ def host(args, dev=None, cfg=None) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("what", choices=("host", "rehearse",
-                                     "rehearse-families"))
+                                     "rehearse-families",
+                                     "rehearse-recurrent"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
     args = ap.parse_args(argv)
@@ -211,8 +240,10 @@ def main(argv=None) -> int:
         return host(args)
     if args.what == "rehearse":
         rehearse(args)
-    else:
+    elif args.what == "rehearse-families":
         rehearse_families(args)
+    else:
+        rehearse_recurrent(args)
     return 0
 
 

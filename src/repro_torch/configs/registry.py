@@ -2,8 +2,9 @@
 
 A copy of :mod:`repro.configs.registry`'s tables, without its abstract
 input specs (those serve the reference's dry run and come with the training
-half of the port).  ``model_module`` maps a family to the port's module and
-raises ``NotImplementedError`` for a family the port does not have yet.
+half of the port).  ``model_module`` maps a family to the port's module
+and, like the reference's dict lookup, raises ``KeyError`` for a family
+without one (``meliso``, or an unknown name).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ ARCHS = tuple(k for k in _MODULES if k != "meliso-mvm")
 _FAMILY_MODULES = {
     "transformer": "repro_torch.models.transformer",
     "moe": "repro_torch.models.moe",
+    "rwkv6": "repro_torch.models.rwkv6",
+    "zamba2": "repro_torch.models.zamba2",
     "whisper": "repro_torch.models.whisper",
     "llama_vision": "repro_torch.models.llama_vision",
 }
@@ -45,8 +48,5 @@ def get_arch(name: str) -> ArchConfig:
 
 
 def model_module(cfg: ModelConfig):
-    if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP A12b-2)")
     return importlib.import_module(_FAMILY_MODULES[cfg.family])
 

@@ -1,8 +1,9 @@
-"""Shared helpers of ``test_torch_families.py`` and
-``test_torch_families_serve.py``: the reduced archs of the attention-based
-families, their batches (tokens, and frames or patches), each family's
-forward pass to the hidden states, runtimes with the reference's DAC draws
-injected, and the salt sequence the reference's scans hand out."""
+"""Shared helpers of ``test_torch_families.py``,
+``test_torch_families_serve.py`` and the recurrent families' two files:
+the reduced archs of the families, their batches (tokens, and frames or
+patches), each family's forward pass to the hidden states, runtimes with
+the reference's DAC draws injected, and the salt sequence the reference's
+scans hand out."""
 import dataclasses
 import functools
 
@@ -85,7 +86,7 @@ def torch_batch(batch):
 
 def hidden(mod, params, batch, cfg, rt):
     """Each family's forward pass to the final-norm hidden states."""
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "rwkv6", "zamba2"):
         return mod.forward(params, batch["tokens"], cfg, rt)[0]
     if cfg.family == "whisper":
         enc = mod.encode(params, batch["frames"], cfg, rt)
@@ -123,6 +124,24 @@ def expected_salts(cfg, self_analog=False):
         self_ = list(range(1, d + 1)) if self_analog else []
         cross = list(range(len(self_) + 1, len(self_) + d + 1))
         seq, last = (self_ * per + cross) * n_super, cross[-1]
+    return seq + [last + 1], last + 1
+
+
+def recurrent_salts(cfg):
+    """The salt of every analog dense call of one pass (forward, then the
+    head): rwkv6's layer scan hands its nine salts to every layer; zamba2's
+    Python group loop gives each shared-block invocation six fresh ones
+    (its grouped mamba blocks are digital), and its tail scan one set of
+    six for every tail block.  Returns (sequence, salts spent)."""
+    if cfg.family == "rwkv6":
+        return list(range(1, 10)) * cfg.n_layers + [10], 10
+    groups = cfg.n_layers // cfg.attn_every
+    tail = cfg.n_layers % cfg.attn_every
+    seq = list(range(1, 6 * groups + 1))
+    last = 6 * groups
+    if tail:
+        seq += list(range(last + 1, last + 7)) * tail
+        last += 6
     return seq + [last + 1], last + 1
 
 

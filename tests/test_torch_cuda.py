@@ -1611,3 +1611,114 @@ def test_family_decode_step_launch_count_on_card(cuda_device, arch):
     want, _ = mod.prefill(cpu_params, batch, cfg, Runtime(rram=off), 16)
     got, _ = mod.prefill(srv.params, on_card, cfg, Runtime(rram=off), 16)
     assert rel(got.cpu(), want) <= 1e-5
+
+
+# -------------------------------------------- the recurrent families on the card
+# rwkv6-1.6b's and zamba2-1.2b's kernel shapes that no test above covers
+# (their 2,048^2 is qwen3-1.7b's).
+RECURRENT_SHAPES = [(2048, 64), (2048, 7168), (7168, 2048), (2048, 65536),
+                    (4096, 2048), (2048, 4096), (2048, 32000)]
+
+
+@pytest.mark.parametrize("shape", RECURRENT_SHAPES,
+                         ids=[f"{m}x{n}" for m, n in RECURRENT_SHAPES])
+def test_recurrent_dense_on_card_matches_plain_twin(cuda_device, shape):
+    """The analog ``dense`` at the recurrent families' kernel shapes, on
+    decode panels (1 / 4 / 8 rows) and prompts (256 / 1,024): ``ceil(rows
+    / 8)`` ``ec_rmatmul`` launches and one ``stencil_denoise`` a call,
+    within 1e-5 of its plain twin, bit for bit run to run (lam 1e-2, dw in
+    float32)."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    d_in, d_out = shape
+    w = randn((d_in, d_out), 160, cuda_device) / d_in ** 0.5
+    wt = w * (1 + 0.05 * randn((d_in, d_out), 161, cuda_device))
+    p = {"w": w, "w_tilde": wt, "dw": w - wt}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    for rows in (1, 4, 8, 256, 1024):
+        x = randn((rows, d_in), 162 + rows, cuda_device)
+        kernels.reset_launches()
+        got = dense(p, x, Runtime(rram=rcfg, key=3))
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {
+            **{k: 0 for k in kernels.LAUNCHES},
+            "ec_rmatmul": -(-rows // 8), "stencil_denoise": 1}
+        assert rel(got, dense_plain(p, x, Runtime(rram=rcfg, key=3))) <= 1e-5
+        assert torch.equal(got, dense(p, x, Runtime(rram=rcfg, key=3)))
+
+
+@pytest.mark.parametrize("fn", ["wkv", "ssd"])
+def test_recurrences_on_card_match_cpu(cuda_device, fn):
+    """``chunked_wkv`` / ``chunked_ssd`` (two chunks from a given state)
+    and their single-token steps on the card against the same calls on the
+    CPU: outputs and states within 1e-5."""
+    from repro_torch.models import linear_attention as la
+    b, t, h, d = 2, 64, 4, 32
+    q, k, v = (randn((b, t, h, d), 170 + i, "cpu") for i in range(3))
+    lshape = (b, t, h, d) if fn == "wkv" else (b, t, h)
+    logd = -torch.exp(randn(lshape, 173, "cpu"))
+    u = randn((h, d), 174, "cpu")
+    s0 = randn((b, h, d, d), 175, "cpu")
+
+    def run(dev):
+        a = [x.to(dev) for x in (q, k, v, logd, u, s0)]
+        if fn == "wkv":
+            return (*la.chunked_wkv(*a[:5], state0=a[5]),
+                    *la.wkv_decode_step(*(x[:, 0] for x in a[:4]), a[4],
+                                        a[5]))
+        return (*la.chunked_ssd(*a[:4], state0=a[5]),
+                *la.ssd_decode_step(*(x[:, 0] for x in a[:4]), a[5]))
+
+    for got, want in zip(run(cuda_device), run("cpu")):
+        assert got.device.type == "cuda" and rel(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_recurrent_decode_step_launch_count_on_card(cuda_device, arch):
+    """A reduced model of each recurrent family programmed on the card
+    (cells of 32^2; zamba2 at 5 layers: two groups and an analog tail): a
+    decode step at 4 rows launches one ``ec_rmatmul`` and one
+    ``stencil_denoise`` per analog dense (rwkv6 9 a layer + the head;
+    zamba2 6 a shared-block invocation + 6 a tail block + the head; its
+    grouped mamba blocks are digital), nothing else; a 4 x 64-token
+    prefill (two chunks) 32 ``ec_rmatmul`` a dense and one for the head's
+    last tokens; its logits and caches with the DAC off equal the CPU's on
+    the same image to 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_arch, model_module
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.serve import Server
+    cfg = get_arch(arch).reduced()
+    if cfg.family == "zamba2":
+        cfg = dataclasses.replace(cfg, n_layers=5)
+    mod = model_module(cfg)
+    params = PM.materialize(mod.init_specs(cfg), 0, device=cuda_device)
+    rt = Runtime(rram=RRAMBackendConfig(enabled=True, cell_rows=32,
+                                        cell_cols=32))
+    srv = Server(mod, cfg, params, rt=rt, max_len=72)
+    denses = 9 * 2 + 1 if cfg.family == "rwkv6" else 6 * 2 + 6 + 1
+    tokens = torch.randint(0, cfg.vocab, (4, 64),
+                           generator=torch.Generator().manual_seed(0))
+    kernels.reset_launches()
+    tok, caches = srv.prefill({"tokens": tokens.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ec_rmatmul"] == (denses - 1) * 32 + 1
+    kernels.reset_launches()
+    srv.decode_tokens(tok, caches, 1)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_rmatmul": denses, "stencil_denoise": denses}
+    off = dataclasses.replace(rt.rram, encode_inputs=False)
+    cpu_params = PM.tree_map(lambda t: t.cpu(), srv.params)
+    want, want_c = mod.prefill(cpu_params, {"tokens": tokens}, cfg,
+                               Runtime(rram=off), 72)
+    got, got_c = mod.prefill(srv.params, {"tokens": tokens.to(cuda_device)},
+                             cfg, Runtime(rram=off), 72)
+    assert rel(got.cpu(), want) <= 1e-5
+    for (path, g), (_, w) in zip(PM.tree_paths(got_c),
+                                 PM.tree_paths(want_c)):
+        if g.dtype.is_floating_point:
+            assert rel(g.cpu(), w) <= 1e-5, path

@@ -153,6 +153,28 @@ def test_serve_lm_takes_frames_and_patches_on_cpu(arch):
             first[0]
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_serve_lm_runs_the_recurrent_families_on_cpu(arch):
+    """The LM serving example on the reduced rwkv6-1.6b and zamba2-1.2b,
+    digital and analog: a 32-token prompt (one chunk of the recurrence),
+    batch x tokens generated, the same sequence for the same seed."""
+    for rram in (False, True):
+        args = ["--torch-device", "cpu", "--arch", arch, "--tokens", "3",
+                "--batch", "2", "--prompt-len", "32"] + \
+            (["--rram"] if rram else [])
+        out = run("serve_lm_torch.py", *args)
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.splitlines()
+        assert lines[0].startswith("analog programming: E=") == rram
+        assert f"arch={arch} backend={'rram' if rram else 'digital'} " \
+            "batch=2" in out.stdout
+        assert any(ln.startswith("generated 6 tokens") for ln in lines)
+        first = [ln for ln in lines if ln.startswith("first sequence:")]
+        assert len(first) == 1 and len(first[0].split(",")) == 3
+        assert run("serve_lm_torch.py", *args).stdout.splitlines()[-1] == \
+            first[0]
+
+
 @pytest.mark.parametrize("script", EXAMPLES)
 def test_examples_do_not_fall_back_to_the_cpu(script):
     if torch.cuda.is_available():

@@ -175,6 +175,43 @@ def test_attention_families_import_with_jax_and_repro_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_port_file_list_covers_the_recurrent_families_slice():
+    """The import scan reaches the linear-attention recurrences and the
+    RWKV-6, Mamba-2 and Zamba2 modules."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/models/linear_attention.py",
+                "src/repro_torch/models/rwkv6.py",
+                "src/repro_torch/models/mamba2.py",
+                "src/repro_torch/models/zamba2.py"):
+        assert rel in names, rel
+
+
+def test_recurrent_families_import_with_jax_and_repro_blocked():
+    """The recurrent families import with ``jax`` and ``repro`` made
+    unimportable, ``model_module`` hands each arch its module, and a
+    family without one raises ``KeyError``."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.configs import get_arch, model_module\n"
+        "from repro_torch.models import (linear_attention, mamba2, rwkv6,\n"
+        "                                zamba2)\n"
+        "assert model_module(get_arch('rwkv6-1.6b').model) is rwkv6\n"
+        "assert model_module(get_arch('zamba2-1.2b').model) is zamba2\n"
+        "try:\n"
+        "    model_module(get_arch('meliso-mvm').model)\n"
+        "except KeyError:\n"
+        "    print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):

@@ -18,6 +18,7 @@ from _torch_port import (DacDraws, few_threads,  # noqa: F401
                          rel, rng_array, rram_program_etas, to_np)
 from repro.configs import ARCHS as JARCHS
 from repro.configs import get_arch as jget_arch
+from repro.configs import model_module as jmodel_module
 from repro.configs.base import RRAMBackendConfig as JRRAM
 from repro.models import common as jc
 from repro.models import flash as jflash
@@ -87,24 +88,27 @@ def test_configs_are_copies_of_the_reference():
         dataclasses.asdict(JRRAM())
 
 
-@pytest.mark.parametrize("name", ["rwkv6-1.6b", "zamba2-1.2b",
-                                  "meliso-mvm", "no-such-family"])
+@pytest.mark.parametrize("name", ["meliso-mvm", "no-such-family"])
 def test_model_module_names_the_missing_family(name):
-    """Every family without a module of the port, named or not."""
+    """A family without a model module, named or not: ``KeyError``, as the
+    reference's dict lookup raises."""
     if name == "no-such-family":
         cfg = dataclasses.replace(get_arch("qwen3-1.7b").model, family=name)
     else:
         cfg = get_arch(name).model
-    with pytest.raises(NotImplementedError, match="A12b"):
+    with pytest.raises(KeyError, match=cfg.family):
         model_module(cfg)
+    with pytest.raises(KeyError, match=cfg.family):
+        jmodel_module(cfg)
 
 
 @pytest.mark.parametrize("name,module", [
     ("mixtral-8x7b", "moe"), ("phi3.5-moe-42b-a6.6b", "moe"),
-    ("whisper-tiny", "whisper"), ("llama-3.2-vision-11b", "llama_vision")])
+    ("whisper-tiny", "whisper"), ("llama-3.2-vision-11b", "llama_vision"),
+    ("rwkv6-1.6b", "rwkv6"), ("zamba2-1.2b", "zamba2")])
 def test_model_module_maps_the_attention_families(name, module):
     """The families ported after the transformer (moved here from the
-    missing-family cases)."""
+    missing-family cases), the recurrent ones included."""
     import importlib
     assert model_module(get_arch(name).model) is \
         importlib.import_module(f"repro_torch.models.{module}")
