@@ -196,11 +196,33 @@ non-zero, printing no result, without them or without the repository's
      group, an analog tail of 2; d_inner 4,096, 64 SSM heads, vocab
      32,000): 49 + 49 a decode step, 4 x 64 -> 32; for each the dense twin
      at its five kernel shapes, and the chunked WKV / SSD alone over 1,024
-     tokens against its single-token recurrence, device ms.
+     tokens against its single-token recurrence, device ms;
+ 15. training on one card (``train_phase``, after [14], float32, TF32
+     off): [15a] qwen3-1.7b at its published widths and depth (2.03 G
+     parameters) trained 10 steps by ``Trainer.run`` from seed-0 weights,
+     AdamW (lr 3e-4, warmup 2 of 10 steps), microbatches of 2 in a batch
+     of 4 x 256 tokens, block remat, batches from the synthetic pipeline
+     through the prefetching thread: finite losses and grad norms, the last
+     three losses' least under the first; the step's median ms (steps 3 to
+     10), tokens/s, model TFLOP/s against the fp32 peak, device busy share
+     against wall over 3 profiled steps and the peak memory against its
+     prediction; a blocking save and a restore into a Trainer built from
+     seed-99 weights, parameters, m, v and count equal bit for bit; [15b]
+     2 of its layers at full width on 1 x 64 tokens: the loss and every
+     leaf's gradient on the card against the same port code on the host's
+     CPU (loss 1e-5, each leaf rel-L2 1e-4); [15c] the analog dense's
+     gradient ([12]'s backend at lam 1e-2): x, w_tilde and dw through
+     ``dense`` (its autograd function over the kernels) against
+     ``dense_plain`` (plain autograd) at the five kernel shapes and 8 / 64
+     rows, 1e-5 and bit for bit run to run, one ec_rmatmul per 8 rows + one
+     stencil_denoise forward and one stencil_denoise backward; then the
+     2-layer model programmed on [12]'s backend, its loss's backward
+     counted (the main path) with a finite gradient on every leaf it
+     reaches.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
-5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13 and
-14's main calls, and read just after: every kernel must have run on the path that
+5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13, 14
+and 15's main calls, and read just after: every kernel must have run on the path that
 uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
@@ -209,6 +231,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -319,6 +342,25 @@ RWKV_REQUESTS = ((4, 64, 32, 128), (1, 1024, 16, 1040))
 ZAMBA_ARCH = "zamba2-1.2b"
 ZAMBA_REQUEST = (4, 64, 32, 128)
 RECURRENT_SCAN_TOKENS = 1024   # [14]: the chunked WKV / SSD timed alone
+# [15]: training on one card.  qwen3-1.7b at its published widths and
+# depth, float32, weights from LM_SEED; (batch, tokens) a step.
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH = (4, 256)
+TRAIN_STEPS = 10
+TRAIN_TCFG = {"lr": 3e-4, "warmup_steps": 2, "total_steps": 10,
+              "microbatch": 2, "remat": "block"}
+TRAIN_PROFILE_STEPS = 3
+TRAIN_GRAD_LAYERS = 2           # [15b] / [15c]: layers at full width
+TRAIN_GRAD_TOKENS = 64          # [15b] / [15c]: 1 x 64 tokens
+TRAIN_LOSS_TOL = 1e-5           # [15b]: card vs CPU, the loss, relative
+TRAIN_GRAD_TOL = 1e-4           # [15b]: card vs CPU, each leaf's rel-L2
+TRAIN_DENSE_ROWS = (8, 64)      # [15c]: rows of the dense gradient checks
+TRAIN_RESTORE_SEED = 99
+# [15a]: the peak predicted before the first run (GiB): parameters,
+# gradients, m, v and the microbatch accumulators (5 x 8.13 GB), the
+# stacked layers' per-layer gradients before they are stacked (5.65 GB)
+# and the activations of one microbatch (~1.5 GB).
+TRAIN_PEAK_PREDICTED_GIB = (44.0, 48.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -2917,6 +2959,283 @@ def recurrent_phase(dev, more_shapes, *, cfgs=None, rram=None,
     return total
 
 
+def leaf_grads(mod, params, batch, cfg, rt):
+    """(loss, {path: gradient}) of ``mod.loss`` over every leaf of
+    ``params`` (a leaf the loss does not reach: None)."""
+    from repro_torch.models import params as PM
+    from repro_torch.train.train_loop import loss_and_grads
+    loss, grads = loss_and_grads(mod, params, batch, cfg, rt)
+    return loss, dict(zip((p for p, _ in PM.tree_paths(params)), grads))
+
+
+def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
+                grad_tokens=TRAIN_GRAD_TOKENS, dense_rows=TRAIN_DENSE_ROWS,
+                rram=None, profile_steps=TRAIN_PROFILE_STEPS):
+    """[15] training on one card: [15a] qwen3-1.7b at its published widths
+    and depth trained by ``Trainer.run`` (float32, TF32 off), its step
+    time, rate, busy share and peak memory, a save and a bit-for-bit
+    restore into a Trainer built from other weights; [15b] the gradient of
+    ``TRAIN_GRAD_LAYERS`` of its layers on the card against the host's
+    CPU; [15c] the analog dense's gradient through the kernels against
+    plain autograd, and the programmed ``TRAIN_GRAD_LAYERS``-layer model's
+    backward, counted.  ``cfg`` replaces the model and the sizes shrink,
+    so that the phase can be rehearsed on the CPU.  Returns the main path's
+    launch counts ([15c]'s backward through the programmed model)."""
+    import gc
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig, TrainConfig
+    from repro_torch.data import Prefetcher, batches, synthetic_batch
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    from repro_torch.models.rram import program_rram
+    from repro_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if cfg is None:
+        cfg = dataclasses.replace(get_arch(TRAIN_ARCH).model,
+                                  param_dtype="float32",
+                                  compute_dtype="float32")
+    tcfg = TrainConfig(**(TRAIN_TCFG if tcfg_kw is None else tcfg_kw))
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    gib = 2.0 ** 30
+    b, t = batch
+    tokens = b * t
+    free_cuda()
+
+    # ---- [15a] the full model trained on one card
+    t0 = time.perf_counter()
+    params = PM.materialize(tf.init_specs(cfg), LM_SEED,
+                            dtype=PM.torch_dtype(cfg.param_dtype), device=dev)
+    n_all = sum(p.numel() for _, p in PM.tree_paths(params))
+    n_embed = params["embed"].numel()
+    n_layers = sum(p.numel() for _, p in PM.tree_paths(params["layers"]))
+    n_ne = n_all - n_embed
+    p_bytes = sum(p.numel() * p.element_size()
+                  for _, p in PM.tree_paths(params))
+    tmp = tempfile.TemporaryDirectory(prefix="train_phase_")
+    trainer = Trainer(tf, cfg, tcfg, params, rt=Runtime(),
+                      ckpt=CheckpointManager(tmp.name, keep_n=1),
+                      ckpt_every=10 ** 9)
+    data = Prefetcher(batches(cfg, b, t), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    init_s = time.perf_counter() - t0
+    hist = trainer.run(data, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses, norms = hist["loss"], hist["grad_norm"]
+    print(f"[15a] {cfg.n_layers} layers, d_model {cfg.d_model}, {n_all / 1e9:.4f} "
+          f"G parameters ({n_ne / 1e9:.4f} G outside the embedding, "
+          f"{p_bytes / 1e9:.3f} GB), {cfg.param_dtype}, TF32 off; "
+          f"materialized + AdamW state in {init_s:.2f} s; {TRAIN_STEPS} steps "
+          f"of {b} x {t} tokens, microbatch {tcfg.microbatch}, remat "
+          f"{tcfg.remat}, lr {tcfg.lr:g} (warmup {tcfg.warmup_steps} of "
+          f"{tcfg.total_steps}); losses "
+          + " ".join(f"{v:.4f}" for v in losses) + "; grad norms "
+          + " ".join(f"{v:.3f}" for v in norms), flush=True)
+    check(all(math.isfinite(v) for v in losses + norms),
+          "[15a] a loss or grad norm is not finite")
+    check(min(losses[-3:]) < losses[0],
+          f"[15a] the last three losses {losses[-3:]} are not under the "
+          f"first {losses[0]:.4f}")
+    step_s = statistics.median(hist["step_time"][2:])
+    flops = 6 * n_ne * tokens + 2 * n_layers * tokens
+    tflops = flops / step_s / 1e12
+    print(f"[15a] a step (median of steps 3-{TRAIN_STEPS}): "
+          f"{step_s * 1e3:.1f} ms (first {hist['step_time'][0] * 1e3:.1f}, "
+          f"min {min(hist['step_time'][2:]) * 1e3:.1f}, max "
+          f"{max(hist['step_time'][2:]) * 1e3:.1f}); {tokens / step_s:.1f} "
+          f"tokens/s; model {tflops:.2f} TFLOP/s ({flops / 1e12:.3f} TFLOP "
+          f"a step: 6 x {n_ne / 1e9:.4f} G x {tokens} + the remat forward "
+          f"2 x {n_layers / 1e9:.4f} G x {tokens}, attention's score "
+          f"products left out) = {tflops * 1e12 / FP32_FLOPS_PER_S:.3f} of "
+          f"the {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
+    print(f"[15a] peak memory {peak / gib:.2f} GiB (held at the start "
+          f"{start_bytes / gib:.2f}; predicted "
+          f"{TRAIN_PEAK_PREDICTED_GIB[0]:.0f}-{TRAIN_PEAK_PREDICTED_GIB[1]:.0f}"
+          f": parameters, gradients, m, v and accumulators 5 x "
+          f"{p_bytes / 1e9:.2f} GB + the layers' unstacked gradients "
+          f"{n_layers * 4 / 1e9:.2f} GB + activations)", flush=True)
+
+    # Device busy against wall: the profiler over ``profile_steps`` steps
+    # (one warm-up step first) against the unprofiled median.
+    split = kernel_split(lambda: trainer.run(data, 1), iters=profile_steps)
+    busy = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[15a] a step's device busy {busy:.1f} ms against {step_s * 1e3:.1f}"
+          f" wall: busy share {busy / (step_s * 1e3):.3f} ({profile_steps} "
+          f"profiled steps); the largest: " + ", ".join(
+              f"{short_kernel_name(k)} {v:.1f}" for k, v in top), flush=True)
+
+    # Save, then restore into a Trainer built from other weights.
+    t0 = time.perf_counter()
+    trainer.save(blocking=True)
+    save_s = time.perf_counter() - t0
+    data.stop()
+    other = PM.materialize(tf.init_specs(cfg), TRAIN_RESTORE_SEED,
+                           dtype=PM.torch_dtype(cfg.param_dtype), device=dev)
+    fresh = Trainer(tf, cfg, tcfg, other, rt=Runtime(),
+                    ckpt=CheckpointManager(tmp.name, keep_n=1))
+    del other
+    t0 = time.perf_counter()
+    fresh.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = [(a, c) for tree in ("params", "m", "v")
+             for (_, a), (_, c) in zip(
+                 PM.tree_paths(trainer.params if tree == "params"
+                               else getattr(trainer.opt_state, tree)),
+                 PM.tree_paths(fresh.params if tree == "params"
+                               else getattr(fresh.opt_state, tree)))]
+    same = all(torch.equal(a, c) for a, c in pairs) and torch.equal(
+        trainer.opt_state.count, fresh.opt_state.count)
+    print(f"[15a] save (blocking) {save_s:.2f} s, restore {restore_s:.2f} s "
+          f"({3 * p_bytes / 1e9:.2f} GB); step {fresh.step} restored into a "
+          f"Trainer from seed-{TRAIN_RESTORE_SEED} weights: parameters, m, v "
+          f"and count equal bit for bit: {same}", flush=True)
+    check(same and fresh.step == trainer.step,
+          "[15a] the restored state differs from the saved one")
+    del trainer, fresh, pairs, data, params
+    tmp.cleanup()
+    gc.collect()
+    free_cuda()
+
+    # ---- [15b] the gradient on the card against the host's CPU
+    small = dataclasses.replace(cfg, n_layers=TRAIN_GRAD_LAYERS)
+    params = PM.materialize(tf.init_specs(small), LM_SEED,
+                            dtype=PM.torch_dtype(small.param_dtype),
+                            device=dev)
+    host = PM.tree_map(lambda a: a.detach().cpu(), params)
+    sb = synthetic_batch(small, 1, grad_tokens, step=0)
+    t0 = time.perf_counter()
+    loss, grads = leaf_grads(tf, params, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in sb.items()}, small,
+                             Runtime(remat="block"))
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_h, grads_h = leaf_grads(tf, host, {k: torch.from_numpy(v)
+                                            for k, v in sb.items()}, small,
+                                 Runtime(remat="block"))
+    host_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(loss_h)) / abs(float(loss_h))
+    errs = {p: rel_l2(g.cpu(), grads_h[p]) for p, g in grads.items()}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    print(f"[15b] {TRAIN_GRAD_LAYERS} layers at full width on 1 x "
+          f"{grad_tokens} tokens: loss {float(loss):.6f} on the card, "
+          f"{float(loss_h):.6f} on the CPU (rel {loss_err:.2e}); "
+          f"{len(errs)} gradient leaves, the worst rel-L2 {worst[1]:.2e} "
+          f"({worst[0]}); loss + gradient {dev_s * 1e3:.1f} ms on the card, "
+          f"{host_s * 1e3:.1f} ms on the CPU", flush=True)
+    check(loss_err <= TRAIN_LOSS_TOL and worst[1] <= TRAIN_GRAD_TOL,
+          f"[15b] the card's loss ({loss_err:.2e}) or gradient ({worst}) is "
+          f"off the CPU's")
+    del host, grads_h
+
+    # ---- [15c] the analog dense's gradient on the card
+    rram_chk = dataclasses.replace(rram, lam=STENCIL_CHECK_LAM)
+    prog, _ = program_rram(params, rram, LM_SEED + 3)
+    layer = PM.tree_map(lambda a: a[0], prog["layers"])
+    views = {"wq": layer["attn"]["wq"], "wk": layer["attn"]["wk"],
+             "wu": layer["mlp"]["wu"], "wd": layer["mlp"]["wd"]}
+    if not cfg.tie_embeddings:
+        views["lm_head"] = prog["lm_head"]
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+
+    def dense_grads(fn, p, x, cot):
+        live = [x.clone().requires_grad_(),
+                p["w_tilde"].detach().clone().requires_grad_(),
+                p["dw"].detach().clone().requires_grad_()]
+        out = fn({"w": p["w"], "w_tilde": live[1], "dw": live[2]}, live[0],
+                 Runtime(rram=rram_chk, key=LM_CHECK_KEY))
+        return torch.autograd.grad(out, live, cot)
+
+    parts = []
+    for name, p in views.items():
+        d_in, d_out = p["w"].shape
+        errs = []
+        for rows in dense_rows:
+            x = torch.randn(rows, d_in, generator=gen, device=dev)
+            cot = torch.randn(rows, d_out, generator=gen, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            got = dense_grads(dense, p, x, cot)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            again = dense_grads(dense, p, x, cot)
+            want = dense_grads(dense_plain, p, x, cot)
+            err = max(rel_l2(a, c) for a, c in zip(got, want))
+            check(err <= EC_TOL and all(torch.equal(a, c)
+                                        for a, c in zip(got, again)),
+                  f"[15c] the dense {d_in}->{d_out} gradient at {rows} rows: "
+                  f"rel-L2 {err:.2e} against plain autograd, or not the "
+                  f"same run to run")
+            check(launched == {"ec_rmatmul": -(-rows // 8),
+                               "stencil_denoise": 2},
+                  f"[15c] the dense {d_in}->{d_out} forward + backward at "
+                  f"{rows} rows launched {launched}")
+            errs.append(f"{err:.1e}")
+        parts.append(f"{name} {d_in}x{d_out} " + " / ".join(errs))
+    print(f"[15c] the analog dense's gradients (x, w_tilde, dw; lam "
+          f"{STENCIL_CHECK_LAM:g}) through AnalogProduct vs plain autograd, "
+          f"worst rel-L2 at " + " / ".join(map(str, dense_rows)) + " rows: "
+          + "; ".join(parts) + "; each bit for bit run to run, one "
+          "ec_rmatmul per 8 rows + one stencil_denoise forward and one "
+          "backward", flush=True)
+
+    # The main path: the programmed model's loss and gradient, counted.
+    pb = {k: torch.from_numpy(v).to(dev) for k, v in sb.items()}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss_a, grads = leaf_grads(tf, prog, pb, small, Runtime(
+        rram=rram, key=LM_DAC_KEY, remat="block"))
+    torch.cuda.synchronize()
+    back_s = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    reached = {p: g for p, g in grads.items() if g is not None}
+    images = {p: t for p, t in PM.tree_paths(prog)
+              if p.endswith("['w_tilde']")}
+    n_dense = len(images)
+    per_pass = sum(t.shape[0] if t.ndim == 3 else 1 for t in images.values())
+    # The layers' denses run again in remat's recompute; the head's not.
+    n_body = per_pass - sum(1 for t in images.values() if t.ndim == 2)
+    want_ec = (per_pass + n_body) * -(-grad_tokens // 8)
+    want_stencil = 2 * per_pass + n_body
+    print(f"[15c] the {TRAIN_GRAD_LAYERS}-layer model programmed ([12]'s "
+          f"backend, DAC on, remat block): loss {float(loss_a):.4f}, "
+          f"forward + backward launches {counts} (expected {want_ec} + "
+          f"{want_stencil}: {per_pass} analog denses a pass in {n_dense} "
+          f"images, the {n_body} in the layers recomputed by remat; one "
+          f"ec_rmatmul per 8 of {grad_tokens} rows and one stencil_denoise "
+          f"a forward, one stencil_denoise a backward); {len(reached)} of "
+          f"{len(grads)} leaves reached, all finite: "
+          f"{all(bool(torch.isfinite(g).all()) for g in reached.values())};"
+          f" forward + backward {back_s * 1e3:.1f} ms", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in reached.values()),
+          "[15c] a non-finite gradient through the programmed model")
+    check(all(p in reached and p.replace("['w_tilde']", "['dw']") in reached
+              for p in images),
+          "[15c] an image the loss reads got no gradient")
+    check(counts["ec_rmatmul"] == want_ec
+          and counts["stencil_denoise"] == want_stencil
+          and all(v == 0 for k, v in counts.items()
+                  if k not in ("ec_rmatmul", "stencil_denoise")),
+          f"[15c] the launches {counts}: not one ec_rmatmul per 8 rows and "
+          f"one stencil_denoise a forward (and recompute), one "
+          f"stencil_denoise a backward, of each analog dense")
+    del prog, params, grads, reached
+    gc.collect()
+    free_cuda()
+    return counts
+
+
 def kernel_phases():
     """Phases [1]-[11]; returns what the report needs: the nvidia-smi line,
     the kernel rows of [2], the other shapes' rows and the main paths'
@@ -3992,6 +4311,12 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(recurrent_phase(torch.device("cuda"), more_shapes))
     print(f"[14] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ---------------------- 15. training on one card (qwen3-1.7b, full)
+    t0 = time.perf_counter()
+    all_counts.append(train_phase(torch.device("cuda")))
+    print(f"[15] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

@@ -5,6 +5,8 @@
     python3 lm_probe.py rehearse [--arch qwen3-1.7b]
     python3 lm_probe.py rehearse-families
     python3 lm_probe.py rehearse-recurrent
+    python3 lm_probe.py rehearse-train
+    python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
 on the card and runs ``--steps`` decode steps under ``cProfile``, each
@@ -24,8 +26,25 @@ counts, without a GPU (its times are then the CPU's, not device numbers).
 the reduced mixtral-8x7b, whisper-tiny and llama-3.2-vision-11b, and
 ``rehearse-recurrent`` for phase 14 (``recurrent_phase``) at the reduced
 rwkv6-1.6b and zamba2-1.2b at 5 layers (two groups and an analog tail).
+``rehearse-train`` does it for phase 15 (``train_phase``) at the reduced
+qwen3-1.7b: 10 steps of 4 x 16 tokens, a save and restore, the card's
+gradient against the CPU's (both the CPU here), the dense gradient checks
+at 8 / 13 rows and the programmed model's backward, counted.
+
+``serve-ab`` times phase 12's serving on the card for this tree and the
+trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
+whose package and kernels are imported and built from there) in turns:
+the others in order, this tree twice, the others in reverse, each turn a
+process of its own (``serve-times --src``).  A turn serves qwen3-1.7b at
+full size, DAC on, programmed by its Server, warms each of phase 12's
+requests, then times ``--reps`` times its prefill and its decode steps,
+synchronised, on the host clock.  It prints each turn's medians and, per
+tree, the median over its turns.  It needs a GPU.
 """
 import argparse
+import json
+import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -163,6 +182,25 @@ def rehearse_recurrent(args) -> None:
           f"{ {k: v for k, v in counts.items() if v} }")
 
 
+def rehearse_train(args) -> None:
+    """chip_smoke.py's phase 15 at the reduced qwen3-1.7b (2 layers,
+    d_model 64; lr 2e-3 so that 10 steps learn), cells of 32^2."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
+    rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
+                             cell_cols=32)
+    t0 = time.perf_counter()
+    counts = chip_smoke.train_phase(
+        torch.device("cpu"), cfg=get_arch("qwen3-1.7b").reduced(),
+        batch=(4, 16), tcfg_kw=dict(chip_smoke.TRAIN_TCFG, lr=2e-3),
+        grad_tokens=13, dense_rows=(8, 13), rram=rram, profile_steps=2)
+    print(f"rehearsal of phase 15 (qwen3-1.7b reduced) on the CPU passed "
+          f"in {time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
 def host(args, dev=None, cfg=None) -> int:
     """``dev`` / ``cfg`` default to the card and phase 12's model."""
     if dev is None and not torch.cuda.is_available():
@@ -228,22 +266,123 @@ def host(args, dev=None, cfg=None) -> int:
     return 0
 
 
+def serve_times(args) -> int:
+    """One turn of ``serve-ab``: phase 12's requests served by the package
+    under ``args.src``; prints one JSON line of medians."""
+    if not torch.cuda.is_available():
+        print("lm_probe: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve() / "src"))
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.serve import Server
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_arch(chip_smoke.LM_ARCH).model,
+                              param_dtype="float32", compute_dtype="float32")
+    params = PM.materialize(tf.init_specs(cfg), chip_smoke.LM_SEED,
+                            device=dev)
+    rt = Runtime(rram=RRAMBackendConfig(enabled=True, dw_dtype="float32"),
+                 key=chip_smoke.LM_DAC_KEY, **chip_smoke.LM_RT_KW)
+    prog = Server(tf, cfg, params, rt=rt, max_len=16).params
+    del params
+    out = {"src": str(Path(args.src).resolve()),
+           "package": str(Path(tf.__file__).resolve().parents[3])}
+    for i, (b, t, n, ml) in enumerate(chip_smoke.LM_REQUESTS):
+        srv = Server(tf, cfg, prog, rt=rt, max_len=ml)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab, (b, t), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(
+                chip_smoke.LM_SEED + 10 + i))}
+        srv.generate(batch, 3)                                # warm
+        pre, dec = [], []
+        for _ in range(args.reps):
+            p, d = chip_smoke.serve_times(srv, batch, n)
+            pre += p
+            dec.append(d)
+        out[f"{b}x{t}"] = {"prefill_ms": statistics.median(pre),
+                           "decode_ms": statistics.median(dec),
+                           "prefill_all": pre, "decode_all": dec}
+    print("SERVE_TIMES " + json.dumps(out), flush=True)
+    return 0
+
+
+def serve_ab(args) -> int:
+    """Turns of ``serve-times``: each ``--other`` tree in the order given,
+    this tree twice, the others in reverse."""
+    if not torch.cuda.is_available():
+        print("lm_probe: no CUDA device (torch.cuda.is_available() is "
+              "False); nothing was run", file=sys.stderr)
+        return 1
+    trees = dict(o.split("=", 1) for o in args.other)
+    trees = {name: Path(d).resolve() for name, d in trees.items()}
+    names = list(trees)
+    trees["change"] = ROOT
+    got = {name: [] for name in trees}
+    for name in names + ["change", "change"] + names[::-1]:
+        run = subprocess.run(
+            [sys.executable, str(ROOT / "lm_probe.py"), "serve-times",
+             "--src", str(trees[name]), "--reps", str(args.reps)],
+            capture_output=True, text=True, timeout=900)
+        line = [ln for ln in run.stdout.splitlines()
+                if ln.startswith("SERVE_TIMES ")]
+        if run.returncode or not line:
+            print(run.stdout[-3000:], run.stderr[-3000:], file=sys.stderr)
+            print(f"lm_probe: the {name} turn failed", file=sys.stderr)
+            return 1
+        res = json.loads(line[0].split(" ", 1)[1])
+        got[name].append(res)
+        print(f"{name} ({res['package']}): " + "; ".join(
+            f"{k} prefill {v['prefill_ms']:.2f} ms, decode "
+            f"{v['decode_ms']:.3f} ms a token" for k, v in res.items()
+            if isinstance(v, dict)), flush=True)
+    for name, runs in got.items():
+        med = {k: [statistics.median(r[k][m] for r in runs)
+                   for m in ("prefill_ms", "decode_ms")]
+               for k in runs[0] if isinstance(runs[0][k], dict)}
+        print(f"{name}, median of its turns: " + "; ".join(
+            f"{k} prefill {p:.2f} ms, decode {d:.3f} ms a token"
+            for k, (p, d) in med.items()), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("what", choices=("host", "rehearse",
                                      "rehearse-families",
-                                     "rehearse-recurrent"))
+                                     "rehearse-recurrent",
+                                     "rehearse-train", "serve-ab",
+                                     "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--other", action="append", default=[],
+                    metavar="NAME=DIR",
+                    help="serve-ab: another tree's name and root")
+    ap.add_argument("--src", default=str(ROOT),
+                    help="serve-times: the tree whose package is served")
+    ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     if args.what == "host":
         return host(args)
+    if args.what == "serve-ab":
+        return serve_ab(args)
+    if args.what == "serve-times":
+        return serve_times(args)
     if args.what == "rehearse":
         rehearse(args)
     elif args.what == "rehearse-families":
         rehearse_families(args)
-    else:
+    elif args.what == "rehearse-recurrent":
         rehearse_recurrent(args)
+    else:
+        rehearse_train(args)
     return 0
 
 

@@ -1,7 +1,8 @@
 """Shared model components of the port (of :mod:`repro.models.common`):
 linear ops (digital + RRAM analog backend), norms, RoPE, GQA attention
 (qk-norm / sliding-window / cross-attn / KV cache), MLPs, embeddings and the
-cross-entropy loss.  Forward only.
+cross-entropy loss, and the layer loops' rematerialisation
+(:func:`layer_body`).
 
 All linear kernels are 2-D ``(d_in, d_out)`` and named ``"w"``: the contract
 that lets :func:`repro_torch.models.rram.program_rram` put any layer on the
@@ -10,7 +11,9 @@ analog backend without model-specific code.  On a layer so programmed,
 hand-written kernels: the tier-1 product is ``kernels.ec_rmatmul`` (the
 ``(d_in, d_out)`` image read backwards, so no weight is transposed) and the
 tier-2 step ``kernels.stencil_denoise``; on CPU tensors both run their plain
-versions.
+versions.  The product is an autograd function whose backward is the
+reference's VJP (another ``stencil_denoise``, then plain matmuls), so a
+loss through an analog layer has the same gradient on every device.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import kernels
 from ..configs.base import ModelConfig, RRAMBackendConfig
@@ -29,7 +33,8 @@ from ..core.prng import fold_in, generator
 from .params import ParamSpec, spec
 
 __all__ = [
-    "Runtime", "dense", "dense_plain", "dense_spec", "rmsnorm",
+    "Runtime", "AnalogProduct", "ec_product", "dense", "dense_plain",
+    "dense_spec", "layer_body", "rmsnorm",
     "rmsnorm_spec", "layernorm", "layernorm_spec", "rope", "rope_tables",
     "attention_specs", "attention", "init_kv_cache", "mlp_specs", "mlp",
     "embed_spec", "unembed_spec", "cross_entropy_loss",
@@ -57,6 +62,7 @@ class Runtime:
     q_chunk: int = 1024
     kv_chunk: int = 1024
     causal_skip: bool = False           # skip of masked KV chunks
+    remat: str = "none"                 # none | block | full
     attn_in_dtype: str = "native"       # "native" | "f32": K/V cast first
     draw: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None
     _salt: int = 0
@@ -64,6 +70,41 @@ class Runtime:
     def next_key(self) -> int:
         self._salt += 1
         return fold_in(self.key if self.key is not None else 0, self._salt)
+
+
+def layer_body(rt: Optional[Runtime], salt: Optional[int], fn: Callable,
+               *args):
+    """``fn(*args)``: one pass of a layer loop's body (the reference's scan
+    body, or a function it checkpoints), its dense calls starting from salt
+    ``salt`` (from where the salt stands when None).  Under ``rt.remat``
+    "block" or "full", with gradients on, the body runs through
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint``: its
+    activations are recomputed in the backward pass.  The salt is reset
+    inside the checkpointed body, so a recompute draws the forward's DAC
+    noise, and put back after it, so the salt after the loop is what it is
+    without remat."""
+    if rt is None:
+        return fn(*args)
+    start = rt._salt if salt is None else salt
+    if rt.remat not in ("block", "full") or not torch.is_grad_enabled():
+        rt._salt = start
+        return fn(*args)
+    passes = []
+
+    def body(*a):
+        resume = rt._salt
+        rt._salt = start
+        recompute = bool(passes)
+        passes.append(None)
+        try:
+            return fn(*a)
+        finally:
+            if recompute:       # may stop early, once it has what it needs
+                rt._salt = resume
+
+    # The body draws only from keyed generators: no RNG state to replay.
+    return checkpoint(body, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +130,54 @@ def dense_spec(d_in: int, d_out: int, axes=("embed", "mlp"),
     return {"w": spec((d_in, d_out), axes, scale=scale)}
 
 
+class AnalogProduct(torch.autograd.Function):
+    """The two-tier EC product ``S (w_tilde^T u + dw^T u_t)`` of a
+    programmed kernel, ``S = I - lam L^T L`` along the output axis, on the
+    ``(d_in, cols)`` panels ``u`` / ``u_t`` (the input and its DAC-encoded
+    copy) of a ``(d_in, d_out)`` image or a ``(g, d_in, d_out)`` stack of
+    them (member ``e`` owning its share of the columns).  The forward is
+    the given tier-1 and tier-2 calls (the kernels on CUDA tensors); the
+    backward is the reference's VJP: ``S`` is symmetric, so ``G' = S G``
+    is one more ``stencil_denoise`` launch, and then ``du = w_tilde G'``,
+    ``du_t = dw G'``, ``d w_tilde = u G'^T``, ``d dw = u_t G'^T`` as plain
+    matmuls (the reference computes them outside any kernel).
+
+    ``apply(u, u_t, w_tilde, dw, lam, tier1, stencil_denoise)``."""
+
+    @staticmethod
+    def forward(ctx, u, u_t, w_tilde, dw, lam, tier1, stencil_denoise):
+        ctx.save_for_backward(u, u_t, w_tilde, dw)
+        ctx.lam, ctx.stencil_denoise = lam, stencil_denoise
+        return stencil_denoise(tier1(w_tilde, dw, u, u_t), lam)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, u_t, w_tilde, dw = ctx.saved_tensors
+        gp = ctx.stencil_denoise(g.contiguous(), ctx.lam)
+        need = ctx.needs_input_grad
+        if w_tilde.ndim == 2:
+            du = w_tilde @ gp if need[0] else None
+            du_t = dw @ gp if need[1] else None
+            dwt = u @ gp.T if need[2] else None
+            ddw = u_t @ gp.T if need[3] else None
+            return du, du_t, dwt, ddw, None, None, None
+        # A stack: member e's columns are its share of the panels.
+        n = w_tilde.shape[0]
+
+        def members(a):                        # (r, n * c) -> (n, r, c)
+            return a.reshape(a.shape[0], n, -1).transpose(0, 1)
+
+        def panel(a):                          # (n, r, c) -> (r, n * c)
+            return a.transpose(0, 1).reshape(a.shape[1], -1)
+
+        gm = members(gp)
+        du = panel(w_tilde @ gm) if need[0] else None
+        du_t = panel(dw @ gm) if need[1] else None
+        dwt = members(u) @ gm.transpose(1, 2) if need[2] else None
+        ddw = members(u_t) @ gm.transpose(1, 2) if need[3] else None
+        return du, du_t, dwt, ddw, None, None, None
+
+
 def dense(p: Dict, x: torch.Tensor, rt: Optional[Runtime] = None
           ) -> torch.Tensor:
     """y = x @ w.  If the layer has been programmed onto the RRAM backend
@@ -99,24 +188,47 @@ def dense(p: Dict, x: torch.Tensor, rt: Optional[Runtime] = None
         tier-2:  y = p - lam (L^T L) p along d_out    (stencil_denoise)
 
     with ``p`` the (d_out, rows) panel: one ``ec_rmatmul`` launch per 8
-    rows and one ``stencil_denoise`` launch on CUDA tensors.  Like the
-    reference, always the Neumann stencil:
-    ``denoise_method`` and ``ec_mode`` are not read.  A ``dw`` kept in
-    bfloat16 is upcast for each call."""
-    return _dense(p, x, rt, kernels.ec_rmatmul, kernels.stencil_denoise)
+    rows and one ``stencil_denoise`` launch on CUDA tensors, through
+    :class:`AnalogProduct` (its backward: one more ``stencil_denoise``).
+    Like the reference, always the Neumann stencil: ``denoise_method`` and
+    ``ec_mode`` are not read.  A ``dw`` kept in bfloat16 is upcast for
+    each call."""
+    return _dense(p, x, rt, _kernel_product)
 
 
 def dense_plain(p: Dict, x: torch.Tensor, rt: Optional[Runtime] = None
                 ) -> torch.Tensor:
     """:func:`dense` with the kernels' plain PyTorch versions on any
-    device: the same DAC draw (from ``rt``'s next key), layout and casts.
-    The twin that the card's checks hold :func:`dense` to."""
-    return _dense(p, x, rt, kernels.ec_rmatmul_plain,
-                  kernels.stencil_denoise_plain)
+    device, differentiated by plain autograd: the same DAC draw (from
+    ``rt``'s next key), layout and casts.  The twin that the card's checks
+    hold :func:`dense` to, forward and backward."""
+    return _dense(p, x, rt, _plain_product)
 
 
-def _dense(p: Dict, x: torch.Tensor, rt: Optional[Runtime], ec_rmatmul,
-           stencil_denoise) -> torch.Tensor:
+def ec_product(u, u_t, w_tilde, dw, lam, tier1, stencil_denoise):
+    """``stencil_denoise(tier1(w_tilde, dw, u, u_t), lam)``, through
+    :class:`AnalogProduct` only where autograd records a gradient: a
+    serving pass pays no autograd node a dense."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, u_t, w_tilde, dw)):
+        return AnalogProduct.apply(u, u_t, w_tilde, dw, lam, tier1,
+                                   stencil_denoise)
+    return stencil_denoise(tier1(w_tilde, dw, u, u_t), lam)
+
+
+def _kernel_product(w_tilde, dw, u, u_t, lam):
+    # The wrappers are looked up at each call (tests count through them).
+    return ec_product(u, u_t, w_tilde, dw, lam, kernels.ec_rmatmul,
+                      kernels.stencil_denoise)
+
+
+def _plain_product(w_tilde, dw, u, u_t, lam):
+    return kernels.stencil_denoise_plain(
+        kernels.ec_rmatmul_plain(w_tilde, dw, u, u_t), lam)
+
+
+def _dense(p: Dict, x: torch.Tensor, rt: Optional[Runtime],
+           product) -> torch.Tensor:
     w = p["w"]
     if rt is None or rt.rram is None or not rt.rram.enabled \
             or "w_tilde" not in p:
@@ -131,8 +243,7 @@ def _dense(p: Dict, x: torch.Tensor, rt: Optional[Runtime], ec_rmatmul,
     f32 = torch.float32
     u = x.reshape(-1, d_in).to(f32).T.contiguous()
     u_t = xt.reshape(-1, d_in).to(f32).T.contiguous()
-    out = ec_rmatmul(p["w_tilde"].to(f32), p["dw"].to(f32), u, u_t)
-    out = stencil_denoise(out, cfg.lam)
+    out = product(p["w_tilde"].to(f32), p["dw"].to(f32), u, u_t, cfg.lam)
     return out.T.reshape(*lead, out.shape[0]).to(cd)
 
 
@@ -181,8 +292,11 @@ def rope_tables(positions: torch.Tensor, theta: float, dh: int):
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          tables=None) -> torch.Tensor:
     """x: (..., T, H, Dh); positions: (..., T) integers.  Rotate-half form
-    on full-width arrays, as the reference spells it (forward only).
-    ``tables``, when given, are :func:`rope_tables` of these positions."""
+    on full-width arrays, as the reference spells it.  Its autograd,
+    ``g cos2 + rot(g sin2)``, is the reference's custom VJP ``g cos2 +
+    rot(g) (-sin2)`` bit for bit: the signed sine table is odd under the
+    half swap.  ``tables``, when given, are :func:`rope_tables` of these
+    positions."""
     cos2, sin2 = tables if tables is not None else \
         rope_tables(positions, theta, x.shape[-1])
     half = x.shape[-1] // 2

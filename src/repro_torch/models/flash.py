@@ -1,5 +1,5 @@
 """Memory-bounded chunked attention (online softmax), plain PyTorch (port of
-:mod:`repro.models.flash`, forward only).
+:mod:`repro.models.flash`; autograd differentiates it).
 
 The reference has no attention kernel: its ``flash_attention`` streams KV
 in chunks with running max / denominator accumulators under ``lax.scan``.

@@ -30,9 +30,9 @@ import torch
 from ..configs.base import ModelConfig
 from . import transformer as base
 from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     embed_spec, init_kv_cache, mlp, mlp_specs, rmsnorm,
-                     rmsnorm_spec, rope_tables, unembed_spec)
-from .params import stack_specs, torch_dtype, tree_map
+                     embed_spec, init_kv_cache, layer_body, mlp, mlp_specs,
+                     rmsnorm, rmsnorm_spec, rope_tables, unembed_spec)
+from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
            "init_caches", "cross_layer_specs"]
@@ -86,21 +86,18 @@ def forward(params: Dict, tokens: torch.Tensor, patches: torch.Tensor,
                                  device=tokens.device)[None, :]
     tabs = rope_tables(positions, cfg.rope_theta, cfg.d_head) \
         if cfg.rope_theta else None
-    n_super, per = _layout(cfg)
     first = rt._salt if rt is not None else 0
-    for s in range(n_super):
-        sp = tree_map(lambda a: a[s], params["super"])
+    for s, sp in enumerate(unstack(params["super"])):
         if rt is not None:
             rt._salt = first        # every super layer: the outer body's
-        for i in range(per):
-            if rt is not None:
-                rt._salt = first    # every self layer: the inner body's
-            lp = tree_map(lambda a: a[i], sp["self"])
+        for i, lp in enumerate(unstack(sp["self"])):
             cache = None if caches is None else \
                 {"k": caches["k"][s, i], "v": caches["v"][s, i],
                  "len": caches["len"][s, i]}
-            x, cache = base.layer_apply(lp, x, cfg, rt, positions, cache,
-                                        tabs)
+            # Every self layer: the inner body's salts (the reference
+            # checkpoints the self layers only).
+            x, cache = layer_body(rt, first, base.layer_apply, lp, x, cfg,
+                                  rt, positions, cache, tabs)
             if caches is not None:
                 caches["len"][s, i] = cache["len"]
         x = _cross_apply(sp["cross"], x, patches, cfg, rt)

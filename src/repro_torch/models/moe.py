@@ -31,9 +31,9 @@ from .. import kernels
 from ..configs.base import ModelConfig
 from . import transformer as base
 from .common import (Runtime, _encode_act, attention, attention_specs,
-                     cross_entropy_loss, embed_spec, rmsnorm, rmsnorm_spec,
-                     rope_tables, unembed_spec)
-from .params import spec, stack_specs, torch_dtype, tree_map
+                     cross_entropy_loss, ec_product, embed_spec, layer_body,
+                     rmsnorm, rmsnorm_spec, rope_tables, unembed_spec)
+from .params import spec, stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
            "init_caches", "layer_specs", "layer_apply", "moe_specs",
@@ -89,10 +89,14 @@ def expert_mm(pd: Dict, x: torch.Tensor,
         tier-1:  p = w_tilde[e]^T x_e^T + dw[e]^T x_tilde_e^T  (ec_group_rmatmul)
         tier-2:  y = p - lam (L^T L) p along F                (stencil_denoise)
 
-    under one DAC draw over the whole buffer.  Digital stacks take a plain
+    under one DAC draw over the whole buffer, through
+    :class:`~.common.AnalogProduct` (its backward: one more
+    ``stencil_denoise`` and batched matmuls).  Digital stacks take a plain
     batched product (the reference computes it outside any kernel)."""
-    return _expert_mm(pd, x, rt, kernels.ec_group_rmatmul,
-                      kernels.stencil_denoise)
+    def product(w_tilde, dw, u, u_t, lam):
+        return ec_product(u, u_t, w_tilde, dw, lam,
+                          kernels.ec_group_rmatmul, kernels.stencil_denoise)
+    return _expert_mm(pd, x, rt, product)
 
 
 def expert_mm_plain(pd: Dict, x: torch.Tensor,
@@ -100,12 +104,14 @@ def expert_mm_plain(pd: Dict, x: torch.Tensor,
     """:func:`expert_mm` with the kernels' plain PyTorch versions on any
     device: the same DAC draw, layout and casts (the twin that the card's
     checks hold :func:`expert_mm` to)."""
-    return _expert_mm(pd, x, rt, kernels.ec_group_rmatmul_plain,
-                      kernels.stencil_denoise_plain)
+    def product(w_tilde, dw, u, u_t, lam):
+        return kernels.stencil_denoise_plain(
+            kernels.ec_group_rmatmul_plain(w_tilde, dw, u, u_t), lam)
+    return _expert_mm(pd, x, rt, product)
 
 
 def _expert_mm(pd: Dict, x: torch.Tensor, rt: Optional[Runtime],
-               group_rmatmul, stencil_denoise) -> torch.Tensor:
+               product) -> torch.Tensor:
     w = pd["w"]
     if rt is None or rt.rram is None or not rt.rram.enabled \
             or "w_tilde" not in pd:
@@ -120,8 +126,8 @@ def _expert_mm(pd: Dict, x: torch.Tensor, rt: Optional[Runtime],
     f32 = torch.float32
     u = x.to(f32).permute(2, 0, 1).reshape(d, e * c).contiguous()
     u_t = xt.to(f32).permute(2, 0, 1).reshape(d, e * c).contiguous()
-    out = group_rmatmul(pd["w_tilde"].to(f32), pd["dw"].to(f32), u, u_t)
-    out = stencil_denoise(out, cfg.lam)                     # (F, E * C)
+    out = product(pd["w_tilde"].to(f32), pd["dw"].to(f32), u, u_t,
+                  cfg.lam)                                  # (F, E * C)
     return out.reshape(-1, e, c).permute(1, 2, 0).to(cd)
 
 
@@ -235,14 +241,12 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         if cfg.rope_theta else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     first = rt._salt if rt is not None else 0
-    for l in range(cfg.n_layers):
-        if rt is not None:
-            rt._salt = first
-        lp = tree_map(lambda a: a[l], params["layers"])
+    for l, lp in enumerate(unstack(params["layers"])):
         cache = None if caches is None else \
             {"k": caches["k"][l], "v": caches["v"][l],
              "len": caches["len"][l]}
-        x, cache, aux = layer_apply(lp, x, cfg, rt, positions, cache, tabs)
+        x, cache, aux = layer_body(rt, first, layer_apply, lp, x, cfg, rt,
+                                   positions, cache, tabs)
         aux_sum = aux_sum + aux
         if caches is not None:
             caches["len"][l] = cache["len"]

@@ -28,7 +28,7 @@ from ..core.prng import fold_in, generator
 
 __all__ = ["ParamSpec", "ShapeDtype", "spec", "materialize", "abstract",
            "logical_axes", "is_spec", "tree_paths", "stack_specs",
-           "tree_map", "torch_dtype", "split_key"]
+           "tree_map", "unstack", "torch_dtype", "split_key"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +81,16 @@ def tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
+
+
+def unstack(tree) -> list:
+    """The per-layer trees of a stacked tree (one a slice of the leaves'
+    leading axis): ``leaf[l]`` of every leaf, cut with one ``unbind`` a
+    leaf, whose backward stacks the layers' gradients once (``leaf[l]``
+    alone would scatter each into a zero tensor of the whole stack)."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_paths(parts)[0][1])
+    return [tree_map(lambda t: t[l], parts) for l in range(n)]
 
 
 def _leaves(tree, path=""):

@@ -32,9 +32,10 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from . import transformer as base
 from .common import (Runtime, cross_entropy_loss, dense, dense_spec,
-                     embed_spec, rmsnorm, rmsnorm_spec, unembed_spec)
+                     embed_spec, layer_body, rmsnorm, rmsnorm_spec,
+                     unembed_spec)
 from .linear_attention import chunked_wkv, wkv_decode_step
-from .params import spec, stack_specs, torch_dtype, tree_map
+from .params import spec, stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
            "init_caches", "layer_specs", "layer_apply", "LORA_R"]
@@ -197,13 +198,11 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     cd = torch_dtype(cfg.compute_dtype)
     x = params["embed"][tokens.long()].to(cd)
     first = rt._salt if rt is not None else 0
-    for l in range(cfg.n_layers):
-        if rt is not None:
-            rt._salt = first        # every layer: the scan body's salts
-        lp = tree_map(lambda a: a[l], params["layers"])
+    for l, lp in enumerate(unstack(params["layers"])):
         st = None if caches is None else \
             {name: caches[name][l] for name in ("S", "tm_x", "cm_x")}
-        x, new = layer_apply(lp, x, cfg, rt, st)
+        # Every layer: the scan body's salts.
+        x, new = layer_body(rt, first, layer_apply, lp, x, cfg, rt, st)
         if caches is not None:
             for name, t in new.items():
                 caches[name][l] = t

@@ -3,7 +3,8 @@
 
 The parameters keep the reference's stacked layout (every layer leaf has a
 leading ``(n_layers,)`` axis); :func:`forward` is a Python loop over the
-layers that hands each one a view ``leaf[l]``.  Interface:
+layers that hands each one its views ``leaf[l]`` (:func:`.params.unstack`),
+each layer through :func:`.common.layer_body` (remat under ``rt.remat``).  Interface:
 
   init_specs(cfg)                              -> spec tree
   loss(params, batch, cfg, rt)                 -> scalar CE
@@ -24,10 +25,10 @@ import torch
 from ..configs.base import ModelConfig
 from .common import (
     NEG_INF, Runtime, attention, attention_specs, cross_entropy_loss, dense,
-    embed_spec, init_kv_cache, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
-    rope_tables, unembed_spec,
+    embed_spec, init_kv_cache, layer_body, mlp, mlp_specs, rmsnorm,
+    rmsnorm_spec, rope_tables, unembed_spec,
 )
-from .params import stack_specs, torch_dtype, tree_map
+from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "logits_fn", "prefill",
            "decode_step", "init_caches", "layer_specs", "layer_apply"]
@@ -78,14 +79,13 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     tabs = rope_tables(positions, cfg.rope_theta, cfg.d_head) \
         if cfg.rope_theta else None           # once for every layer
     first = rt._salt if rt is not None else 0
-    for l in range(cfg.n_layers):
-        if rt is not None:
-            rt._salt = first        # every layer: the body's salts
-        lp = tree_map(lambda a: a[l], params["layers"])
+    for l, lp in enumerate(unstack(params["layers"])):
         cache = None if caches is None else \
             {"k": caches["k"][l], "v": caches["v"][l],
              "len": caches["len"][l]}
-        x, cache = layer_apply(lp, x, cfg, rt, positions, cache, tabs)
+        # Every layer: the body's salts (remat recomputes it under them).
+        x, cache = layer_body(rt, first, layer_apply, lp, x, cfg, rt,
+                              positions, cache, tabs)
         if caches is not None:
             caches["len"][l] = cache["len"]
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), caches

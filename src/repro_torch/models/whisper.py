@@ -22,9 +22,9 @@ import torch
 from ..configs.base import ModelConfig
 from . import transformer as base
 from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     embed_spec, layernorm, layernorm_spec,
+                     embed_spec, layer_body, layernorm, layernorm_spec,
                      mlp, mlp_specs, sinusoidal_positions, unembed_spec)
-from .params import stack_specs, torch_dtype, tree_map
+from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "encode", "decode", "prefill",
            "decode_step", "init_caches", "enc_layer_specs",
@@ -69,17 +69,19 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
                                device=frames.device).to(frames.dtype)
     x = frames + pos[None]
     first = rt._salt if rt is not None else 0
-    for l in range(cfg.n_enc_layers):
-        if rt is not None:
-            rt._salt = first        # every layer: the body's salts
-        lp = tree_map(lambda a: a[l], params["enc_layers"])
-        a, _ = attention(lp["attn"], layernorm(lp["ln_attn"], x,
-                                               cfg.norm_eps),
-                         cfg, rt, causal=False)
-        x = x + a
-        x = x + mlp(lp["mlp"], layernorm(lp["ln_mlp"], x, cfg.norm_eps),
-                    cfg, rt)
+    for lp in unstack(params["enc_layers"]):
+        # Every layer: the body's salts.
+        x = layer_body(rt, first, _enc_layer, lp, x, cfg, rt)
     return layernorm(params["enc_ln_f"], x, cfg.norm_eps)
+
+
+def _enc_layer(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
+               rt: Optional[Runtime]) -> torch.Tensor:
+    a, _ = attention(lp["attn"], layernorm(lp["ln_attn"], x, cfg.norm_eps),
+                     cfg, rt, causal=False)
+    x = x + a
+    return x + mlp(lp["mlp"], layernorm(lp["ln_mlp"], x, cfg.norm_eps),
+                   cfg, rt)
 
 
 def _dec_layer(lp: Dict, x: torch.Tensor, enc: torch.Tensor,
@@ -115,14 +117,12 @@ def decode(params: Dict, tokens: torch.Tensor, enc: torch.Tensor,
     x = x + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(cd)
 
     first = rt._salt if rt is not None else 0
-    for l in range(cfg.n_layers):
-        if rt is not None:
-            rt._salt = first
-        lp = tree_map(lambda a: a[l], params["dec_layers"])
+    for l, lp in enumerate(unstack(params["dec_layers"])):
         cache = None if caches is None else \
             {"k": caches["k"][l], "v": caches["v"][l],
              "len": caches["len"][l]}
-        x, cache = _dec_layer(lp, x, enc, cfg, rt, positions, cache)
+        x, cache = layer_body(rt, first, _dec_layer, lp, x, enc, cfg, rt,
+                              positions, cache)
         if caches is not None:
             caches["len"][l] = cache["len"]
     return layernorm(params["dec_ln_f"], x, cfg.norm_eps), caches

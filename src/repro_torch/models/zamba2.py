@@ -34,10 +34,11 @@ import torch
 from ..configs.base import ModelConfig
 from . import transformer as base
 from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     dense, dense_spec, embed_spec, init_kv_cache, rmsnorm,
-                     rmsnorm_spec, rope_tables, unembed_spec)
+                     dense, dense_spec, embed_spec, init_kv_cache,
+                     layer_body, rmsnorm, rmsnorm_spec, rope_tables,
+                     unembed_spec)
 from .mamba2 import empty_state, mamba_apply, mamba_specs
-from .params import stack_specs, torch_dtype, tree_map
+from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
            "init_caches"]
@@ -93,23 +94,32 @@ def init_caches(b: int, max_len: int, cfg: ModelConfig, device) -> Dict:
 
 
 def _mamba_stack(x: torch.Tensor, stacked: Dict, states: Optional[Dict],
-                 n: int, cfg: ModelConfig, rt: Optional[Runtime]
-                 ) -> torch.Tensor:
-    """The reference's ``mamba_scan`` over ``n`` stacked blocks: every
+                 cfg: ModelConfig, rt: Optional[Runtime]) -> torch.Tensor:
+    """The reference's ``mamba_scan`` over the stacked blocks: every
     block takes the scan body's salts.  ``states`` (one entry per block)
     are written in place."""
     first = rt._salt if rt is not None else 0
-    for i in range(n):
-        if rt is not None:
-            rt._salt = first
-        lp = tree_map(lambda a: a[i], stacked)
+    for i, lp in enumerate(unstack(stacked)):
         st = None if states is None else \
             {name: states[name][i] for name in ("conv", "ssm")}
-        x, new = mamba_apply(lp, x, cfg, rt, st)
+        x, new = layer_body(rt, first, mamba_apply, lp, x, cfg, rt, st)
         if states is not None:
             for name, t in new.items():
                 states[name][i] = t
     return x
+
+
+def _shared_block(shared: Dict, x: torch.Tensor, x0: torch.Tensor,
+                  ain: Dict, aout: Dict, cfg: ModelConfig,
+                  rt: Optional[Runtime], positions, kv: Optional[Dict],
+                  tabs):
+    """One shared-attention invocation: its group's adapters around the
+    shared block, fed ``concat(x, x0)``."""
+    h = rmsnorm(shared["ln"], torch.cat([x, x0], dim=-1), cfg.norm_eps)
+    h = dense(ain, h, rt)
+    a_out, kv = attention(shared["attn"], h, cfg, rt, positions=positions,
+                          cache=kv, rope_tabs=tabs)
+    return x + dense(aout, a_out, rt), kv
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -119,37 +129,34 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     cd = torch_dtype(cfg.compute_dtype)
     x0 = params["embed"][tokens.long()].to(cd)
     x = x0
-    groups, per, tail = _layout(cfg)
+    groups, _, tail = _layout(cfg)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
     tabs = rope_tables(positions, cfg.rope_theta, cfg.d_head) \
         if cfg.rope_theta else None          # once for every invocation
     shared = params["shared_attn"]
+    group_ps = unstack(params["groups"])
+    ains = unstack(params["adapters_in"])
+    aouts = unstack(params["adapters_out"])
 
     for g in range(groups):
-        gp = tree_map(lambda a: a[g], params["groups"])
         gst = None if caches is None else \
             {name: caches["groups"][name][g] for name in ("conv", "ssm")}
         # The grouped blocks are digital (4-D kernels): no salt is drawn.
-        x = _mamba_stack(x, gp, gst, per, cfg, rt)
-        # The shared attention invocation: fresh salts every group.
-        ain = tree_map(lambda a: a[g], params["adapters_in"])
-        aout = tree_map(lambda a: a[g], params["adapters_out"])
+        x = _mamba_stack(x, group_ps[g], gst, cfg, rt)
+        # The shared attention invocation: fresh salts every group (and
+        # its own remat, as the reference checkpoints it).
         kv = None if caches is None else \
             {name: caches["kv"][name][g] for name in ("k", "v", "len")}
-        h = rmsnorm(shared["ln"], torch.cat([x, x0], dim=-1), cfg.norm_eps)
-        h = dense(ain, h, rt)
-        a_out, kv = attention(shared["attn"], h, cfg, rt,
-                              positions=positions, cache=kv, rope_tabs=tabs)
-        x = x + dense(aout, a_out, rt)
+        x, kv = layer_body(rt, None, _shared_block, shared, x, x0, ains[g],
+                           aouts[g], cfg, rt, positions, kv, tabs)
         if caches is not None:
             caches["kv"]["len"][g] = kv["len"]
 
     if tail:
         x = _mamba_stack(x, params["tail"],
-                         None if caches is None else caches["tail"], tail,
-                         cfg, rt)
+                         None if caches is None else caches["tail"], cfg, rt)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), caches
 
 

@@ -1,2 +1,6 @@
-"""Serving of the port (:mod:`repro_torch.train.serve`); training is
-ROADMAP A12c."""
+"""Training and serving of the port: AdamW (:mod:`.optimizer`), the train
+step and :class:`Trainer` (:mod:`.train_loop`) and the server
+(:mod:`.serve`)."""
+from .optimizer import OptState, adamw_init, adamw_update, lr_schedule
+from .train_loop import Trainer, make_train_step
+from .serve import Server, greedy_generate

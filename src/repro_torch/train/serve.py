@@ -3,11 +3,11 @@ decode, digital or on the RRAM analog backend (weights programmed once at
 server construction; every linear layer then runs the two-tier-EC analog
 product, which pays only the input-DAC cost a token).
 
-The decode steps run as an eager host loop, one :func:`decode_step` a
-token, keyed as the reference's fused decode scan keys them: prefill runs
-under ``fold_in(base, 0)`` and decode step ``t`` under ``fold_in(base, t +
-1)``, with ``base`` the runtime key, or ``fold_in(key, 1)`` when the
-runtime has none.
+Prefill and decode run under ``torch.no_grad()``.  The decode steps run
+as an eager host loop, one :func:`decode_step` a token, keyed as the
+reference's fused decode scan keys them: prefill runs under ``fold_in(base,
+0)`` and decode step ``t`` under ``fold_in(base, t + 1)``, with ``base`` the
+runtime key, or ``fold_in(key, 1)`` when the runtime has none.
 
 A :class:`Server` built with already programmed params (``w_tilde`` /
 ``dw`` present) skips ``program_rram``, so a cache hit pays no write cost.
@@ -81,6 +81,7 @@ class Server:
             return self.rt.key
         return fold_in(self.key, 1)
 
+    @torch.no_grad()
     def prefill(self, batch: Dict) -> Tuple[torch.Tensor, Any]:
         """(first greedy token (B, 1) int32, filled caches)."""
         rt = self._rt_for(fold_in(self._noise_base(), 0))
@@ -89,6 +90,7 @@ class Server:
         tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
         return tok, caches
 
+    @torch.no_grad()
     def decode_tokens(self, tok: torch.Tensor, caches: Any,
                       n: int) -> Tuple[torch.Tensor, Any]:
         """Greedy-decode ``n`` tokens after ``tok``: ((B, n) int32, caches);

@@ -1722,3 +1722,150 @@ def test_recurrent_decode_step_launch_count_on_card(cuda_device, arch):
                                  PM.tree_paths(want_c)):
         if g.dtype.is_floating_point:
             assert rel(g.cpu(), w) <= 1e-5, path
+
+
+# --------------------------------------------------- training on the card
+def _dense_grads(fn, p, x, cot, rt):
+    """Gradients of ``x``, ``w_tilde`` and ``dw`` through ``fn``."""
+    live = [x.clone().requires_grad_(), p["w_tilde"].clone().requires_grad_(),
+            p["dw"].clone().requires_grad_()]
+    out = fn({"w": p["w"], "w_tilde": live[1], "dw": live[2]}, live[0], rt)
+    return torch.autograd.grad(out, live, cot)
+
+
+@pytest.mark.parametrize("shape", QWEN3_SHAPES,
+                         ids=[f"{m}x{n}" for m, n in QWEN3_SHAPES])
+def test_lm_dense_gradient_on_card_matches_plain_autograd(cuda_device,
+                                                          shape):
+    """The analog ``dense``'s autograd function (its backward: one more
+    ``stencil_denoise`` and four matmuls) at qwen3-1.7b's kernel shapes, 8
+    and 64 rows: x, w_tilde and dw within 1e-5 of ``dense_plain``'s plain
+    autograd under the same DAC key, bit for bit run to run;
+    ``ceil(rows / 8)`` ``ec_rmatmul`` + 2 ``stencil_denoise`` launches."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models.common import Runtime, dense, dense_plain
+    d_in, d_out = shape
+    w = randn((d_in, d_out), 160, cuda_device) / d_in ** 0.5
+    wt = w * (1 + 0.05 * randn((d_in, d_out), 161, cuda_device))
+    p = {"w": w, "w_tilde": wt, "dw": w - wt}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    for rows in (8, 64):
+        x = randn((rows, d_in), 162 + rows, cuda_device)
+        cot = randn((rows, d_out), 163 + rows, cuda_device)
+        kernels.reset_launches()
+        got = _dense_grads(dense, p, x, cot, Runtime(rram=rcfg, key=3))
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {
+            **{k: 0 for k in kernels.LAUNCHES},
+            "ec_rmatmul": -(-rows // 8), "stencil_denoise": 2}
+        want = _dense_grads(dense_plain, p, x, cot, Runtime(rram=rcfg, key=3))
+        again = _dense_grads(dense, p, x, cot, Runtime(rram=rcfg, key=3))
+        for a, b, c in zip(got, want, again):
+            assert rel(a, b) <= 1e-5 and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cap", [8, 12])
+def test_expert_mm_gradient_on_card_matches_plain_autograd(cuda_device, cap):
+    """``moe.expert_mm``'s stacked backward on a programmed (E, D, F) stack:
+    x, w_tilde and dw within 1e-5 of ``expert_mm_plain``'s autograd, one
+    ``ec_group_rmatmul`` per 8 slots + 2 ``stencil_denoise`` launches."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import moe
+    from repro_torch.models.common import Runtime
+    e, d, f = 4, 512, 1536
+    w = randn((e, d, f), 170, cuda_device) / d ** 0.5
+    wt = w * (1 + 0.05 * randn((e, d, f), 171, cuda_device))
+    p = {"w": w, "w_tilde": wt, "dw": w - wt}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    x = randn((e, cap, d), 172, cuda_device)
+    cot = randn((e, cap, f), 173, cuda_device)
+    kernels.reset_launches()
+    got = _dense_grads(moe.expert_mm, p, x, cot, Runtime(rram=rcfg, key=4))
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_group_rmatmul": -(-cap // 8), "stencil_denoise": 2}
+    want = _dense_grads(moe.expert_mm_plain, p, x, cot,
+                        Runtime(rram=rcfg, key=4))
+    for a, b in zip(got, want):
+        assert rel(a, b) <= 1e-5
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One train step of reduced qwen3-1.7b (microbatch 2, remat block) on
+    the card and on the CPU from the same parameters and batch: the loss
+    and grad norm within 1e-5, m (0.1 x the clipped gradient) within 1e-4
+    a leaf, and the parameters' change within 1e-3 a leaf (Adam's first
+    step turns a near-zero gradient into +-lr, as in
+    ``test_torch_train.py``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import adamw_init, make_train_step
+    cfg = get_arch("qwen3-1.7b").reduced()
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=10, microbatch=2)
+    params = PM.materialize(tf.init_specs(cfg), 0, device=cuda_device)
+    host = PM.tree_map(lambda t: t.cpu(), params)
+    before = PM.tree_map(lambda t: t.clone(), host)
+    batch = synthetic_batch(cfg, 4, 16, step=0)
+    out = {}
+    for name, prm in (("card", params), ("cpu", host)):
+        prm, state, m = make_train_step(tf, cfg, tcfg)(prm, adamw_init(prm),
+                                                       batch)
+        out[name] = (prm, state, m)
+    (p_d, s_d, m_d), (p_h, s_h, m_h) = out["card"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_d[key]) - float(m_h[key])) <= 1e-5 * abs(
+            float(m_h[key]))
+    for (path, a), (_, b) in zip(PM.tree_paths(s_d.m), PM.tree_paths(s_h.m)):
+        assert rel(a.cpu(), b) <= 1e-4, path
+    for (path, a), (_, b), (_, c) in zip(PM.tree_paths(p_d),
+                                         PM.tree_paths(p_h),
+                                         PM.tree_paths(before)):
+        assert rel(a.cpu() - c, b - c) <= 1e-3, path
+
+
+def test_programmed_model_backward_on_card(cuda_device):
+    """A reduced qwen3-1.7b programmed on the card, its loss's backward
+    with remat block: 15 analog denses a pass (14 in the layers, which
+    the recompute runs again) -> (15 + 14) x ceil(24 / 8) ``ec_rmatmul``
+    and 15 + 14 + 15 ``stencil_denoise`` launches, nothing else; with the
+    DAC off the gradients equal the CPU's on the same image to 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import program_rram
+    from repro_torch.train.train_loop import loss_and_grads
+    cfg = get_arch("qwen3-1.7b").reduced()
+    params = PM.materialize(tf.init_specs(cfg), 0, device=cuda_device)
+    rcfg = RRAMBackendConfig(enabled=True, cell_rows=32, cell_cols=32,
+                             dw_dtype="float32")
+    prog, _ = program_rram(params, rcfg, 5)
+    batch = synthetic_batch(cfg, 4, 6, step=0)
+
+    def grads(prm, rram, dev):
+        return loss_and_grads(tf, prm, {k: torch.from_numpy(v).to(dev)
+                                        for k, v in batch.items()}, cfg,
+                              Runtime(rram=rram, key=7, remat="block"))[1]
+
+    kernels.reset_launches()
+    got = grads(prog, rcfg, cuda_device)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_rmatmul": (15 + 14) * 3, "stencil_denoise": 15 + 14 + 15}
+    assert all(bool(torch.isfinite(g).all()) for g in got if g is not None)
+    off = dataclasses.replace(rcfg, encode_inputs=False)
+    cpu_prog = PM.tree_map(lambda t: t.cpu(), prog)
+    for (path, _), a, b in zip(PM.tree_paths(prog),
+                               grads(prog, off, cuda_device),
+                               grads(cpu_prog, off, "cpu")):
+        assert (a is None) == (b is None), path
+        if a is not None:
+            assert rel(a.cpu(), b) <= 1e-4, path

@@ -1,10 +1,12 @@
 """The port's example scripts run end to end on the CPU when asked to
 (``--torch-device cpu``): the quickstart's Table-1 grid, the solver
 example's asserts on a 2 x 4 mesh, the LP example's, the portfolio
-example's and the reliability example's asserts, and the LM serving
-example, digital and analog; without a GPU and
+example's and the reliability example's asserts, the LM serving
+example, digital and analog, and the LM training example (three steps, a
+checkpoint and a resume); without a GPU and
 without that flag each exits non-zero
 with a message instead of falling back to the CPU."""
+import math
 import os
 import subprocess
 import sys
@@ -16,7 +18,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ["quickstart_torch.py", "meliso_solver_torch.py",
             "meliso_portfolio_torch.py", "meliso_lp_torch.py",
-            "meliso_reliability_torch.py", "serve_lm_torch.py"]
+            "meliso_reliability_torch.py", "serve_lm_torch.py",
+            "train_lm_torch.py"]
 
 
 def run(script, *args):
@@ -173,6 +176,27 @@ def test_serve_lm_runs_the_recurrent_families_on_cpu(arch):
         assert len(first) == 1 and len(first[0].split(",")) == 3
         assert run("serve_lm_torch.py", *args).stdout.splitlines()[-1] == \
             first[0]
+
+
+def test_train_lm_on_cpu(tmp_path):
+    """The smoke preset (4 layers, d_model 128) for 3 steps: a finite loss
+    a step, a checkpoint at step 3, then ``--resume`` goes on from it."""
+    ck = str(tmp_path / "ckpt")
+    args = ["--preset", "smoke", "--steps", "3", "--torch-device", "cpu",
+            "--ckpt-dir", ck]
+    out = run("train_lm_torch.py", *args)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "arch=qwen3-1.7b preset=smoke params=1.0M"
+    steps = [line.split() for line in lines if line.startswith("step ")]
+    assert [int(s[1]) for s in steps] == [1, 2, 3]
+    assert all(math.isfinite(float(s[3])) for s in steps)
+    assert lines[-1] == f"checkpointed at step 3 -> {ck}"
+    more = run("train_lm_torch.py", *args[:2], "--steps", "2", *args[4:],
+               "--resume")
+    assert more.returncode == 0, more.stderr
+    assert "resumed from step 3" in more.stdout
+    assert more.stdout.splitlines()[-1] == f"checkpointed at step 5 -> {ck}"
 
 
 @pytest.mark.parametrize("script", EXAMPLES)

@@ -20,7 +20,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
      REPO / "examples" / "meliso_portfolio_torch.py",
      REPO / "examples" / "meliso_lp_torch.py",
      REPO / "examples" / "meliso_reliability_torch.py",
-     REPO / "examples" / "serve_lm_torch.py"]
+     REPO / "examples" / "serve_lm_torch.py",
+     REPO / "examples" / "train_lm_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -206,6 +207,42 @@ def test_recurrent_families_import_with_jax_and_repro_blocked():
         "    model_module(get_arch('meliso-mvm').model)\n"
         "except KeyError:\n"
         "    print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_port_file_list_covers_the_training_slice():
+    """The import scan reaches the optimizer, the train loop, the data
+    pipeline and the training example."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/train/optimizer.py",
+                "src/repro_torch/train/train_loop.py",
+                "src/repro_torch/train/__init__.py",
+                "src/repro_torch/data/__init__.py",
+                "src/repro_torch/data/pipeline.py",
+                "examples/train_lm_torch.py"):
+        assert rel in names, rel
+
+
+def test_training_imports_with_jax_and_repro_blocked():
+    """The training modules import with ``jax`` and ``repro`` made
+    unimportable, and export the reference's names."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.train import (OptState, Server, Trainer,\n"
+        "    adamw_init, adamw_update, greedy_generate, lr_schedule,\n"
+        "    make_train_step)\n"
+        "from repro_torch.train.optimizer import global_norm\n"
+        "from repro_torch.data import Prefetcher, batches, synthetic_batch\n"
+        "from repro_torch.models.common import AnalogProduct, layer_body\n"
+        "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
                          capture_output=True, timeout=120)
