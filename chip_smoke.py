@@ -22,9 +22,15 @@ non-zero, printing no result, without them or without the repository's
      timed at 1e-12 and 1e3, held at lam 10 to its plain version and at lam
      1e3 to a float64 solve (within twice the plain version's error), bit
      for bit run to run, with each CUDA kernel's share of a call (the
-     transposes of a panel wider than one column); and the launch floor
-     (500 back-to-back launches of stencil_denoise on a 1 x 1 panel),
-     recorded beside the four small kernels;
+     transposes of a panel wider than one column); the launch floor (500
+     back-to-back launches of richardson_update on a 1 x 1 panel, a plain
+     launch) with the 1 x 1 stencil_denoise and cg_update beside it (both
+     launched with programmatic dependent launch), recorded beside the four
+     small kernels; the EC + stencil pair of a corrected MVM at batch 1
+     and 8; and stencil_denoise (lam 1e-12 and 1e-2) and cg_update at the
+     main path's other panels (TIER2_STENCIL_SHAPES, TIER2_CG_SHAPES), each
+     against its plain version and bit for bit run to run, beside its byte
+     bound and share;
   3. serve 8 single-vector requests and one batch of 8 through
      ``backend="cuda"``, against the digital ``a @ x``, the ``reference``
      backend on the same image, and -- with the input DAC off, where both
@@ -36,7 +42,8 @@ non-zero, printing no result, without them or without the repository's
      Richardson, BiCGSTAB and GMRES(20) to x error <= 1e-3, and with
      iterative refinement (inner CG) to a digital relative residual <=
      1e-5, below the printed one-MVM noise floor; each cold and warm, with
-     one ec_matmul and one stencil_denoise launch an MVM;
+     one ec_matmul and one stencil_denoise launch an MVM; a warm CG
+     solve's device ms an iteration (torch.profiler);
   4e. on the same image: Lanczos (tol 1e-3), LOBPCG (k = 2, largest and
      smallest), spectral_bounds / estimate_omega(method="lanczos") and
      Richardson at that omega; each pair's digital Ritz residual against
@@ -163,8 +170,9 @@ non-zero, printing no result, without them or without the repository's
      ec_rmatmul + 197 stencil_denoise a decode step at 4 rows); DAC off,
      prefill's logits within 1e-4 of the digital model; DAC on, two
      generate calls under one key equal; program, prefill and decode times,
-     device busy against wall over the decode loop, and a decode step's EC
-     kernels against their byte bound;
+     device busy against wall over the decode loop, a decode step's EC
+     kernels against their byte bound, and the stencil's device ms summed
+     over the 1 x 1,024 prefill's launches against their byte bound;
  13. the attention-based families served (``families_phase``, float32,
      weights from seed 0, the [12] backend, each model freed before the
      next): [13a] Mixtral-8x7B at its published widths, 8 of its 32
@@ -283,6 +291,20 @@ THOMAS_SCAN_LEVELS = 11
 THOMAS_CHECK_LAMS = (10.0, 1e3)  # |c'| ~ 0.92 and ~ 0.97: long carries
 SM_CLOCK_HZ = 1.98e9
 LAUNCH_FLOOR_ITERS = 500
+# [2] tier-2 and CG-update panels of the main path: the solvers' columns
+# (n = 32,768, 16,384; dubcova2's 65,025) and batch 8, qwen3-1.7b's (d_out,
+# rows) panels (2,048 / 6,144 / the 151,936-row vocabulary at 4 and 1,024
+# rows), and [13b]'s MoE (F, E * C) panel at 256 tokens (E * C = 640).
+TIER2_STENCIL_SHAPES = ((32768, 1), (32768, 8), (16384, 1), (65025, 1),
+                        (2048, 4), (6144, 4), (151936, 4), (6144, 1024),
+                        (151936, 1024), (D_FF, 640))
+TIER2_CG_SHAPES = ((32768, 1), (32768, 8), (65025, 1))
+# qwen3-1.7b's tier-2 panels in a 1 x 1,024 prefill, (d_out, rows, launches):
+# 28 layers of q, o, down (2,048), k, v (1,024) and gate, up (6,144) on 1,024
+# rows, and the head's (152,064, 1) on the last token: 197 launches.
+TIER2_PREFILL_PANELS = ((2048, 1024, 84), (1024, 1024, 56),
+                        (6144, 1024, 56), (152064, 1, 1))
+TIER2_SEED = SEED + 2   # [2]'s tier-2 panels: a generator of their own
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: longer than queueing a run
 # Instructions a draw of encode_matmul_rng's generator issues at the least,
 # counted from the source (philox_normal in csrc/encode_matmul.cu):
@@ -596,6 +618,147 @@ def timed_solves(name, solve, counts, mvm_ms, calls):
               f"{ {k: v for k, v in used.items() if v} }", flush=True)
         check(res.converged, f"{name} did not converge to {EIGEN_TOL}")
     return res, used
+
+
+def launch_floor(dev, kernels, lam, h):
+    """Device ms a launch of three one-element kernels of the ``kernels``
+    module, each LAUNCH_FLOOR_ITERS times back to back: ``richardson_update``
+    (a plain launch: the floor) and the two kernels launched with
+    programmatic dependent launch, ``stencil_denoise`` and ``cg_update``."""
+    one = torch.ones(1, 1, device=dev)
+    alpha, omega = torch.ones(1, device=dev), torch.ones((), device=dev)
+    ms = {"richardson_update": device_time_ms(
+              lambda: kernels.richardson_update(one, one, one, omega),
+              LAUNCH_FLOOR_ITERS),
+          "stencil_denoise": device_time_ms(
+              lambda: kernels.stencil_denoise(one, lam, h),
+              LAUNCH_FLOOR_ITERS),
+          "cg_update": device_time_ms(
+              lambda: kernels.cg_update(one, one, one, one, alpha),
+              LAUNCH_FLOOR_ITERS)}
+    print(f"[2] launch floor: {ms['richardson_update'] * 1e3:.3f} us a "
+          f"launch (richardson_update on a 1 x 1 panel, a plain launch, "
+          f"{LAUNCH_FLOOR_ITERS} back to back, CUDA events); 1 x 1 with "
+          f"PDL: stencil_denoise {ms['stencil_denoise'] * 1e3:.3f} us, "
+          f"cg_update {ms['cg_update'] * 1e3:.3f} us", flush=True)
+    return ms
+
+
+def tier2_phase(dev, kernels, lam, h):
+    """[2] ``stencil_denoise`` and ``cg_update`` of the ``kernels`` module
+    at the main path's shapes, each against its plain version (rel-L2 <=
+    ELEMENTWISE_TOL, bit for bit run to run, one launch a call): the stencil
+    held at STENCIL_CHECK_LAM and timed there and at the engine's ``lam``;
+    each beside its byte bound (each panel read once, each output written
+    once) and its share of it; and the stencil's TIER2_PREFILL_PANELS
+    launched as a prefill launches them.  Returns ``{name: row}`` entries
+    for the kernel table's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(TIER2_SEED)
+    rows = []
+
+    def launches(fn, name):
+        kernels.reset_launches()
+        out = fn()
+        check(kernels.LAUNCHES[name] == 1, f"{name}: not one launch a call")
+        return out
+
+    def share(row):
+        return (f"{row['bound_ms'] / row['ms']:.1%} of the bound"
+                if row.get("ms") else "share not measured")
+
+    print(f"[2] tier-2 and CG-update panels (lam {lam:g} and "
+          f"{STENCIL_CHECK_LAM:g})", flush=True)
+    for n, batch in TIER2_STENCIL_SHAPES:
+        p = torch.randn(n, batch, generator=gen, device=dev)
+        iters = 500 if n * batch <= 1 << 20 else 50
+        got = launches(lambda: kernels.stencil_denoise(p, lam, h),
+                       "stencil_denoise")
+        err = rel_l2(got, kernels.stencil_denoise_plain(p, lam, h))
+        check(err <= ELEMENTWISE_TOL and torch.equal(
+                  got, kernels.stencil_denoise(p, lam, h)),
+              f"stencil_denoise {n}x{batch} lam {lam:g}: rel-L2 {err:.3e}, "
+              f"or not the same run to run")
+        row = compare(f"stencil_denoise {n}x{batch} lam "
+                      f"{STENCIL_CHECK_LAM:g}",
+                      lambda: kernels.stencil_denoise(p, STENCIL_CHECK_LAM,
+                                                      h),
+                      lambda: kernels.stencil_denoise_plain(
+                          p, STENCIL_CHECK_LAM, h),
+                      ELEMENTWISE_TOL, nbytes=8 * n * batch,
+                      flops=6 * n * batch, iters=iters)
+        check(torch.equal(kernels.stencil_denoise(p, STENCIL_CHECK_LAM, h),
+                          kernels.stencil_denoise(p, STENCIL_CHECK_LAM, h)),
+              f"stencil_denoise {n}x{batch} is not the same run to run")
+        row.update(shape=f"{n}x{batch}", batch=batch,
+                   err_lam=STENCIL_CHECK_LAM, ms_lam=STENCIL_CHECK_LAM,
+                   lam_ms={f"{lam:g}": device_time_ms(
+                       lambda: kernels.stencil_denoise(p, lam, h), iters)})
+        print(f"    stencil_denoise {n}x{batch}: {share(row)}; at lam "
+              f"{lam:g} {row['lam_ms'][f'{lam:g}']:.5f} ms", flush=True)
+        rows.append({"stencil_denoise": row})
+        del p, got
+    for n, batch in TIER2_CG_SHAPES:
+        v = [torch.randn(n, batch, generator=gen, device=dev)
+             for _ in range(4)]
+        alpha = torch.rand(batch, generator=gen, device=dev)
+        launches(lambda: kernels.cg_update(*v, alpha), "cg_update")
+        row = compare(f"cg_update {n}x{batch}",
+                      lambda: kernels.cg_update(*v, alpha),
+                      lambda: kernels.cg_update_plain(*v, alpha),
+                      ELEMENTWISE_TOL, nbytes=4 * (6 * n * batch + batch),
+                      flops=4 * n * batch, iters=500)
+        check(all(torch.equal(a, b) for a, b in zip(
+                  kernels.cg_update(*v, alpha), kernels.cg_update(*v, alpha))),
+              f"cg_update {n}x{batch} is not the same run to run")
+        row.update(shape=f"{n}x{batch}", batch=batch)
+        print(f"    cg_update {n}x{batch}: {share(row)}", flush=True)
+        rows.append({"cg_update": row})
+        del v
+    panels = [(torch.randn(d_out, n, generator=gen, device=dev), count)
+              for d_out, n, count in TIER2_PREFILL_PANELS]
+
+    def prefill():
+        for p, count in panels:
+            for _ in range(count):
+                kernels.stencil_denoise(p, lam, h)
+
+    count = sum(c for _, c in panels)
+    kernels.reset_launches()
+    prefill()
+    check(kernels.LAUNCHES["stencil_denoise"] == count,
+          f"stencil_denoise: not {count} launches for the prefill's panels")
+    row = {"shape": f"qwen3-1.7b 1x1024 prefill's {count} panels",
+           "launches": count, "ms": device_time_ms(prefill, 5),
+           "bound_ms": sum(8 * p.numel() * c for p, c in panels)
+           / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    print(f"    stencil_denoise over a qwen3-1.7b 1 x 1,024 prefill's "
+          f"{count} panels, back to back: {row['ms']:.4f} ms, "
+          f"{share(row)} {row['bound_ms']:.4f} ms", flush=True)
+    rows.append({"stencil_denoise": row})
+    return rows
+
+
+def ec_stencil_pair_ms(kernels, at, da, x, x_t, lam, h):
+    """Device ms of the pair a corrected MVM launches: the EC product of the
+    ``kernels`` module, then tier-2 on its output (the stencil's launch may
+    overlap the product's tail)."""
+    return device_time_ms(lambda: kernels.stencil_denoise(
+        kernels.ec_matmul(at, da, x, x_t), lam, h), 10)
+
+
+def cg_step(solvers, A, b):
+    """A CG step's device time with the ``solvers`` module on the image
+    ``A``: a warm solve under the profiler, its kernels' device ms over its
+    MVMs (the iterations and the entry residual's).  Returns the MVMs, ms a
+    step and the ms of ``stencil_denoise`` + ``cg_update`` in it."""
+    def solve():
+        return solvers.cg(A, b, tol=SOLVE_TOL, maxiter=50, backend="cuda")
+
+    mvms = solve().iterations + 1
+    split = kernel_split(solve, iters=1)
+    return (mvms, sum(split.values()) / mvms,
+            sum(v for k_, v in split.items()
+                if "stencil_" in k_ or "cg_update" in k_) / mvms)
 
 
 def eigen_phase(dev, A, a, b, x_true, noise_floor):
@@ -2180,7 +2343,7 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     wall = (time.perf_counter() - t0) * 1e3 / steps
     split = {k_: v / steps for k_, v in kernel_split(
         lambda: srv.decode_tokens(tok, caches, steps), iters=1).items()}
-    ec_keys = ("ec_rmatmul", "partial_sum_kernel", "stencil_kernel")
+    ec_keys = ("ec_rmatmul", "partial_sum_kernel", "stencil_")
     ec_ms = sum(v for k_, v in split.items()
                 if any(e in k_ for e in ec_keys))
     busy = sum(split.values())
@@ -2196,6 +2359,24 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
           f"{ec_bound / ec_ms if ec_ms else 0.0:.3f} of the bound); the "
           f"largest: " + ", ".join(f"{short_kernel_name(k_)} {v:.3f}"
                                    for k_, v in top), flush=True)
+
+    # The tier-2 stencil's share of the longest prompt's prefill: its device
+    # ms summed over the prefill's launches (one a dense: the layers'
+    # (d_out, b t) panels, the head's on the last token) against their
+    # byte bound (each panel read and written once).
+    b, t, _, _ = requests[-1]
+    pre_split = kernel_split(lambda: servers[-1].prefill(batches[-1]),
+                             iters=1)
+    st_ms = sum(v for k_, v in pre_split.items() if "stencil_" in k_)
+    # The layers' stacked kernels see b t rows, the head b.
+    st_bound = sum(l_ * 8 * n_ * (b * t if l_ == cfg.n_layers else b)
+                   for l_, _, n_ in shapes) / HBM_BYTES_PER_S * 1e3
+    pre_busy = sum(pre_split.values())
+    print(f"[12] a {b} x {t} prefill: stencil_denoise {st_ms:.4f} ms device "
+          f"over its {per_pass} launches, byte bound {st_bound:.4f} "
+          f"ms ({st_bound / st_ms if st_ms else 0.0:.3f} of it), "
+          f"{st_ms / pre_busy if pre_busy else 0.0:.4f} of the prefill's "
+          f"{pre_busy:.3f} ms device busy", flush=True)
 
     # DAC off: the analog model against the digital one on the same w.
     digital = strip_rram(prog)
@@ -2453,7 +2634,7 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
     busy = sum(split.values())
     ec_ms = sum(v for k_, v in split.items() if any(
         e in k_ for e in ("ec_rmatmul", "partial_sum_kernel",
-                          "stencil_kernel")))
+                          "stencil_")))
     step_bytes = ec_bytes(step_calls) + digital_weight_bytes(prog)
     bound = step_bytes / HBM_BYTES_PER_S * 1e3
     top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
@@ -3296,14 +3477,9 @@ def kernel_phases():
           flush=True)
     check(A.at_pad.shape == (N, N), "unexpected padded image shape")
 
-    # The least a separate launch takes: a one-element stencil, back to back.
-    one = torch.ones(1, 1, device=dev)
-    floor_ms = device_time_ms(lambda: kernels.stencil_denoise(one, cfg.lam,
-                                                              cfg.h),
-                              LAUNCH_FLOOR_ITERS)
-    print(f"[2] launch floor: {floor_ms * 1e3:.3f} us a launch "
-          f"(stencil_denoise on a 1 x 1 panel, {LAUNCH_FLOOR_ITERS} launches "
-          f"back to back, CUDA events)", flush=True)
+    # The least a separate launch takes, and the PDL kernels' 1 x 1 beside it.
+    floor = launch_floor(dev, kernels, cfg.lam, cfg.h)
+    floor_ms = floor["richardson_update"]
 
     rows = {}
     for batch in (1, 8):
@@ -3341,6 +3517,14 @@ def kernel_phases():
         res["stencil_denoise"].update(
             rel_l2=checked["rel_l2"], max_abs_err=checked["max_abs_err"],
             err_lam=STENCIL_CHECK_LAM, ms_lam=cfg.lam)
+        # The pair a corrected MVM launches: the EC product, then tier-2 on
+        # its output (the stencil's launch may overlap the product's tail).
+        pair_ms = ec_stencil_pair_ms(kernels, at, da, x, x_t, cfg.lam, cfg.h)
+        res["stencil_denoise"]["pair_ms"] = pair_ms
+        print(f"    EC + stencil pair {m}x{k} batch {batch}: {pair_ms:.4f} "
+              f"ms (ec_matmul alone {res['ec_matmul']['ms']:.4f}, "
+              f"stencil_denoise alone {res['stencil_denoise']['ms']:.5f})",
+              flush=True)
         # The same image read backwards: A_tilde^T y + dA^T y_tilde.
         y = torch.randn(m, batch, generator=gen, device=dev)
         y_t = crossbar._encode_vec(y, cfg, gen=generator(100 + batch, dev))
@@ -3434,8 +3618,11 @@ def kernel_phases():
         for name in ("stencil_denoise", "thomas_solve", "cg_update",
                      "richardson_update"):
             res[name]["launch_floor_ms"] = floor_ms
+        for name in ("stencil_denoise", "cg_update"):
+            res[name]["one_by_one_ms"] = floor[name]
         rows[batch] = res
     torch.cuda.synchronize()
+    tier2_shapes = tier2_phase(dev, kernels, cfg.lam, cfg.h)
 
     # ------------------------------------------------------- 3. serve (main)
     xs = torch.randn(N, 8, generator=gen, device=dev)
@@ -3619,6 +3806,12 @@ def kernel_phases():
           solved["refine[cg]"]["cg_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
+    # A CG step's device time (not in the tally above).
+    cg_mvms, cg_step_ms, tier2_ms = cg_step(solvers, A, b)
+    print(f"[4] a CG step: {cg_step_ms:.4f} ms device (the solve's kernels "
+          f"over its {cg_mvms} MVMs: an MVM, its reductions and "
+          f"cg_update), of which stencil_denoise + cg_update "
+          f"{tier2_ms:.5f} ms", flush=True)
 
     # ------------------------------------- 4e. eigen solvers on the image
     t0 = time.perf_counter()
@@ -3698,7 +3891,7 @@ def kernel_phases():
             row.update(shape=f"{m}x{k}", batch=1)
         return res
 
-    more_shapes = []
+    more_shapes = list(tier2_shapes)
     m, n = LSTSQ_SHAPE
     a = torch.randn(m, n, generator=gen, device=dev).div_(m ** 0.5)
     x_true = torch.randn(n, generator=gen, device=dev)
@@ -4357,7 +4550,8 @@ def main() -> int:
                                    "rel_l2_lam10", "fp64_err",
                                    "fp64_err_plain", "coef_head_rows",
                                    "scan_steps", "scan_ms",
-                                   "launch_floor_ms", "shape",
+                                   "launch_floor_ms", "one_by_one_ms",
+                                   "pair_ms", "shape",
                                    "layout", "group_call_ms", "ptxas",
                                    "sm_mhz", "watts", "tflops", "split_ms",
                                    "bound_gen_ms", "bound_gen_by")
@@ -4369,7 +4563,7 @@ def main() -> int:
             "batch": 1,
             "batch8": ({k: rows[8][name][k] for k in
                         ("ms", "call_ms", "plain_ms", "bound_ms",
-                         "library_ms", "group_call_ms", "layout",
+                         "library_ms", "group_call_ms", "layout", "pair_ms",
                          "lam_ms", "rel_l2_lam10", "fp64_err",
                          "fp64_err_plain", "split_ms")
                         if k in rows[8][name]}

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Probe the EC kernels of one or more source trees on one NVIDIA GPU, both
-directions (forward ``ec_matmul`` / ``ec_group_matmul``, transposed
-``ec_rmatmul`` / ``ec_group_rmatmul``), in turns, at the main path's
-shapes: a 32,768^2 image at batch 1 and 8, the two least-squares / LP
-images (32,768 x 16,384 and 16,384 x 32,768) at batch 1, and the 8 experts'
-w1 of a Mixtral-8x7B layer (live 14,336 x 4,096 views of (8, 16,384, 4,096)
-stacks) at batch 1 and 8.
+"""Probe the kernels of one or more source trees on one NVIDIA GPU, in turns,
+at the main path's shapes.
 
-    python3 mvm_probe.py [--src DIR]... [--rounds N] [--iters N]
+    python3 mvm_probe.py [ec] [--src DIR]... [--rounds N] [--iters N]
+    python3 mvm_probe.py tier2 [--src DIR]... [--rounds N]
+
+``ec`` (the default) probes the EC kernels in both directions (forward
+``ec_matmul`` / ``ec_group_matmul``, transposed ``ec_rmatmul`` /
+``ec_group_rmatmul``): a 32,768^2 image at batch 1 and 8, the two
+least-squares / LP images (32,768 x 16,384 and 16,384 x 32,768) at batch
+1, and the 8 experts' w1 of a Mixtral-8x7B layer (live 14,336 x 4,096
+views of (8, 16,384, 4,096) stacks) at batch 1 and 8.
 
 The tree beside this script comes first; each ``--src`` names the ``src``
 directory of another (a parent unpacked with ``git archive``, a variant).
@@ -24,13 +27,28 @@ run bit for bit, device ms per call (CUDA events) in each round, and the
 share of each CUDA kernel of a call (``torch.profiler``: the product against
 the pass that sums its partials); beside them the library call (cuBLAS
 ``at @ x + da @ x_t`` / ``at.T @ y + da.T @ y_t``, or ``bmm`` on the
-members) and the bound (the images' and panels' bytes at 3.35 TB/s).  The
-last line is one JSON object.  Needs a CUDA device; exits non-zero without
-one.
+members) and the bound (the images' and panels' bytes at 3.35 TB/s).
+
+``tier2`` probes ``stencil_denoise`` and ``cg_update`` of every tree: first
+each tree's outputs against the first tree's on the same inputs, bit for
+bit or the largest gap in units in the last place, at chip_smoke.py's
+TIER2_STENCIL_SHAPES (lam 1e-12 and 1e-2) and TIER2_CG_SHAPES and on the
+EC + stencil pair of a corrected MVM (32,768^2, batch 1 and 8); then
+chip_smoke.py's own measurements with each tree's modules, in turns over
+``--rounds`` rounds (other, this, this, other for two trees): its
+``launch_floor`` (``richardson_update``, ``stencil_denoise`` and
+``cg_update`` on 1 x 1) and ``tier2_phase`` (those shapes against the plain
+version, and the 197 panels of a qwen3-1.7b 1 x 1,024 prefill), the pair
+(``ec_stencil_pair_ms``) and a CG step on a programmed 32,768^2 epiram
+image (``cg_step``, with each tree's engine and solvers).
+
+The last line is one JSON object.  Needs a CUDA device; exits non-zero
+without one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib
 import json
 import subprocess
@@ -41,33 +59,54 @@ from types import SimpleNamespace
 import torch
 
 from chip_smoke import (D_FF, D_MODEL, EC_TOL, HBM_BYTES_PER_S, N,
-                        N_EXPERTS, device_time_ms, kernel_split, rel_l2,
-                        short_kernel_name)
+                        N_EXPERTS, STENCIL_CHECK_LAM, TIER2_CG_SHAPES,
+                        TIER2_STENCIL_SHAPES, cg_step, device_time_ms,
+                        ec_stencil_pair_ms, kernel_split, launch_floor,
+                        rel_l2, short_kernel_name, tier2_phase)
 
 HERE = Path(__file__).resolve().parent
 
 
-def load_tree(src: Path) -> SimpleNamespace:
-    """The kernels of the ``repro_torch`` package under ``src``, imported as
-    a copy of its own: the package is taken out of ``sys.modules`` before
-    and after, so trees do not share modules."""
-    def purge():
-        for name in [n for n in sys.modules
-                     if n == "repro_torch" or n.startswith("repro_torch.")]:
+def own_modules() -> dict:
+    """The ``repro_torch`` modules in ``sys.modules``."""
+    return {n: m for n, m in sys.modules.items()
+            if n == "repro_torch" or n.startswith("repro_torch.")}
+
+
+@contextlib.contextmanager
+def active(tree):
+    """``tree``'s ``repro_torch`` modules in ``sys.modules`` and its ``src``
+    first on ``sys.path`` while its code runs, so that the imports its
+    functions make when called find its own package; taken out again
+    after, so trees do not share modules."""
+    for name in own_modules():
+        del sys.modules[name]
+    sys.modules.update(tree.modules)
+    sys.path.insert(0, str(tree.src))
+    try:
+        yield tree
+    finally:
+        tree.modules.update(own_modules())
+        sys.path.remove(str(tree.src))
+        for name in own_modules():
             del sys.modules[name]
 
-    purge()
-    sys.path.insert(0, str(src))
-    try:
-        rram = importlib.import_module("repro_torch.kernels.rram_mvm")
-        build = importlib.import_module("repro_torch.kernels.build")
-    finally:
-        sys.path.remove(str(src))
-        purge()
-    build.library()
-    return SimpleNamespace(rram=rram, build=build, layout={
-        "forward": getattr(rram, "matmul_layout", None),
-        "transposed": getattr(rram, "rmatmul_layout", None)})
+
+def load_tree(src: Path) -> SimpleNamespace:
+    """The ``repro_torch`` package under ``src``, imported as a copy of its
+    own; call its functions under ``active``."""
+    tree = SimpleNamespace(src=src, modules={})
+    with active(tree):
+        tree.kernels = importlib.import_module("repro_torch.kernels")
+        tree.rram = importlib.import_module("repro_torch.kernels.rram_mvm")
+        tree.build = importlib.import_module("repro_torch.kernels.build")
+        tree.core = importlib.import_module("repro_torch.core")
+        tree.engine = importlib.import_module("repro_torch.engine")
+        tree.solvers = importlib.import_module("repro_torch.solvers")
+        tree.build.library()
+    tree.layout = {"forward": getattr(tree.rram, "matmul_layout", None),
+                   "transposed": getattr(tree.rram, "rmatmul_layout", None)}
+    return tree
 
 
 def layout_text(lay) -> str:
@@ -150,8 +189,151 @@ def probe(direction, name, a, d, batch, gen, labels, trees, args):
     return shape
 
 
+def ulp_gap(a, b) -> int:
+    """Largest distance between two float32 tensors in units in the last
+    place (0: equal bit for bit)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(1 << 31) - i, i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def turns(fns, rounds):
+    """What each of ``fns`` returns in each round, called in turns: the
+    order reversed in even rounds (the other trees, then this tree first:
+    other, this, this, other for two trees and two rounds)."""
+    out = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for r in range(rounds):
+        for i in (order[::-1] if r % 2 == 0 else order):
+            out[i].append(fns[i]())
+    return out
+
+
+def tier2(labels, trees, args, dev) -> dict:
+    """The ``tier2`` probe (module docstring); returns its record."""
+    def each(fn):   # fn(tree) of each tree, under ``active``
+        out = []
+        for t in trees:
+            with active(t):
+                out.append(fn(t))
+        return out
+
+    def timed(fn):  # fn(tree) of each tree in turns, under ``active``
+        def under(t):
+            with active(t):
+                return fn(t)
+        return dict(zip(labels, turns([lambda t=t: under(t) for t in trees],
+                                      args.rounds)))
+
+    cfg = trees[0].core.CrossbarConfig(
+        device=trees[0].core.get_device("taox-hfox"))
+    lam, h = cfg.lam, cfg.h
+    gen = torch.Generator(device=dev).manual_seed(0)
+    at = torch.randn(N, N, generator=gen, device=dev)
+    da = torch.randn(N, N, generator=gen, device=dev)
+    record = {"ulps": {}, "phase": {}}
+
+    # Each tree's outputs against the first tree's on the same inputs.
+    def gaps(what, outs):
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        record["ulps"][what] = {
+            label: max(ulp_gap(o, w) for o, w in zip(out, outs[0]))
+            for label, out in zip(labels, outs)}
+        print(f"  {what}: " + ", ".join(
+            f"[{label}] " + ("bit for bit" if g == 0 else f"{g} ulps")
+            for label, g in record["ulps"][what].items()), flush=True)
+
+    print("outputs against the first tree's", flush=True)
+    for n, batch in TIER2_STENCIL_SHAPES:
+        p = torch.randn(n, batch, generator=gen, device=dev)
+        for lam_ in (lam, STENCIL_CHECK_LAM):
+            gaps(f"stencil_denoise {n}x{batch} lam {lam_:g}",
+                 each(lambda t: t.kernels.stencil_denoise(p, lam_, h)))
+        del p
+    for n, batch in TIER2_CG_SHAPES:
+        v = [torch.randn(n, batch, generator=gen, device=dev)
+             for _ in range(4)]
+        alpha = torch.rand(batch, generator=gen, device=dev)
+        gaps(f"cg_update {n}x{batch}",
+             each(lambda t: t.kernels.cg_update(*v, alpha)))
+    xs = {batch: (torch.randn(N, batch, generator=gen, device=dev),
+                  torch.randn(N, batch, generator=gen, device=dev))
+          for batch in (1, 8)}
+    for batch, (x, x_t) in xs.items():
+        gaps(f"ec_matmul + stencil_denoise {N}x{N} batch {batch}",
+             each(lambda t: t.kernels.stencil_denoise(
+                 t.kernels.ec_matmul(at, da, x, x_t), lam, h)))
+
+    # chip_smoke.py's measurements, each tree's kernels in turns.
+    phase = timed(lambda t: {"floor": launch_floor(dev, t.kernels, lam, h),
+                             "rows": tier2_phase(dev, t.kernels, lam, h)})
+    pairs = {batch: timed(lambda t: ec_stencil_pair_ms(
+                 t.kernels, at, da, x, x_t, lam, h))
+             for batch, (x, x_t) in xs.items()}
+    del at, da, xs
+    torch.cuda.empty_cache()
+    a = torch.randn(N, N, generator=gen, device=dev).div_(N)
+    a = a + a.T
+    a.diagonal().add_(2.0)
+    b = torch.matmul(a, torch.randn(N, generator=gen, device=dev))
+    images = dict(zip(map(id, trees), each(lambda t: t.engine.AnalogEngine(
+        t.core.CrossbarConfig(device=t.core.get_device("epiram")),
+        backend="cuda", device=dev).program(a, 2))))
+    del a
+    torch.cuda.empty_cache()
+    cg = timed(lambda t: cg_step(t.solvers, images[id(t)], b))
+    del images
+
+    print(f"device ms in {args.rounds} rounds (chip_smoke.py's phases: "
+          f"stencil_denoise timed at lam {STENCIL_CHECK_LAM:g} and "
+          f"{lam:g})", flush=True)
+
+    def line(what, per_tree, bound=None, unit=1.0, fmt=".5f"):
+        means = {label: sum(t) / len(t) for label, t in per_tree.items()}
+        record["phase"][what] = {"bound_ms": bound, "ms": per_tree}
+        print(f"  {what}" + (f" (bound {bound:{fmt}})" if bound else "")
+              + ": " + ", ".join(
+                  f"[{label}] {' / '.join(f'{x * unit:{fmt}}' for x in t)}"
+                  f" (mean {means[label] * unit:{fmt}}"
+                  + (f", {bound / means[label]:.1%} of the bound"
+                     if bound else "") + ")"
+                  for label, t in per_tree.items()), flush=True)
+
+    def per_tree(get):   # get(a round's result) of each tree, each round
+        return {label: [get(r) for r in runs]
+                for label, runs in phase.items()}
+
+    for name in ("richardson_update", "stencil_denoise", "cg_update"):
+        line(f"{name} 1 x 1 (us)", per_tree(lambda r: r["floor"][name]),
+             unit=1e3, fmt=".3f")
+    for j, entry in enumerate(phase[labels[0]][0]["rows"]):
+        (name, row), = entry.items()
+        what = f"{name} {row['shape']}"
+        if "lam_ms" in row:
+            line(f"{what} lam {STENCIL_CHECK_LAM:g}",
+                 per_tree(lambda r: r["rows"][j][name]["ms"]),
+                 bound=row["bound_ms"])
+            line(f"{what} lam {lam:g}",
+                 per_tree(lambda r: r["rows"][j][name]["lam_ms"][f"{lam:g}"]),
+                 bound=row["bound_ms"])
+        else:
+            line(what, per_tree(lambda r: r["rows"][j][name]["ms"]),
+                 bound=row["bound_ms"])
+    for batch, ms in pairs.items():
+        line(f"EC + stencil pair {N}x{N} batch {batch}", ms, fmt=".4f")
+    line("a CG step on a 32,768^2 epiram image", {
+        label: [step[1] for step in t] for label, t in cg.items()},
+         fmt=".4f")
+    line("  of which stencil_denoise + cg_update", {
+        label: [step[2] for step in t] for label, t in cg.items()})
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("what", nargs="?", default="ec",
+                        choices=("ec", "tier2"))
     parser.add_argument("--src", action="append", default=[],
                         help="src directory of another tree (repeatable)")
     parser.add_argument("--rounds", type=int, default=2)
@@ -173,9 +355,11 @@ def main() -> int:
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "trees": labels, "ptxas": {}, "shapes": []}
     print(f"device: {result['device']} | {smi}", flush=True)
+    sources = (("tridiag.cu", "solver_update.cu") if args.what == "tier2"
+               else ("rram_mvm.cu",))
     for label, tree in zip(labels, trees):
         rows = {name: row for name, row in tree.build.ptxas_report().items()
-                if row["source"] == "rram_mvm.cu"}
+                if row["source"] in sources}
         result["ptxas"][label] = rows
         for name, row in rows.items():
             print(f"[{label}] ptxas {name:32s} {row['registers']:3d} "
@@ -183,6 +367,10 @@ def main() -> int:
                   f"{row['spill_stores']} / {row['spill_loads']} B spill "
                   f"stores / loads", flush=True)
 
+    if args.what == "tier2":
+        result["tier2"] = tier2(labels, trees, args, dev)
+        print(json.dumps(result))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     at = torch.randn(N, N, generator=gen, device=dev)
     da = torch.randn(N, N, generator=gen, device=dev)

@@ -10,14 +10,37 @@
 // the ends.
 //
 // Bound: one read of p and one write of y, 8*n*batch bytes, against about
-// 6 flops an element, so device memory bounds it (at the engine's shapes,
-// n = 32768 and batch <= 8, the panel is at most 1 MiB and the launch itself
-// dominates).
+// 6 flops an element, so device memory bounds it.  On a solver's column
+// (n = 32768, batch 1: 256 KiB) the launch itself dominates; on an LM
+// dense's (d_out, rows) panel (151,936 x 1,024: 1.24 GB) the bytes do.
 //
-// Design: one thread per element, grid-stride; the two neighbours are the
-// elements one row stride (batch) away and come from L1/L2, since the
-// neighbouring threads read them too.  No shared memory: there is no reuse
-// beyond the stencil's own three words.
+// Design: two kernels behind one launcher, both launched with programmatic
+// dependent launch (pdl.cuh), so that the launch and block scheduling
+// overlap the tail of the kernel before it on the stream.
+//  * A panel (batch > 1), stencil_panel_kernel: a thread owns 4 adjacent
+//    columns and walks a chunk of R rows down them, p[i-1], p[i] and p[i+1]
+//    in registers, so each element comes from device memory once, plus two
+//    halo rows a chunk.  16-byte loads and stores when batch % 4 == 0 and
+//    both panels are 16-byte aligned, scalar ones otherwise (a contiguous
+//    view may start at any 4-byte offset).  The row is the loop counter: no
+//    division an element.  R is the largest that keeps the grid at two waves
+//    of the card (the SMs times the blocks an SM holds: 132 x 8 of 128 at
+//    64 registers a thread on an H100), a multiple of the kRowsInFlight
+//    rows a thread loads at a time, or 1 or 2 on a panel too narrow for
+//    that, so a narrow panel gets short chunks and many threads.  (A fixed
+//    2,048 threads an SM, twice what the kernel gets, would give R = 2 on a
+//    6,144 x 1,024 panel, 7 % slower there on an H100.)  The residency is
+//    pdl.cuh's resident_threads(), taken from the card.
+//  * A column (batch == 1), stencil_column_kernel: a thread owns 4
+//    consecutive rows as one float4; p[4q - 1] and p[4q + 4] come from the
+//    lanes beside it by warp shuffles, and the warp's two edge words from
+//    one extra load each.  An unaligned column takes scalar loads; rows past
+//    the last multiple of 4 are a scalar tail.
+// Both run in blocks of 128 threads.  (One-warp blocks on a small panel,
+// to spread it over more SMs, were up to 0.4 us slower on an H100.)
+// Every element is computed by the expressions, in the order, of the
+// one-thread-an-element kernel these replace, so the output is the same bit
+// for bit.
 //
 // ---- thomas_solve -----------------------------------------------------------
 // Replaces src/repro/kernels/tridiag.py::thomas_solve (_thomas_kernel).  The
@@ -71,26 +94,145 @@
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
+#include "pdl.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kStencilThreads = 128;
+constexpr int kRowsInFlight = 4;  // rows a panel thread loads at once
+constexpr unsigned kLanes = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-stencil_kernel(const float* __restrict__ p, float* __restrict__ y,
-               long long n, int batch, float lam, float diag, float h,
-               float hh) {
-  const long long total = n * batch;
-  for (long long idx = blockIdx.x * (long long)kThreads + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * kThreads) {
-    const long long i = idx / batch;
-    const float v = p[idx];
-    const float up = i + 1 < n ? p[idx + batch] : 0.f;
-    const float dn = i > 0 ? p[idx - batch] : 0.f;
-    float kp = diag * v + h * (up + dn);
-    if (i == 0) kp = kp - hh * v;
-    y[idx] = v - lam * kp;
+// y of one element from p_i (v), p_{i+1} (up) and p_{i-1} (dn).
+__device__ __forceinline__ float denoise(float v, float up, float dn,
+                                         bool first, float lam, float diag,
+                                         float h, float hh) {
+  float kp = diag * v + h * (up + dn);
+  if (first) kp = kp - hh * v;
+  return v - lam * kp;
+}
+
+__device__ __forceinline__ float4 denoise4(float4 v, float4 up, float4 dn,
+                                           bool first, float lam, float diag,
+                                           float h, float hh) {
+  return make_float4(denoise(v.x, up.x, dn.x, first, lam, diag, h, hh),
+                     denoise(v.y, up.y, dn.y, first, lam, diag, h, hh),
+                     denoise(v.z, up.z, dn.z, first, lam, diag, h, hh),
+                     denoise(v.w, up.w, dn.w, first, lam, diag, h, hh));
+}
+
+// The first w <= 4 floats at a (16-byte aligned with kVec, w then 4),
+// zeros after them.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* __restrict__ a, int w) {
+  if (kVec) return *reinterpret_cast<const float4*>(a);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (w > 0) v.x = a[0];
+  if (w > 1) v.y = a[1];
+  if (w > 2) v.z = a[2];
+  if (w > 3) v.w = a[3];
+  return v;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* __restrict__ a, float4 v,
+                                       int w) {
+  if (kVec) {
+    *reinterpret_cast<float4*>(a) = v;
+    return;
   }
+  if (w > 0) a[0] = v.x;
+  if (w > 1) a[1] = v.y;
+  if (w > 2) a[2] = v.z;
+  if (w > 3) a[3] = v.w;
+}
+
+// Thread t < threads: columns 4 (t % groups) .. + 3 of rows [R c, R c + R),
+// c = t / groups.
+template <bool kVec>
+__global__ void __launch_bounds__(kStencilThreads)
+stencil_panel_kernel(const float* __restrict__ p, float* __restrict__ y,
+                     long long n, int batch, int groups, long long threads,
+                     int rows_per_chunk, float lam, float diag, float h,
+                     float hh) {
+  grid_dependency_wait();
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < threads) {
+    const int g = (int)(t % groups);
+    const long long i0 = t / groups * rows_per_chunk;
+    const long long i1 = i0 + rows_per_chunk < n ? i0 + rows_per_chunk : n;
+    const int w = batch - 4 * g < 4 ? batch - 4 * g : 4;
+    const float* pc = p + 4 * g;
+    float* yc = y + 4 * g;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 dn = i0 > 0 ? load4<kVec>(pc + (i0 - 1) * batch, w) : zero;
+    float4 v = load4<kVec>(pc + i0 * batch, w);
+    for (long long i = i0; i < i1; i += kRowsInFlight) {
+      float4 next[kRowsInFlight];  // rows i + 1 .. i + 4, up to the halo i1
+#pragma unroll
+      for (int j = 0; j < kRowsInFlight; ++j) {
+        const long long r = i + 1 + j;
+        next[j] = r <= i1 && r < n ? load4<kVec>(pc + r * batch, w) : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < kRowsInFlight; ++j) {
+        if (i + j < i1) {
+          store4<kVec>(yc + (i + j) * batch,
+                       denoise4(v, next[j], dn, i + j == 0, lam, diag, h, hh),
+                       w);
+          dn = v;
+          v = next[j];
+        }
+      }
+    }
+  }
+  launch_dependents();
+}
+
+// Thread q: rows 4q .. 4q + 3 of the column while q < units (units = n / 4
+// with kVec, else n rounded up over 4); with kVec, thread q also takes row
+// 4 units + q of the tail when it is below n.
+template <bool kVec>
+__global__ void __launch_bounds__(kStencilThreads)
+stencil_column_kernel(const float* __restrict__ p, float* __restrict__ y,
+                      long long n, long long units, float lam, float diag,
+                      float h, float hh) {
+  grid_dependency_wait();
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = 4 * q;
+  const bool mine = q < units;
+  const int w = mine ? (int)(n - i < 4 ? n - i : 4) : 0;
+  const float4 v = mine ? load4<kVec>(p + i, w)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  // Rows i - 1 and i + 4 from the lanes beside this one (every lane takes
+  // part); the warp's edges and the last unit's successor are loaded.
+  float dn = __shfl_up_sync(kLanes, v.w, 1);
+  float up = __shfl_down_sync(kLanes, v.x, 1);
+  const int lane = threadIdx.x & 31;
+  if (mine && lane == 0) dn = i > 0 ? p[i - 1] : 0.f;
+  if (mine && (lane == 31 || q + 1 == units)) up = i + 4 < n ? p[i + 4] : 0.f;
+  const long long e = 4 * units + q;
+  const bool tail = kVec && e < n;
+  float ev = 0.f, eu = 0.f, ed = 0.f;
+  if (tail) {
+    ev = p[e];
+    eu = e + 1 < n ? p[e + 1] : 0.f;
+    ed = e > 0 ? p[e - 1] : 0.f;
+  }
+  launch_dependents();
+  if (mine)
+    store4<kVec>(y + i,
+                 make_float4(denoise(v.x, v.y, dn, i == 0, lam, diag, h, hh),
+                             denoise(v.y, v.z, v.x, false, lam, diag, h, hh),
+                             denoise(v.z, v.w, v.y, false, lam, diag, h, hh),
+                             denoise(v.w, up, v.z, false, lam, diag, h, hh)),
+                 w);
+  if (tail) y[e] = denoise(ev, eu, ed, e == 0, lam, diag, h, hh);
+}
+
+// Blocks of kStencilThreads for `threads` threads.
+dim3 stencil_grid(long long threads) {
+  return dim3(static_cast<unsigned>((threads + kStencilThreads - 1) /
+                                    kStencilThreads));
 }
 
 constexpr int kSR = 64;             // rows a thread owns in a tile
@@ -376,14 +518,42 @@ extern "C" {
 // cudaError_t of the launch.
 int repro_stencil_denoise(const float* p, float* y, long long n, int batch,
                           float lam, float h, void* stream) {
-  const long long total = n * batch;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  stencil_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      p, y, n, batch, lam, 1.0f + h * h, h, h * h);
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0 || batch == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float diag = 1.0f + h * h, hh = h * h;
+  const bool aligned = ((reinterpret_cast<size_t>(p) |
+                         reinterpret_cast<size_t>(y)) % 16) == 0;
+  const dim3 block(kStencilThreads);
+  if (batch == 1) {
+    const long long units = aligned ? n / 4 : (n + 3) / 4;
+    const long long threads = units > n - 4 * units ? units : n - 4 * units;
+    const dim3 grid = stencil_grid(threads);
+    return static_cast<int>(
+        aligned ? launch_pdl(stencil_column_kernel<true>, grid, block, st, p,
+                             y, n, units, lam, diag, h, hh)
+                : launch_pdl(stencil_column_kernel<false>, grid, block, st,
+                             p, y, n, units, lam, diag, h, hh));
+  }
+  // Chunks of R rows: the most rows that still give two waves of threads.
+  const bool vec = aligned && batch % 4 == 0;
+  const int groups = (batch + 3) / 4;
+  const long long wave =
+      vec ? resident_threads<stencil_panel_kernel<true>, kStencilThreads>()
+          : resident_threads<stencil_panel_kernel<false>, kStencilThreads>();
+  if (wave == 0) return residency_error();
+  const long long want = 2 * wave / groups;  // chunks for two waves
+  long long rows = want > 0 ? n / want : n;
+  rows = rows >= kRowsInFlight ? rows / kRowsInFlight * kRowsInFlight
+                               : (rows > 0 ? rows : 1);
+  const long long threads = (n + rows - 1) / rows * groups;
+  const dim3 grid = stencil_grid(threads);
+  return static_cast<int>(
+      vec ? launch_pdl(stencil_panel_kernel<true>, grid, block, st, p, y, n,
+                       batch, groups, threads, static_cast<int>(rows), lam,
+                       diag, h, hh)
+          : launch_pdl(stencil_panel_kernel<false>, grid, block, st, p, y, n,
+                       batch, groups, threads, static_cast<int>(rows), lam,
+                       diag, h, hh));
 }
 
 // p and y are distinct contiguous (n, batch) float32 panels; cp and piv hold

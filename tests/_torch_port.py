@@ -136,9 +136,13 @@ class DacDraws:
     salt)`` (or ``fold_in(base, salt)`` with ``steps=None``) with its own
     integer ``fold_in``; the reference ``jax.random.fold_in`` of its base
     key the same way.  ``calls`` records the (step, salt) of every draw;
-    an unknown key raises."""
+    an unknown key raises.  ``dtype`` is the reference's activation dtype:
+    it draws its normals in that dtype (bfloat16 normals are not float32
+    normals rounded), handed over as float32 (exact)."""
 
-    def __init__(self, jax_base, port_base, steps=None, salts=16):
+    def __init__(self, jax_base, port_base, steps=None, salts=16,
+                 dtype=np.float32):
+        self.dtype = dtype
         from repro_torch.core.prng import fold_in
         self.keys = {}
         self.calls = []
@@ -154,4 +158,4 @@ class DacDraws:
         where, jkey = self.keys[key]
         self.calls.append(where)
         return torch.from_numpy(np.asarray(
-            jax.random.normal(jkey, shape, dtype=np.float32)))
+            jax.random.normal(jkey, shape, dtype=self.dtype), np.float32))

@@ -417,6 +417,206 @@ def test_thomas_kernel_with_a_long_coefficient_head(cuda_device, n, batch):
     assert rel(got, want) <= 2 * rel(kernels.thomas_solve_plain(p, 1e6), want)
 
 
+# ------------------------- stencil_denoise and cg_update (PDL launches)
+# The main path's tier-2 panels: the solvers' columns, their batch 8,
+# qwen3-1.7b's (d_out, rows) panels at decode (4) and prefill (1,024) rows,
+# and [13b]'s MoE (F, E * C) panel at 256 tokens.
+STENCIL_SHAPES = [(32768, 1), (32768, 8), (16384, 1), (65025, 1), (2048, 4),
+                  (6144, 4), (151936, 4), (6144, 1024), (151936, 1024),
+                  (14336, 640)]
+CG_SHAPES = [(32768, 1), (32768, 8), (65025, 1)]
+
+
+def offset_panel(n, batch, seed, dev):
+    """A contiguous (n, batch) view that starts 4 bytes past a 16-byte
+    boundary (the kernels' scalar path), and the same values aligned."""
+    p = randn((n, batch), seed, dev)
+    buf = torch.empty(n * batch + 4, device=dev)
+    q = buf[1:1 + n * batch].view(n, batch)
+    q.copy_(p)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    return q, p
+
+
+def finish_within(seconds, what):
+    """Waits for the work queued on the stream, failing after ``seconds``
+    (a kernel that waits on itself would hang the stream)."""
+    import time
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.monotonic()
+    while not done.query():
+        assert time.monotonic() - t0 < seconds, \
+            f"{what}: no finish in {seconds} s"
+        time.sleep(1e-3)
+
+
+@pytest.mark.parametrize("n,batch", STENCIL_SHAPES,
+                         ids=[f"{n}x{b}" for n, b in STENCIL_SHAPES])
+def test_stencil_matches_plain_at_main_path_shapes(cuda_device, n, batch):
+    """``stencil_denoise`` at the main path's shapes, lam 1e-12 (the
+    engine's) and 1e-2: within 1e-6 rel-L2 of its plain version, one launch
+    a call, bit for bit run to run."""
+    p = randn((n, batch), 140, cuda_device)
+    for lam in (1e-12, 1e-2):
+        kernels.reset_launches()
+        got = kernels.stencil_denoise(p, lam)
+        assert kernels.LAUNCHES["stencil_denoise"] == 1
+        assert got.shape == (n, batch)
+        assert rel(got, kernels.stencil_denoise_plain(p, lam)) <= 1e-6
+        assert torch.equal(got, kernels.stencil_denoise(p, lam))
+    assert rel(got, p) > 1e-3
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 4, 9])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 1001])
+def test_stencil_small_ragged_and_offset_panels(cuda_device, n, batch):
+    """Short columns (the float4 tail, the warp's edge words), widths not a
+    multiple of 4 and a view at a 4-byte offset (the scalar paths): within
+    1e-6 of the plain version; the offset view equals the aligned panel bit
+    for bit."""
+    q, p = offset_panel(n, batch, 141, cuda_device)
+    for lam in (1e-2, 0.3):
+        want = kernels.stencil_denoise_plain(p, lam)
+        got = kernels.stencil_denoise(p, lam)
+        assert rel(got, want) <= 1e-6
+        assert torch.equal(got, kernels.stencil_denoise(p, lam))
+        assert torch.equal(kernels.stencil_denoise(q, lam), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,batch", CG_SHAPES + [(1, 1), (2, 3), (3, 4),
+                                                 (5, 9), (1001, 1),
+                                                 (1001, 3)])
+def test_cg_update_matches_plain(cuda_device, n, batch):
+    """``cg_update`` at the solvers' shapes and on short and ragged panels:
+    within 1e-6 of its plain version, one launch a call, bit for bit run to
+    run; on views at a 4-byte offset equal to the aligned call."""
+    views = [offset_panel(n, batch, 150 + s, cuda_device) for s in range(4)]
+    v = [p for _, p in views]
+    alpha = randn((batch,), 155, cuda_device)
+    kernels.reset_launches()
+    got = kernels.cg_update(*v, alpha)
+    assert kernels.LAUNCHES["cg_update"] == 1
+    for g, w in zip(got, kernels.cg_update_plain(*v, alpha)):
+        assert g.shape == (n, batch) and rel(g, w) <= 1e-6
+    for g, w in zip(got, kernels.cg_update(*v, alpha)):
+        assert torch.equal(g, w)
+    for g, w in zip(kernels.cg_update(*[q for q, _ in views], alpha), got):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+def test_stencil_after_ec_rmatmul_back_to_back(cuda_device):
+    """PDL: a stencil launched on ``ec_rmatmul``'s output (the LM dense's
+    pair) and a stencil on a stencil's output (one PDL kernel after
+    another), 20 times back to back, equal the same calls with the stream
+    synchronised between the two."""
+    dev = cuda_device
+    at, da = randn((2048, 6144), 160, dev), randn((2048, 6144), 161, dev)
+    y, yt = randn((2048, 8), 162, dev), randn((2048, 8), 163, dev)
+    want = []
+    for _ in range(2):
+        p = kernels.ec_rmatmul(at, da, y, yt)
+        torch.cuda.synchronize()
+        q = kernels.stencil_denoise(p, 1e-2)
+        torch.cuda.synchronize()
+        want.append((q, kernels.stencil_denoise(q, 0.3)))
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*want))
+    got = []
+    for _ in range(20):
+        q = kernels.stencil_denoise(kernels.ec_rmatmul(at, da, y, yt), 1e-2)
+        got.append((q, kernels.stencil_denoise(q, 0.3)))
+    finish_within(60, "ec_rmatmul + stencil_denoise x 20")
+    for q, r in got:
+        assert torch.equal(q, want[0][0]) and torch.equal(r, want[0][1])
+
+
+def test_cg_update_after_its_reduction_back_to_back(cuda_device):
+    """PDL: ``cg_update`` reading the alpha that a torch reduction writes
+    just before it, 20 iterations back to back (each iteration's outputs the
+    next one's inputs), equal the same iterations synchronised between the
+    reduction and the update."""
+    dev = cuda_device
+    n, batch = 32768, 8
+    p, ap = randn((n, batch), 170, dev), randn((n, batch), 171, dev)
+
+    def run(sync):
+        x, r = torch.zeros(n, batch, device=dev), randn((n, batch), 172, dev)
+        out = []
+        for _ in range(20):
+            alpha = torch.sum(r * r, dim=0) / torch.clamp(
+                torch.sum(p * ap, dim=0), min=1e-30)
+            if sync:
+                torch.cuda.synchronize()
+            x, r = kernels.cg_update(x, r, p, ap, alpha)
+            if sync:
+                torch.cuda.synchronize()
+            out.append((x, r))
+        return out
+
+    want = run(True)
+    got = run(False)
+    finish_within(60, "reduction + cg_update x 20")
+    for (gx, gr), (wx, wr) in zip(got, want):
+        assert torch.equal(gx, wx) and torch.equal(gr, wr)
+
+
+@pytest.mark.parametrize("n,batch", [(65025, 1), (151936, 64), (6144, 1024)])
+def test_stencil_chain_on_recycled_blocks(cuda_device, n, batch):
+    """PDL with the caching allocator recycling blocks: 20 stencils, each
+    output the next one's input and dropped after it, so that output k + 1
+    takes the block of input k while the kernel before it on the stream may
+    still read it; equals the same chain synchronised between calls."""
+    p = randn((n, batch), 180, cuda_device)
+
+    def chain(sync):
+        y, ptrs = p, []
+        for _ in range(20):
+            y = kernels.stencil_denoise(y, 0.3)
+            ptrs.append(y.data_ptr())
+            if sync:
+                torch.cuda.synchronize()
+        return y, ptrs
+
+    want, _ = chain(True)
+    got, ptrs = chain(False)
+    finish_within(60, "stencil_denoise chain x 20")
+    assert any(a == b for a, b in zip(ptrs[2:], ptrs))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,batch", [(65025, 1), (32768, 8)])
+def test_cg_update_chain_on_recycled_blocks(cuda_device, n, batch):
+    """PDL with the caching allocator recycling blocks: 20 CG updates, each
+    (x, r) the next one's input and dropped after it, alpha from a torch
+    reduction before each; equals the same chain synchronised between
+    calls."""
+    dev = cuda_device
+    p, ap = randn((n, batch), 185, dev), randn((n, batch), 186, dev)
+
+    def chain(sync):
+        x, r = torch.zeros(n, batch, device=dev), randn((n, batch), 187, dev)
+        ptrs = []
+        for _ in range(20):
+            alpha = 0.1 * torch.sum(r * r, dim=0) / torch.clamp(
+                torch.sum(p * ap, dim=0).abs(), min=1e-30)
+            if sync:
+                torch.cuda.synchronize()
+            x, r = kernels.cg_update(x, r, p, ap, alpha)
+            ptrs.append(x.data_ptr())
+            if sync:
+                torch.cuda.synchronize()
+        return x, r, ptrs
+
+    wx, wr, _ = chain(True)
+    gx, gr, ptrs = chain(False)
+    finish_within(60, "reduction + cg_update chain x 20")
+    assert any(a == b for a, b in zip(ptrs[2:], ptrs))
+    assert torch.equal(gx, wx) and torch.equal(gr, wr)
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_ec_kernels_on_a_block_view(cuda_device, transpose):
     """One capacity block of a padded image as a view (row stride > width),
