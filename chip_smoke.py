@@ -23,12 +23,13 @@ non-zero, printing no result, without them or without the repository's
      1e3 to a float64 solve (within twice the plain version's error), bit
      for bit run to run, with each CUDA kernel's share of a call (the
      transposes of a panel wider than one column); the launch floor (500
-     back-to-back launches of richardson_update on a 1 x 1 panel, a plain
-     launch) with the 1 x 1 stencil_denoise and cg_update beside it (both
-     launched with programmatic dependent launch), recorded beside the four
-     small kernels; the EC + stencil pair of a corrected MVM at batch 1
-     and 8; and stencil_denoise (lam 1e-12 and 1e-2) and cg_update at the
-     main path's other panels (TIER2_STENCIL_SHAPES, TIER2_CG_SHAPES), each
+     back-to-back plain launches of the one-thread floor probe,
+     launch_floor_probe) with the 1 x 1 richardson_update, stencil_denoise
+     and cg_update beside it (all three launched with programmatic
+     dependent launch), recorded beside the four small kernels; the EC +
+     stencil pair of a corrected MVM at batch 1 and 8; and stencil_denoise
+     (lam 1e-12 and 1e-2), cg_update and richardson_update at the main
+     path's other panels (TIER2_STENCIL_SHAPES, TIER2_CG_SHAPES), each
      against its plain version and bit for bit run to run, beside its byte
      bound and share;
   3. serve 8 single-vector requests and one batch of 8 through
@@ -43,7 +44,8 @@ non-zero, printing no result, without them or without the repository's
      iterative refinement (inner CG) to a digital relative residual <=
      1e-5, below the printed one-MVM noise floor; each cold and warm, with
      one ec_matmul and one stencil_denoise launch an MVM; a warm CG
-     solve's device ms an iteration (torch.profiler);
+     solve's and a warm Richardson solve's (at the estimated omega) device
+     ms an iteration (torch.profiler);
   4e. on the same image: Lanczos (tol 1e-3), LOBPCG (k = 2, largest and
      smallest), spectral_bounds / estimate_omega(method="lanczos") and
      Richardson at that omega; each pair's digital Ritz residual against
@@ -621,13 +623,19 @@ def timed_solves(name, solve, counts, mvm_ms, calls):
 
 
 def launch_floor(dev, kernels, lam, h):
-    """Device ms a launch of three one-element kernels of the ``kernels``
-    module, each LAUNCH_FLOOR_ITERS times back to back: ``richardson_update``
-    (a plain launch: the floor) and the two kernels launched with
-    programmatic dependent launch, ``stencil_denoise`` and ``cg_update``."""
+    """Device ms a launch of four one-element kernels of the ``kernels``
+    module, each LAUNCH_FLOOR_ITERS times back to back: the floor probe
+    ``launch_floor_probe`` (one thread writes one float, a plain launch: the
+    floor) and the three kernels launched with programmatic dependent
+    launch, ``richardson_update``, ``stencil_denoise`` and ``cg_update``.
+    A tree without the probe gives None for it."""
     one = torch.ones(1, 1, device=dev)
     alpha, omega = torch.ones(1, device=dev), torch.ones((), device=dev)
-    ms = {"richardson_update": device_time_ms(
+    probe = getattr(kernels, "launch_floor_probe", None)
+    out = torch.empty(1, device=dev)
+    ms = {"launch_floor_probe": None if probe is None else device_time_ms(
+              lambda: probe(out), LAUNCH_FLOOR_ITERS),
+          "richardson_update": device_time_ms(
               lambda: kernels.richardson_update(one, one, one, omega),
               LAUNCH_FLOOR_ITERS),
           "stencil_denoise": device_time_ms(
@@ -636,19 +644,24 @@ def launch_floor(dev, kernels, lam, h):
           "cg_update": device_time_ms(
               lambda: kernels.cg_update(one, one, one, one, alpha),
               LAUNCH_FLOOR_ITERS)}
-    print(f"[2] launch floor: {ms['richardson_update'] * 1e3:.3f} us a "
-          f"launch (richardson_update on a 1 x 1 panel, a plain launch, "
-          f"{LAUNCH_FLOOR_ITERS} back to back, CUDA events); 1 x 1 with "
-          f"PDL: stencil_denoise {ms['stencil_denoise'] * 1e3:.3f} us, "
-          f"cg_update {ms['cg_update'] * 1e3:.3f} us", flush=True)
+    floor = ("not in this tree" if probe is None else
+             f"{ms['launch_floor_probe'] * 1e3:.3f} us a launch")
+    print(f"[2] launch floor: {floor} (launch_floor_probe, one thread "
+          f"writing one float, a plain launch, {LAUNCH_FLOOR_ITERS} back to "
+          f"back, CUDA events); 1 x 1 with PDL: richardson_update "
+          f"{ms['richardson_update'] * 1e3:.3f} us, stencil_denoise "
+          f"{ms['stencil_denoise'] * 1e3:.3f} us, cg_update "
+          f"{ms['cg_update'] * 1e3:.3f} us", flush=True)
     return ms
 
 
 def tier2_phase(dev, kernels, lam, h):
-    """[2] ``stencil_denoise`` and ``cg_update`` of the ``kernels`` module
-    at the main path's shapes, each against its plain version (rel-L2 <=
-    ELEMENTWISE_TOL, bit for bit run to run, one launch a call): the stencil
-    held at STENCIL_CHECK_LAM and timed there and at the engine's ``lam``;
+    """[2] ``stencil_denoise``, ``cg_update`` and ``richardson_update`` of
+    the ``kernels`` module at the main path's shapes, each against its plain
+    version (rel-L2 <= ELEMENTWISE_TOL, bit for bit run to run, one launch a
+    call; ``richardson_update``'s omega a device tensor, as the solver's
+    is): the stencil held at STENCIL_CHECK_LAM and timed there and at the
+    engine's ``lam``;
     each beside its byte bound (each panel read once, each output written
     once) and its share of it; and the stencil's TIER2_PREFILL_PANELS
     launched as a prefill launches them.  Returns ``{name: row}`` entries
@@ -714,6 +727,26 @@ def tier2_phase(dev, kernels, lam, h):
         print(f"    cg_update {n}x{batch}: {share(row)}", flush=True)
         rows.append({"cg_update": row})
         del v
+    rich = torch.Generator(device=dev).manual_seed(TIER2_SEED + 1)
+    for n, batch in TIER2_CG_SHAPES:
+        v = [torch.randn(n, batch, generator=rich, device=dev)
+             for _ in range(3)]
+        omega = torch.rand((), generator=rich, device=dev)
+        launches(lambda: kernels.richardson_update(*v, omega),
+                 "richardson_update")
+        row = compare(f"richardson_update {n}x{batch}",
+                      lambda: kernels.richardson_update(*v, omega),
+                      lambda: kernels.richardson_update_plain(*v, omega),
+                      ELEMENTWISE_TOL, nbytes=4 * (5 * n * batch + 1),
+                      flops=3 * n * batch, iters=500)
+        check(all(torch.equal(a, b) for a, b in zip(
+                  kernels.richardson_update(*v, omega),
+                  kernels.richardson_update(*v, omega))),
+              f"richardson_update {n}x{batch} is not the same run to run")
+        row.update(shape=f"{n}x{batch}", batch=batch)
+        print(f"    richardson_update {n}x{batch}: {share(row)}", flush=True)
+        rows.append({"richardson_update": row})
+        del v
     panels = [(torch.randn(d_out, n, generator=gen, device=dev), count)
               for d_out, n, count in TIER2_PREFILL_PANELS]
 
@@ -759,6 +792,26 @@ def cg_step(solvers, A, b):
     return (mvms, sum(split.values()) / mvms,
             sum(v for k_, v in split.items()
                 if "stencil_" in k_ or "cg_update" in k_) / mvms)
+
+
+def richardson_step(solvers, A, b):
+    """A Richardson step's device time with the ``solvers`` module on the
+    image ``A``: a warm solve at the omega its auto mode takes
+    (``estimate_omega``, found once before), under the profiler, its
+    kernels' device ms over its MVMs (one an iteration).  Returns the MVMs,
+    ms a step and the ms of ``stencil_denoise`` + ``richardson_update`` in
+    it."""
+    omega = solvers.estimate_omega(A)
+
+    def solve():
+        return solvers.richardson(A, b, omega=omega, tol=SOLVE_TOL,
+                                  maxiter=50, backend="cuda")
+
+    mvms = solve().iterations
+    split = kernel_split(solve, iters=1)
+    return (mvms, sum(split.values()) / mvms,
+            sum(v for k_, v in split.items()
+                if "stencil_" in k_ or "richardson_update" in k_) / mvms)
 
 
 def eigen_phase(dev, A, a, b, x_true, noise_floor):
@@ -3479,7 +3532,7 @@ def kernel_phases():
 
     # The least a separate launch takes, and the PDL kernels' 1 x 1 beside it.
     floor = launch_floor(dev, kernels, cfg.lam, cfg.h)
-    floor_ms = floor["richardson_update"]
+    floor_ms = floor["launch_floor_probe"]
 
     rows = {}
     for batch in (1, 8):
@@ -3618,7 +3671,7 @@ def kernel_phases():
         for name in ("stencil_denoise", "thomas_solve", "cg_update",
                      "richardson_update"):
             res[name]["launch_floor_ms"] = floor_ms
-        for name in ("stencil_denoise", "cg_update"):
+        for name in ("stencil_denoise", "cg_update", "richardson_update"):
             res[name]["one_by_one_ms"] = floor[name]
         rows[batch] = res
     torch.cuda.synchronize()
@@ -3806,12 +3859,18 @@ def kernel_phases():
           solved["refine[cg]"]["cg_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
-    # A CG step's device time (not in the tally above).
+    # A CG and a Richardson step's device time (not in the tally above).
     cg_mvms, cg_step_ms, tier2_ms = cg_step(solvers, A, b)
     print(f"[4] a CG step: {cg_step_ms:.4f} ms device (the solve's kernels "
           f"over its {cg_mvms} MVMs: an MVM, its reductions and "
           f"cg_update), of which stencil_denoise + cg_update "
           f"{tier2_ms:.5f} ms", flush=True)
+    rich_mvms, rich_step_ms, rich_tier2_ms = richardson_step(solvers, A, b)
+    print(f"[4] a Richardson step: {rich_step_ms:.4f} ms device (the "
+          f"solve's kernels over its {rich_mvms} MVMs at the estimated "
+          f"omega: an MVM, its norms and richardson_update), of which "
+          f"stencil_denoise + richardson_update {rich_tier2_ms:.5f} ms",
+          flush=True)
 
     # ------------------------------------- 4e. eigen solvers on the image
     t0 = time.perf_counter()

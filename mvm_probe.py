@@ -29,18 +29,20 @@ the pass that sums its partials); beside them the library call (cuBLAS
 ``at @ x + da @ x_t`` / ``at.T @ y + da.T @ y_t``, or ``bmm`` on the
 members) and the bound (the images' and panels' bytes at 3.35 TB/s).
 
-``tier2`` probes ``stencil_denoise`` and ``cg_update`` of every tree: first
-each tree's outputs against the first tree's on the same inputs, bit for
-bit or the largest gap in units in the last place, at chip_smoke.py's
-TIER2_STENCIL_SHAPES (lam 1e-12 and 1e-2) and TIER2_CG_SHAPES and on the
+``tier2`` probes ``stencil_denoise``, ``cg_update`` and
+``richardson_update`` of every tree: first each tree's outputs against the
+first tree's on the same inputs, bit for bit or the largest gap in units in
+the last place, at chip_smoke.py's TIER2_STENCIL_SHAPES (lam 1e-12 and
+1e-2) and TIER2_CG_SHAPES (``richardson_update`` also on 1 x 1) and on the
 EC + stencil pair of a corrected MVM (32,768^2, batch 1 and 8); then
 chip_smoke.py's own measurements with each tree's modules, in turns over
 ``--rounds`` rounds (other, this, this, other for two trees): its
-``launch_floor`` (``richardson_update``, ``stencil_denoise`` and
-``cg_update`` on 1 x 1) and ``tier2_phase`` (those shapes against the plain
-version, and the 197 panels of a qwen3-1.7b 1 x 1,024 prefill), the pair
-(``ec_stencil_pair_ms``) and a CG step on a programmed 32,768^2 epiram
-image (``cg_step``, with each tree's engine and solvers).
+``launch_floor`` (the plain floor probe where a tree has it, and
+``richardson_update``, ``stencil_denoise`` and ``cg_update`` on 1 x 1) and
+``tier2_phase`` (those shapes against the plain version, and the 197 panels
+of a qwen3-1.7b 1 x 1,024 prefill), the pair (``ec_stencil_pair_ms``) and a
+CG and a Richardson step on a programmed 32,768^2 epiram image
+(``cg_step``, ``richardson_step``, with each tree's engine and solvers).
 
 The last line is one JSON object.  Needs a CUDA device; exits non-zero
 without one.
@@ -62,7 +64,8 @@ from chip_smoke import (D_FF, D_MODEL, EC_TOL, HBM_BYTES_PER_S, N,
                         N_EXPERTS, STENCIL_CHECK_LAM, TIER2_CG_SHAPES,
                         TIER2_STENCIL_SHAPES, cg_step, device_time_ms,
                         ec_stencil_pair_ms, kernel_split, launch_floor,
-                        rel_l2, short_kernel_name, tier2_phase)
+                        rel_l2, richardson_step, short_kernel_name,
+                        tier2_phase)
 
 HERE = Path(__file__).resolve().parent
 
@@ -257,6 +260,12 @@ def tier2(labels, trees, args, dev) -> dict:
         alpha = torch.rand(batch, generator=gen, device=dev)
         gaps(f"cg_update {n}x{batch}",
              each(lambda t: t.kernels.cg_update(*v, alpha)))
+    for n, batch in ((1, 1),) + TIER2_CG_SHAPES:
+        v = [torch.randn(n, batch, generator=gen, device=dev)
+             for _ in range(3)]
+        omega = torch.rand((), generator=gen, device=dev)
+        gaps(f"richardson_update {n}x{batch}",
+             each(lambda t: t.kernels.richardson_update(*v, omega)))
     xs = {batch: (torch.randn(N, batch, generator=gen, device=dev),
                   torch.randn(N, batch, generator=gen, device=dev))
           for batch in (1, 8)}
@@ -283,6 +292,7 @@ def tier2(labels, trees, args, dev) -> dict:
     del a
     torch.cuda.empty_cache()
     cg = timed(lambda t: cg_step(t.solvers, images[id(t)], b))
+    rich = timed(lambda t: richardson_step(t.solvers, images[id(t)], b))
     del images
 
     print(f"device ms in {args.rounds} rounds (chip_smoke.py's phases: "
@@ -290,20 +300,30 @@ def tier2(labels, trees, args, dev) -> dict:
           f"{lam:g})", flush=True)
 
     def line(what, per_tree, bound=None, unit=1.0, fmt=".5f"):
-        means = {label: sum(t) / len(t) for label, t in per_tree.items()}
+        """A tree whose values are None (it lacks the function) prints
+        "none"."""
         record["phase"][what] = {"bound_ms": bound, "ms": per_tree}
+
+        def text(t):
+            if any(x is None for x in t):
+                return "none"
+            mean = sum(t) / len(t)
+            return (f"{' / '.join(f'{x * unit:{fmt}}' for x in t)} (mean "
+                    f"{mean * unit:{fmt}}" + (
+                        f", {bound / mean:.1%} of the bound" if bound
+                        else "") + ")")
         print(f"  {what}" + (f" (bound {bound:{fmt}})" if bound else "")
-              + ": " + ", ".join(
-                  f"[{label}] {' / '.join(f'{x * unit:{fmt}}' for x in t)}"
-                  f" (mean {means[label] * unit:{fmt}}"
-                  + (f", {bound / means[label]:.1%} of the bound"
-                     if bound else "") + ")"
-                  for label, t in per_tree.items()), flush=True)
+              + ": " + ", ".join(f"[{label}] {text(t)}"
+                                 for label, t in per_tree.items()),
+              flush=True)
 
     def per_tree(get):   # get(a round's result) of each tree, each round
         return {label: [get(r) for r in runs]
                 for label, runs in phase.items()}
 
+    line("launch_floor_probe, a plain launch (us)",
+         per_tree(lambda r: r["floor"].get("launch_floor_probe")),
+         unit=1e3, fmt=".3f")
     for name in ("richardson_update", "stencil_denoise", "cg_update"):
         line(f"{name} 1 x 1 (us)", per_tree(lambda r: r["floor"][name]),
              unit=1e3, fmt=".3f")
@@ -327,6 +347,11 @@ def tier2(labels, trees, args, dev) -> dict:
          fmt=".4f")
     line("  of which stencil_denoise + cg_update", {
         label: [step[2] for step in t] for label, t in cg.items()})
+    line("a Richardson step on the same image", {
+        label: [step[1] for step in t] for label, t in rich.items()},
+         fmt=".4f")
+    line("  of which stencil_denoise + richardson_update", {
+        label: [step[2] for step in t] for label, t in rich.items()})
     return record
 
 

@@ -9,8 +9,8 @@ from .rram_mvm import (ec_group_matmul, ec_group_matmul_plain,
                        ec_group_rmatmul, ec_group_rmatmul_plain, ec_matmul,
                        ec_matmul_plain, ec_rmatmul, ec_rmatmul_plain,
                        matmul_layout, rmatmul_layout)
-from .solver_update import (cg_update, cg_update_plain, richardson_update,
-                            richardson_update_plain)
+from .solver_update import (cg_update, cg_update_plain, launch_floor_probe,
+                            richardson_update, richardson_update_plain)
 from .tridiag import (stencil_denoise, stencil_denoise_plain, thomas_solve,
                       thomas_solve_plain)
 
@@ -42,4 +42,5 @@ __all__ = [
     "cg_update_plain",
     "richardson_update",
     "richardson_update_plain",
+    "launch_floor_probe",
 ]

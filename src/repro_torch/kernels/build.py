@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "library", "build", "launch",
-           "query", "ptxas_report"]
+           "launch_uncounted", "query", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -56,6 +56,7 @@ SIGNATURES = {
                            _P],
     "repro_cg_update": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _P],
     "repro_richardson_update": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+    "repro_launch_floor": [_P, _P],
 }
 
 #: One count per kernel.  A count is one call of the C launcher, which may
@@ -182,9 +183,15 @@ def launch(kernel: str, symbol: str, device, *args) -> None:
     """Call the C launcher ``symbol`` on ``device``'s current stream (passed as
     its last argument), count one launch of ``kernel`` and raise if the launch
     failed (``cudaGetLastError`` after the launch)."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _call(f"{kernel} launch", symbol, device, *args, stream)
+    launch_uncounted(f"{kernel} launch", symbol, device, *args)
     LAUNCHES[kernel] += 1
+
+
+def launch_uncounted(what: str, symbol: str, device, *args) -> None:
+    """``launch`` without a count: for a measurement probe, which ports no
+    kernel and has no entry in ``LAUNCHES``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _call(what, symbol, device, *args, stream)
 
 
 def query(symbol: str, device, *args) -> None:

@@ -8,6 +8,14 @@
 Coefficients stay tensors on the device (no ``.item()``): the kernels read
 them from device memory.  On CUDA tensors the wrappers launch
 ``csrc/solver_update.cu``; on CPU tensors they run the ``*_plain`` versions.
+Both kernels walk their panels in 4-float units on a grid of one wave of
+the card and are launched with programmatic dependent launch: each waits
+for the kernel before it on the stream ahead of its first global access.
+
+``launch_floor_probe`` is no port of a kernel: a measurement probe that
+writes one float with a plain launch (no PDL), so that a measurement can
+time the least a separate launch costs; no solver or model calls it, and
+``build.LAUNCHES`` does not count it.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ from . import build
 from ._checks import check_panels, check_shapes, on_cpu
 
 __all__ = ["cg_update", "cg_update_plain", "richardson_update",
-           "richardson_update_plain"]
+           "richardson_update_plain", "launch_floor_probe"]
 
 
 def cg_update_plain(x, r, p, ap, alpha) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,3 +77,18 @@ def richardson_update(x: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
                  x.data_ptr(), b.data_ptr(), y.data_ptr(), omega.data_ptr(),
                  x_out.data_ptr(), r_out.data_ptr(), n, batch)
     return x_out, r_out
+
+
+def launch_floor_probe(out: torch.Tensor) -> torch.Tensor:
+    """Writes 1.0 into the one-element float32 tensor ``out`` and returns it:
+    on a CUDA tensor one plain launch of a one-thread kernel (not counted),
+    on a CPU tensor ``out.fill_(1.0)``."""
+    check_panels("launch_floor_probe", out)
+    if out.numel() != 1:
+        raise ValueError(f"launch_floor_probe: expected one element, got "
+                         f"{tuple(out.shape)}")
+    if on_cpu(out):
+        return out.fill_(1.0)
+    build.launch_uncounted("launch_floor_probe", "repro_launch_floor",
+                           out.device, out.data_ptr())
+    return out

@@ -617,6 +617,121 @@ def test_cg_update_chain_on_recycled_blocks(cuda_device, n, batch):
     assert any(a == b for a, b in zip(ptrs[2:], ptrs))
     assert torch.equal(gx, wx) and torch.equal(gr, wr)
 
+
+# -------------------- richardson_update (PDL launch) and the floor probe
+# The solvers' columns and short, ragged panels: the vector's partial last
+# unit (n = 1, 3, 5, 4,097) and widths not a multiple of 4.
+RICHARDSON_SHAPES = CG_SHAPES + [(n, b) for n in (1, 3, 5, 4097)
+                                 for b in (1, 3, 5, 8)]
+
+
+@pytest.mark.parametrize("n,batch", RICHARDSON_SHAPES,
+                         ids=[f"{n}x{b}" for n, b in RICHARDSON_SHAPES])
+def test_richardson_update_matches_plain(cuda_device, n, batch):
+    """``richardson_update`` at the solvers' shapes and on short and ragged
+    panels: within 1e-6 of its plain version, the residual exactly b - y,
+    one launch a call, bit for bit run to run; on views at a 4-byte offset
+    (the scalar path) equal to the aligned call."""
+    views = [offset_panel(n, batch, 190 + s, cuda_device) for s in range(3)]
+    v = [p for _, p in views]
+    omega = torch.tensor(0.37, device=cuda_device)
+    kernels.reset_launches()
+    got = kernels.richardson_update(*v, omega)
+    assert kernels.LAUNCHES["richardson_update"] == 1
+    for g, w in zip(got, kernels.richardson_update_plain(*v, omega)):
+        assert g.shape == (n, batch) and rel(g, w) <= 1e-6
+    assert torch.equal(got[1], v[1] - v[2])
+    for g, w in zip(kernels.richardson_update(*v, omega), got):
+        assert torch.equal(g, w)
+    for g, w in zip(kernels.richardson_update(*[q for q, _ in views], omega),
+                    got):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_richardson_update_after_stencil_and_omega_back_to_back(cuda_device,
+                                                                batch):
+    """PDL: ``richardson_update`` as the Richardson solve runs it, on the
+    stencil of an ``ec_matmul`` launched just before it and with an omega
+    that torch reductions compute on the device just before, 20 iterations
+    back to back (each x the next product's input), equals the same
+    iterations synchronised between the kernels."""
+    dev = cuda_device
+    n = 4096
+    at, da = randn((n, n), 196, dev) / n, randn((n, n), 197, dev) / n
+    b = randn((n, batch), 198, dev)
+
+    def run(sync):
+        x, out = torch.zeros(n, batch, device=dev), []
+        for _ in range(20):
+            y = kernels.stencil_denoise(kernels.ec_matmul(at, da, x, x), 1e-2)
+            om = 0.5 / (1.0 + torch.linalg.vector_norm(y) / n)
+            if sync:
+                torch.cuda.synchronize()
+            x, r = kernels.richardson_update(x, b, y, om)
+            if sync:
+                torch.cuda.synchronize()
+            out.append((x, r))
+        return out
+
+    want = run(True)
+    got = run(False)
+    finish_within(60, "ec_matmul + stencil + richardson_update x 20")
+    for (gx, gr), (wx, wr) in zip(got, want):
+        assert torch.equal(gx, wx) and torch.equal(gr, wr)
+
+
+@pytest.mark.parametrize("n,batch", [(65025, 1), (32768, 8)])
+def test_richardson_update_chain_on_recycled_blocks(cuda_device, n, batch):
+    """PDL with the caching allocator recycling blocks: 20 Richardson
+    updates, each (x, r) the next one's (x, y) and dropped after it, omega
+    from a torch reduction before each; equals the same chain synchronised
+    between calls."""
+    dev = cuda_device
+    b = randn((n, batch), 200, dev)
+
+    def chain(sync):
+        x, r = torch.zeros(n, batch, device=dev), randn((n, batch), 201, dev)
+        ptrs = []
+        for _ in range(20):
+            om = 0.5 / (1.0 + torch.sum(r * r) / r.numel())
+            if sync:
+                torch.cuda.synchronize()
+            x, r = kernels.richardson_update(x, b, r, om)
+            ptrs.append(x.data_ptr())
+            if sync:
+                torch.cuda.synchronize()
+        return x, r, ptrs
+
+    wx, wr, _ = chain(True)
+    gx, gr, ptrs = chain(False)
+    finish_within(60, "reduction + richardson_update chain x 20")
+    assert any(a == b for a, b in zip(ptrs[2:], ptrs))
+    assert torch.equal(gx, wx) and torch.equal(gr, wr)
+
+
+def test_launch_floor_probe_launches_plain(cuda_device):
+    """The floor probe writes 1.0 with a plain launch and counts nothing:
+    launched on the last element of a stencil's output, just after the
+    stencil (a PDL kernel that lets the next one be scheduled before its
+    stores), its write lands after the stencil's, 20 times of 20; the rest
+    of the output is the stencil's."""
+    p = randn((65025, 1), 202, cuda_device)
+    want = kernels.stencil_denoise(p, 0.3)
+    kernels.reset_launches()
+    outs = []
+    for _ in range(20):
+        y = kernels.stencil_denoise(p, 0.3)
+        assert kernels.launch_floor_probe(y[-1:]).data_ptr() == \
+            y[-1:].data_ptr()
+        outs.append(y)
+    finish_within(60, "stencil_denoise + launch_floor_probe x 20")
+    assert kernels.LAUNCHES["stencil_denoise"] == 20
+    assert sum(kernels.LAUNCHES.values()) == 20
+    for y in outs:
+        assert float(y[-1, 0]) == 1.0 and torch.equal(y[:-1], want[:-1])
+
 @pytest.mark.parametrize("transpose", [False, True])
 def test_ec_kernels_on_a_block_view(cuda_device, transpose):
     """One capacity block of a padded image as a view (row stride > width),
