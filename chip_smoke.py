@@ -228,12 +228,29 @@ non-zero, printing no result, without them or without the repository's
      stencil_denoise forward and one stencil_denoise backward; then the
      2-layer model programmed on [12]'s backend, its loss's backward
      counted (the main path) with a finite gradient on every leaf it
-     reaches.
+     reaches;
+ 16. the serving simulator (``serving_phase``, after [15]): [16a] the
+     reference benchmark's mixed trace (4 tenants of reduced rwkv6-1.6b
+     and qwen3-1.7b, 24 requests) through ``repro_torch.serving.simulate``
+     on the card with the model run, on epiram and on the digital
+     baseline, each equal (records, summary, cache stats) to the same
+     trace without the model on the CPU, its launches one ec_rmatmul per 8
+     rows and one stencil_denoise per analog dense of each batch (the
+     digital run none), and the skewed trace (36 requests) under lru and
+     write_cost, write_cost's write energy the lower; [16b] three tenants
+     of qwen3-1.7b at its published widths and depth (float32, [12]'s
+     backend) sharing one weight set, an ImageCache under write_cost with
+     room for two images (27.5 GB), a generate_trace of 8 requests served
+     batch by batch: each miss programs a Server (held to the bytes it
+     adds less those its evictions free, within 1 % of an image), a hit
+     programs nothing, each generate counted against the padded shape's
+     analog denses, the peak within the weights + 3 images + activations,
+     and the memory back to the start at the end.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
 5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13, 14
-and 15's main calls, and read just after: every kernel must have run on the path that
-uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
+and 15's main calls, before [16a]'s served runs and [16b]'s batches, and
+read just after: every kernel must have run on the path that uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
 limit, and the result line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
 """
@@ -385,6 +402,29 @@ TRAIN_RESTORE_SEED = 99
 # stacked layers' per-layer gradients before they are stacked (5.65 GB)
 # and the activations of one microbatch (~1.5 GB).
 TRAIN_PEAK_PREDICTED_GIB = (44.0, 48.0)
+
+# [16]: the serving simulator.  [16a] runs the reference benchmark's
+# configurations (benchmarks/serving.py's _mixed_cfg and _skew_cfg, copied
+# here: that module imports the JAX package) on the reduced models the
+# simulator serves.
+SERVING_MIXED_REQUESTS = 24     # the benchmark's quick run
+SERVING_SKEW_REQUESTS = 36
+SERVING_SKEW_CAPACITY = 1_100_000   # the hot rwkv6 image + one zamba2 image
+SERVING_BATCHING = {"max_batch": 4, "prompt_buckets": (8, 16),
+                    "decode_buckets": (4, 8), "batch_buckets": (1, 2, 4)}
+# [16b] the image cache at qwen3-1.7b's published widths and depth, float32,
+# [12]'s backend: three tenants of one weight set, room for two images.
+CACHE_ARCH = "qwen3-1.7b"
+CACHE_TENANTS = 3
+CACHE_IMAGES = 2
+CACHE_REQUESTS = 8
+CACHE_TRAFFIC = {"rate_rps": 1.0, "zipf_s": 0.5, "prompt_lens": (12, 24),
+                 "prompt_mix": (0.5, 0.5), "decode_lens": (4, 7),
+                 "decode_mix": (0.5, 0.5), "seed": 0}
+CACHE_BATCHING = {"max_batch": 4, "prompt_buckets": (16, 32),
+                  "decode_buckets": (4, 8), "batch_buckets": (1, 2, 4)}
+CACHE_MAX_LEN = 64
+CACHE_MEM_TOL = 0.01    # of one image: the bytes an eviction frees, the end
 
 
 class SmokeFailure(RuntimeError):
@@ -2492,7 +2532,9 @@ def analog_calls(cfg, b, t, ctx=0, prefill=True):
         return gate + [(d, f, rows), (f, d, rows)]
 
     n = b * t
-    if cfg.family == "moe":
+    if cfg.family == "transformer":
+        calls = (attn(n, n) + mlp(n)) * cfg.n_layers
+    elif cfg.family == "moe":
         calls = attn(n, n) * cfg.n_layers
     elif cfg.family == "rwkv6":
         # time mix wr, wk, wv, wg, w_lora_a, wo; channel mix wk, wr, wv
@@ -3467,6 +3509,452 @@ def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
     del prog, params, grads, reached
     gc.collect()
     free_cuda()
+    return counts
+
+
+def serving_mixed_cfg(rram):
+    """benchmarks/serving.py's service-quality trace: two zoo models, four
+    tenants, Zipf skew (the port's types)."""
+    from repro_torch.serving import (BatchingConfig, ServingConfig,
+                                     TenantSpec, TrafficConfig)
+    tenants = (TenantSpec("acme", "rwkv6-1.6b"),
+               TenantSpec("globex", "qwen3-1.7b"),
+               TenantSpec("initech", "rwkv6-1.6b"),
+               TenantSpec("umbrella", "qwen3-1.7b"))
+    traffic = TrafficConfig(n_requests=SERVING_MIXED_REQUESTS, rate_rps=6.0,
+                            zipf_s=1.0, prompt_lens=(6, 12),
+                            prompt_mix=(0.6, 0.4), decode_lens=(4, 8),
+                            decode_mix=(0.6, 0.4), seed=0)
+    return ServingConfig(tenants=tenants, traffic=traffic,
+                         batching=BatchingConfig(**SERVING_BATCHING),
+                         rram=rram, cache_capacity_bytes=1 << 23,
+                         policy="write_cost", seed=0, max_len=32)
+
+
+def serving_skew_cfg(policy):
+    """benchmarks/serving.py's cache-pressure trace: a hot expensive tenant
+    and four cold cheap ones, ``run_model=False``."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.serving import (BatchingConfig, ServingConfig,
+                                     TenantSpec, TrafficConfig)
+    tenants = (TenantSpec("hot", "rwkv6-1.6b"),
+               TenantSpec("cold-a", "zamba2-1.2b"),
+               TenantSpec("cold-b", "zamba2-1.2b"),
+               TenantSpec("cold-c", "zamba2-1.2b"),
+               TenantSpec("cold-d", "zamba2-1.2b"))
+    traffic = TrafficConfig(n_requests=SERVING_SKEW_REQUESTS, rate_rps=2.0,
+                            zipf_s=1.0, prompt_lens=(6, 12),
+                            prompt_mix=(0.6, 0.4), decode_lens=(4, 8),
+                            decode_mix=(0.6, 0.4), seed=0)
+    return ServingConfig(tenants=tenants, traffic=traffic,
+                         batching=BatchingConfig(**dict(SERVING_BATCHING,
+                                                        max_batch=2)),
+                         rram=RRAMBackendConfig(enabled=True),
+                         cache_capacity_bytes=SERVING_SKEW_CAPACITY,
+                         policy=policy, seed=0, max_len=32,
+                         run_model=False)
+
+
+def simulated_batches(res, batching):
+    """(arch, padded batch, prompt bucket, decode bucket) of every batch a
+    simulate run served, read off its records: a batch's members share
+    their start on the simulated clock, and no two batches start together
+    (each moves the clock on)."""
+    from repro_torch.serving import bucket_for
+    groups = {}
+    for r in res.records:
+        groups.setdefault(r.start_s, []).append(r)
+    return [(g[0].arch, bucket_for(len(g), batching.batch_buckets),
+             bucket_for(max(r.prompt_len for r in g), batching.prompt_buckets),
+             bucket_for(max(r.decode_len for r in g), batching.decode_buckets))
+            for _, g in sorted(groups.items())]
+
+
+def serving_line(tag, res, wall_s) -> str:
+    s = res.summary
+    cache = res.cache_stats or {}
+    return (f"{tag}: {s['n_requests']} requests in {s['n_batches']} batches, "
+            f"{s['tokens_per_s']:.4f} tokens/s on the simulated clock, p50 "
+            f"{s['p50_latency_s']:.4f} s, p99 {s['p99_latency_s']:.4f} s, "
+            f"{s['joules_per_token']:.6e} J/token (exec "
+            f"{s['exec_energy_j']:.6e} J, write {s['write_energy_j']:.6e} "
+            f"J), padding overhead {s['padding_overhead']:.4f}, hits "
+            f"{cache.get('hits', '-')}, misses {cache.get('misses', '-')}, "
+            f"evictions {cache.get('evictions', '-')}, reprograms "
+            f"{cache.get('reprograms', '-')}; exec dispatches "
+            f"{s['exec_dispatches']}, program dispatches "
+            f"{s['program_dispatches']}; wall {wall_s:.3f} s")
+
+
+def simulator_phase(dev):
+    """[16a] the ported simulator on ``dev`` as the reference benchmark
+    defines it: the mixed trace served with the model run (every batch
+    through ``Server.generate``) on the analog backend (epiram) and on the
+    digital baseline, each held equal, records, summary and cache stats,
+    to the same trace run without the model on the CPU; the analog run's
+    launches held to its batches' analog denses (one ec_rmatmul per 8 rows
+    and one stencil_denoise a dense, nothing else), the digital run's to
+    none; then the skewed trace under lru and write_cost, whose write energy
+    must be the lower (the benchmark's own contract).  The equality covers
+    the simulator's bookkeeping only: its metrics are host arithmetic on
+    shapes and hold whatever tokens the card computes.  The kernels the
+    served batches launch are held to their plain versions in [2] and [12].
+    Returns the analog run's launch counts."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.serving import simulate
+
+    epiram = RRAMBackendConfig(enabled=True, device="epiram")
+    runs = {}
+    for name, rram in (("analog epiram", epiram), ("digital", None)):
+        cfg = serving_mixed_cfg(rram)
+        free_cuda()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = simulate(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        host = simulate(dataclasses.replace(cfg, run_model=False),
+                        device="cpu")
+        host_wall = time.perf_counter() - t0
+        print(serving_line(f"[16a] mixed trace, {name}, run_model=True on "
+                           f"{dev}", res, wall), flush=True)
+        print(f"[16a] the same on the CPU, run_model=False: wall "
+              f"{host_wall:.3f} s; records equal {res.records == host.records}"
+              f", summary equal {res.summary == host.summary}, cache stats "
+              f"equal {res.cache_stats == host.cache_stats}", flush=True)
+        check(res.records == host.records and res.summary == host.summary
+              and res.cache_stats == host.cache_stats,
+              f"[16a] {name}: the served run's metrics differ from the "
+              f"CPU's run without the model")
+        want = {"ec_rmatmul": 0, "stencil_denoise": 0}
+        if rram is not None:
+            for arch, b, t, n in simulated_batches(res, cfg.batching):
+                mcfg = get_arch(arch).reduced()
+                pre = analog_calls(mcfg, b, t)
+                step = analog_calls(mcfg, b, 1, prefill=False)
+                want["ec_rmatmul"] += ec_launches(pre) \
+                    + (n - 1) * ec_launches(step)
+                want["stencil_denoise"] += len(pre) + (n - 1) * len(step)
+        print(f"[16a] {name}: launches "
+              f"{ {k_: v for k_, v in counts.items() if v} } (expected "
+              f"{ {k_: v for k_, v in want.items() if v} })", flush=True)
+        check(all(counts[k_] == want.get(k_, 0) for k_ in counts),
+              f"[16a] {name}: launches {counts}, expected {want}")
+        runs[name] = (res, counts)
+    check(runs["analog epiram"][1]["ec_rmatmul"] > 0,
+          "[16a] the analog run launched no EC kernel")
+
+    evict = {}
+    for policy in ("lru", "write_cost"):
+        t0 = time.perf_counter()
+        res = simulate(serving_skew_cfg(policy), device=dev)
+        torch.cuda.synchronize()
+        print(serving_line(f"[16a] skewed trace, {policy}, run_model=False",
+                           res, time.perf_counter() - t0), flush=True)
+        evict[policy] = res.cache_stats["write_energy_j"]
+    check(evict["write_cost"] < evict["lru"],
+          f"[16a] write_cost's write energy {evict['write_cost']:.6e} J is "
+          f"not below lru's {evict['lru']:.6e} J")
+    free_cuda()
+    return runs["analog epiram"][1]
+
+
+def request_inputs(batch, vocab, dev):
+    """A batch's padded prompt as the simulator builds it: each member's
+    tokens drawn from its ``token_seed`` (PCG64), pad rows repeating the
+    last member, int32 on ``dev``."""
+    import numpy as np
+    rows = [np.random.Generator(np.random.PCG64(r.token_seed))
+            .integers(0, vocab, size=batch.prompt_bucket)
+            for r in batch.requests]
+    rows += [rows[-1]] * (batch.batch_pad - len(rows))
+    return {"tokens": torch.as_tensor(np.stack(rows).astype(np.int32),
+                                      device=dev)}
+
+
+def cache_model():
+    """[16b]'s model and backend: CACHE_ARCH at its published widths and
+    depth in float32, [12]'s backend with dw in float32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    cfg = dataclasses.replace(get_arch(CACHE_ARCH).model,
+                              param_dtype="float32", compute_dtype="float32")
+    return cfg, RRAMBackendConfig(enabled=True, dw_dtype="float32")
+
+
+def programmed_meta(cfg, rram):
+    """``cfg``'s programmed tree under ``rram`` as meta tensors: the shapes,
+    dtypes and bytes of its weights and image, nothing allocated."""
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rram import program_specs
+    return PM.tree_map(
+        lambda s: torch.empty(s.shape, device="meta", dtype=PM.torch_dtype(
+            s.dtype or cfg.param_dtype)),
+        program_specs(tf.init_specs(cfg), rram))
+
+
+def cache_schedule(prog, rram, cache, build, traffic_kw):
+    """[16b]'s schedule on the simulated clock, as ``simulate`` keeps it: the
+    ``generate_trace`` of CACHE_REQUESTS requests over CACHE_TENANTS tenants
+    of CACHE_ARCH, batched by CACHE_BATCHING, each batch's image taken
+    through ``cache.get``.  ``build(tenant index, n)`` makes a tenant's n-th
+    image, (server, bytes, write stats); a miss stalls the clock for its
+    write latency.  Yields (batch, server, outcome, clock); once the caller
+    is done with a batch, its service at the padded shapes
+    (``forward_input_stats`` of ``prog``, any tree with the programmed
+    shapes) moves the clock on."""
+    from repro_torch.models.rram import forward_input_stats
+    from repro_torch.serving import (BatchingConfig, RequestQueue,
+                                     TenantSpec, TrafficConfig,
+                                     generate_trace)
+
+    tenants = tuple(TenantSpec(f"tenant-{i}", CACHE_ARCH)
+                    for i in range(CACHE_TENANTS))
+    index = {t_.name: i for i, t_ in enumerate(tenants)}
+    queue = RequestQueue(BatchingConfig(**CACHE_BATCHING))
+    for r in generate_trace(tenants, TrafficConfig(n_requests=CACHE_REQUESTS,
+                                                   **traffic_kw)):
+        queue.add(r)
+    builds = {}
+
+    def build_for(tenant):
+        def make():
+            n = builds.get(tenant, 0)
+            builds[tenant] = n + 1
+            return build(index[tenant], n)
+        return make
+
+    now = 0.0
+    while len(queue):
+        batch = queue.form_batch(now)
+        if batch is None:
+            now = queue.next_arrival(now)
+            continue
+        server, outcome = cache.get(batch.tenant, build_for(batch.tenant),
+                                    now)
+        now += float(outcome.write_stats.latency_s)    # 0 on a hit
+        yield batch, server, outcome, now
+        pre = forward_input_stats(prog, rram, batch=batch.padded_prompt_tokens)
+        step = forward_input_stats(prog, rram, batch=batch.batch_pad)
+        now += pre.latency_s + step.latency_s * batch.decode_bucket
+
+
+def dry_cache_schedule(cfg, rram, traffic_kw):
+    """:func:`cache_schedule` on shapes alone (meta tensors; nothing built
+    or served): the cache's stats the card's run must give."""
+    from repro_torch.models.rram import (analog_image_bytes, crossbar_cfg,
+                                         programming_write_stats)
+    from repro_torch.serving import ImageCache
+    prog = programmed_meta(cfg, rram)
+    img = analog_image_bytes(prog)
+    stats = programming_write_stats(prog, crossbar_cfg(rram))
+    cache = ImageCache(CACHE_IMAGES * img, "write_cost")
+    for _ in cache_schedule(prog, rram, cache,
+                            lambda i, n: (None, img, stats), traffic_kw):
+        pass
+    return cache.stats()
+
+
+def image_cache_phase(dev, *, cfg=None, rram=None, traffic_kw=CACHE_TRAFFIC,
+                      allocated=None, peak=None):
+    """[16b] the image cache at full width: ``CACHE_TENANTS`` tenants of one
+    model (by default :func:`cache_model`), one digital weight set shared by
+    all, an ImageCache under write_cost with room for ``CACHE_IMAGES``
+    images, :func:`cache_schedule` served batch by batch: a miss builds a
+    Server under ``fold_in(fold_in(SEED, tenant), build)``, then
+    ``Server.generate`` runs at the padded shape, counted against
+    :func:`analog_calls`.  The cache's stats are held to
+    :func:`dry_cache_schedule`'s (which must evict and reprogram), a hit to
+    no programming and no bytes, each miss to the bytes of the image it
+    built less those of the images it evicted (within CACHE_MEM_TOL of one
+    image), the peak to the weights + CACHE_IMAGES + 1 images + the largest
+    generate's activations, and the end, everything freed, to the start.
+    ``allocated`` / ``peak`` default to ``torch.cuda``'s allocator counts.
+    Returns the launch counts of the batches."""
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rram import analog_image_bytes
+
+    allocated = allocated or torch.cuda.memory_allocated
+    peak = peak or torch.cuda.max_memory_allocated
+    if cfg is None:
+        cfg, rram = cache_model()
+    want = dry_cache_schedule(cfg, rram, traffic_kw)
+    print(f"[16b] the schedule on shapes alone: {want['misses']} programs "
+          f"({want['reprograms']} reprograms), {want['hits']} hits, "
+          f"{want['evictions']} evictions", flush=True)
+    check(want["evictions"] >= 1 and want["reprograms"] >= 1,
+          "[16b] the trace neither evicts nor reprograms")
+    free_cuda()
+    start = allocated()
+    t0 = time.perf_counter()
+    params = PM.materialize(tf.init_specs(cfg), LM_SEED,
+                            dtype=PM.torch_dtype(cfg.param_dtype), device=dev)
+    torch.cuda.synchronize()
+    w_bytes = sum(int(t_.nbytes) for _, t_ in PM.tree_paths(params))
+    prog = programmed_meta(cfg, rram)
+    img_bytes = analog_image_bytes(prog)
+    gb = 1e9
+    print(f"[16b] {CACHE_TENANTS} tenants of {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype}: one weight set of "
+          f"{w_bytes / gb:.3f} GB materialized in "
+          f"{time.perf_counter() - t0:.2f} s, shared; an image (w_tilde + dw "
+          f"{rram.dw_dtype}) {img_bytes / gb:.3f} GB; cache capacity "
+          f"{CACHE_IMAGES} images ({CACHE_IMAGES * img_bytes / gb:.3f} GB), "
+          f"write_cost; {rram.device}, k = {rram.k_iters}, {rram.cell_rows}^2 "
+          f"cells, lam {rram.lam}", flush=True)
+    counts, marks, stats = cache_trace_run(
+        dev, cfg, rram, params, prog, img_bytes, traffic_kw, start=start,
+        allocated=allocated, peak=peak)
+    check(stats == want, f"[16b] the cache's stats {stats} are not the "
+          f"schedule's on shapes {want}")
+    bound = w_bytes + (CACHE_IMAGES + 1) * img_bytes + marks["activations"]
+    print(f"[16b] peak {marks['peak'] / gb:.3f} GB over the start (builds "
+          f"{marks['build_peak'] / gb:.3f}, generates "
+          f"{marks['serve_peak'] / gb:.3f}) against weights + "
+          f"{CACHE_IMAGES + 1} images + the largest generate's activations "
+          f"({marks['activations'] / gb:.3f} GB) = {bound / gb:.3f} GB",
+          flush=True)
+    check(marks["peak"] <= bound, "[16b] the peak exceeds the weights + "
+          f"{CACHE_IMAGES + 1} images + activations")
+    del params
+    free_cuda()
+    end = allocated()
+    print(f"[16b] everything freed: allocated {end / gb:.4f} GB against "
+          f"{start / gb:.4f} GB at the start", flush=True)
+    check(abs(end - start) <= CACHE_MEM_TOL * img_bytes,
+          "[16b] freeing the weights, the cache and its servers did not "
+          "bring the allocated bytes back to the start")
+    return counts
+
+
+def cache_trace_run(dev, cfg, rram, params, prog, img_bytes, traffic_kw, *,
+                    start, allocated, peak):
+    """[16b]'s loop (see :func:`image_cache_phase`); every tensor it makes
+    is its own local, gone when it returns.  Returns (launch counts, peak
+    marks, the cache's stats)."""
+    import gc
+    from repro_torch.core.prng import fold_in
+    from repro_torch.core.write_verify import WriteStats
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import analog_image_bytes, strip_rram
+    from repro_torch.serving import ImageCache
+    from repro_torch.train.serve import Server
+
+    cache = ImageCache(CACHE_IMAGES * img_bytes, "write_cost")
+    program_s, generate_ms, total = [], [], {}
+    marks = {"build_peak": 0, "serve_peak": 0, "activations": 0}
+    gb = 1e9
+
+    def build(tenant, n):
+        t0 = time.perf_counter()
+        srv = Server(tf, cfg, strip_rram(params), rt=Runtime(rram=rram),
+                     max_len=CACHE_MAX_LEN,
+                     key=fold_in(fold_in(SEED, tenant), n))
+        torch.cuda.synchronize()
+        program_s.append(time.perf_counter() - t0)
+        return srv, analog_image_bytes(srv.params), srv.write_stats
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return allocated()
+
+    # ``before`` is taken as the last batch ends: nothing between then and
+    # the next ``cache.get`` touches the card.  The previous batch's server
+    # is dropped once the next one is taken, as in ``simulate``.
+    before, programs = mark(), 0
+    for i, (batch, server, outcome, now) in enumerate(
+            cache_schedule(prog, rram, cache, build, traffic_kw), 1):
+        gc.collect()
+        torch.cuda.synchronize()
+        after = allocated()
+        marks["build_peak"] = max(marks["build_peak"], peak() - start)
+        if outcome.hit:
+            what = "hit"
+            check(len(program_s) == programs
+                  and outcome.write_stats == WriteStats.zero()
+                  and abs(after - before) <= CACHE_MEM_TOL * img_bytes,
+                  f"[16b] batch {i}: a hit programmed, or moved "
+                  f"{after - before} bytes")
+        else:
+            new = analog_image_bytes(server.params)
+            freed = before + new - after
+            want = len(outcome.evicted) * img_bytes
+            what = (f"{'reprogram' if outcome.reprogrammed else 'miss'}: "
+                    f"programmed in {program_s[-1]:.2f} s "
+                    f"({server.program_dispatches} shape buckets, write "
+                    f"{outcome.write_stats.energy_j:.4e} J, "
+                    f"{outcome.write_stats.latency_s:.4e} s simulated), "
+                    f"evicted {list(outcome.evicted)}, allocated "
+                    f"{before / gb:.3f} -> {after / gb:.3f} GB: "
+                    f"{freed / gb:.4f} GB freed against {want / gb:.4f}")
+            check(new == img_bytes and abs(freed - want)
+                  <= CACHE_MEM_TOL * img_bytes,
+                  f"[16b] batch {i}: built {new} bytes, freed {freed} "
+                  f"bytes for {len(outcome.evicted)} evicted images")
+        inputs = request_inputs(batch, cfg.vocab, dev)
+        held = mark()
+        t0 = time.perf_counter()
+        out, counts, _, _ = counted_request(
+            f"[16b] batch {i} ({batch.tenant}, {batch.size} requests at "
+            f"{batch.batch_pad} x {batch.prompt_bucket} -> "
+            f"{batch.decode_bucket})", server, cfg, inputs,
+            batch.decode_bucket)
+        generate_ms.append((time.perf_counter() - t0) * 1e3)
+        marks["serve_peak"] = max(marks["serve_peak"], peak() - start)
+        marks["activations"] = max(marks["activations"], peak() - held)
+        del out
+        for k_, v in counts.items():
+            total[k_] = total.get(k_, 0) + v
+        print(f"[16b] batch {i}: {batch.tenant}, requests "
+              f"{[r.rid for r in batch.requests]}, {what}; generate "
+              f"{generate_ms[-1]:.1f} ms; starts at {now:.4f} s simulated",
+              flush=True)
+        before, programs = mark(), len(program_s)
+    marks["peak"] = max(marks["build_peak"], marks["serve_peak"])
+    stats = cache.stats()
+    print(f"[16b] {CACHE_REQUESTS} requests in {i} batches: "
+          f"{stats['misses']} programs ({stats['reprograms']} reprograms), "
+          f"{stats['hits']} hits, {stats['evictions']} evictions; program s "
+          f"{[round(x, 3) for x in program_s]}, generate ms "
+          f"{[round(x, 1) for x in generate_ms]}", flush=True)
+    check(stats["used_bytes"] == img_bytes * len(cache.entries),
+          "[16b] the cache's bytes")
+    # The last batch again: its wall against the device busy time of its
+    # kernels (torch.profiler), the idle share of a generate.
+    n = batch.decode_bucket
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.generate(inputs, n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(kernel_split(lambda: server.generate(inputs, n),
+                            iters=1).values())
+    print(f"[16b] the last batch's generate again: wall {wall:.1f} ms, "
+          f"device busy {busy:.1f} ms, idle share {1 - busy / wall:.3f}",
+          flush=True)
+    return total, marks, stats
+
+
+def serving_phase(dev):
+    """[16] the serving simulator on the card: [16a] then [16b].  Returns
+    the launch counts of both main paths, added."""
+    counts = {}
+    for tag, phase in (("[16a]", simulator_phase),
+                       ("[16b]", image_cache_phase)):
+        t0 = time.perf_counter()
+        for k_, v in phase(dev).items():
+            counts[k_] = counts.get(k_, 0) + v
+        print(f"{tag} wall time {time.perf_counter() - t0:.2f} s",
+              flush=True)
     return counts
 
 
@@ -4569,6 +5057,13 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(train_phase(torch.device("cuda")))
     print(f"[15] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ------------- 16. the serving simulator, and the image cache at full
+    # width (qwen3-1.7b)
+    t0 = time.perf_counter()
+    all_counts.append(serving_phase(torch.device("cuda")))
+    print(f"[16] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

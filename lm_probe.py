@@ -6,6 +6,7 @@
     python3 lm_probe.py rehearse-families
     python3 lm_probe.py rehearse-recurrent
     python3 lm_probe.py rehearse-train
+    python3 lm_probe.py rehearse-serving
     python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
@@ -30,6 +31,12 @@ rwkv6-1.6b and zamba2-1.2b at 5 layers (two groups and an analog tail).
 qwen3-1.7b: 10 steps of 4 x 16 tokens, a save and restore, the card's
 gradient against the CPU's (both the CPU here), the dense gradient checks
 at 8 / 13 rows and the programmed model's backward, counted.
+``rehearse-serving`` runs phase 16 (``simulator_phase`` as the card runs
+it, on the CPU; ``image_cache_phase`` at the reduced qwen3-1.7b, cells of
+32^2, its trace at 50 requests a second), with the bytes of the live
+tensors (found through ``gc``) standing in for the allocator's counts,
+and replays the card's own [16b] schedule at full width on shapes alone
+(``dry_cache_schedule``), which must evict and reprogram.
 
 ``serve-ab`` times phase 12's serving on the card for this tree and the
 trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
@@ -201,6 +208,48 @@ def rehearse_train(args) -> None:
           f"{ {k: v for k, v in counts.items() if v} }")
 
 
+def live_tensor_bytes() -> int:
+    """Bytes of every storage a live tensor holds: the CPU's stand-in for
+    ``torch.cuda.memory_allocated``."""
+    import gc
+    gc.collect()
+    storages = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.device.type != "meta":
+            st = obj.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values())
+
+
+def rehearse_serving(args) -> None:
+    """chip_smoke.py's phase 16: [16a] at its own sizes (the reduced models
+    it serves), [16b] at the reduced qwen3-1.7b, cells of 32^2, and the
+    card's [16b] schedule at full width on shapes alone."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
+    rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
+                             cell_cols=32)
+    stats = chip_smoke.dry_cache_schedule(*chip_smoke.cache_model(),
+                                          chip_smoke.CACHE_TRAFFIC)
+    print(f"the card's [16b] schedule on shapes: {stats}")
+    chip_smoke.check(stats["evictions"] >= 1 and stats["reprograms"] >= 1,
+                     "the card's [16b] trace neither evicts nor reprograms")
+    t0 = time.perf_counter()
+    counts = chip_smoke.simulator_phase(torch.device("cpu"))
+    print(f"rehearsal of [16a] passed in {time.perf_counter() - t0:.1f} s; "
+          f"calls { {k: v for k, v in counts.items() if v} }")
+    t0 = time.perf_counter()
+    counts = chip_smoke.image_cache_phase(
+        torch.device("cpu"), cfg=get_arch("qwen3-1.7b").reduced(), rram=rram,
+        traffic_kw=dict(chip_smoke.CACHE_TRAFFIC, rate_rps=50.0),
+        allocated=live_tensor_bytes, peak=live_tensor_bytes)
+    print(f"rehearsal of [16b] (qwen3-1.7b reduced) on the CPU passed in "
+          f"{time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
 def host(args, dev=None, cfg=None) -> int:
     """``dev`` / ``cfg`` default to the card and phase 12's model."""
     if dev is None and not torch.cuda.is_available():
@@ -358,7 +407,8 @@ def main(argv=None) -> int:
     ap.add_argument("what", choices=("host", "rehearse",
                                      "rehearse-families",
                                      "rehearse-recurrent",
-                                     "rehearse-train", "serve-ab",
+                                     "rehearse-train", "rehearse-serving",
+                                     "serve-ab",
                                      "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
@@ -381,6 +431,8 @@ def main(argv=None) -> int:
         rehearse_families(args)
     elif args.what == "rehearse-recurrent":
         rehearse_recurrent(args)
+    elif args.what == "rehearse-serving":
+        rehearse_serving(args)
     else:
         rehearse_train(args)
     return 0

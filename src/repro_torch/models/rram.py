@@ -35,6 +35,7 @@ from ..engine import AnalogEngine
 from .params import is_spec, spec, split_key, torch_dtype
 
 __all__ = ["program_rram", "program_specs", "programming_dispatch_plan",
+           "programming_write_stats",
            "crossbar_cfg", "is_programmed", "strip_rram", "reprogram_rram",
            "analog_image_bytes", "programmed_kernel_shapes",
            "forward_input_stats"]
@@ -144,28 +145,12 @@ def program_rram(
                                       dtype=torch.float32) - wt
             del wt
 
-    total = WriteStats.zero()
-    if not group:
-        for _, sub, _ in jobs:
-            layers = sub.shape[0] if sub.ndim == 3 else 1
-            total = total + _scaled(matrix_write_cost(*sub.shape[-2:], ccfg),
-                                    layers)
-        return tree, total
-    buckets: Dict[Tuple, int] = {}
-    for _, sub, _ in jobs:
-        bkey = (sub.ndim,) + tuple(sub.shape)
-        buckets[bkey] = buckets.get(bkey, 0) + 1
-    for bkey, count in buckets.items():   # insertion order == walk order
-        layers = bkey[1] if bkey[0] == 3 else 1
-        total = total + _scaled(matrix_write_cost(*bkey[-2:], ccfg),
-                                count * layers)
-    return tree, total
+    return tree, programming_write_stats(params, ccfg, group=group)
 
 
-def programming_dispatch_plan(params: Any) -> Dict[str, int]:
-    """Dispatch accounting of one :func:`program_rram` walk: ``kernels``
-    programmed kernels, collapsing into ``groups`` distinct (ndim, shape)
-    buckets.  Pure shape math -- works on programmed or digital trees."""
+def _kernel_shapes(params: Any) -> list:
+    """(ndim,) + shape of every kernel, in :func:`program_rram`'s walk
+    order."""
     shapes = []
 
     def visit(tree):
@@ -177,6 +162,37 @@ def programming_dispatch_plan(params: Any) -> Dict[str, int]:
                     visit(sub)
 
     visit(params)
+    return shapes
+
+
+def programming_write_stats(params: Any, ccfg: CrossbarConfig, *,
+                            group: bool = True) -> WriteStats:
+    """The one-time write of every kernel, billed as :func:`program_rram`
+    bills it.  Pure shape math -- works on programmed, digital or meta
+    trees."""
+    total = WriteStats.zero()
+    shapes = _kernel_shapes(params)
+    if not group:
+        for bkey in shapes:
+            layers = bkey[1] if bkey[0] == 3 else 1
+            total = total + _scaled(matrix_write_cost(*bkey[-2:], ccfg),
+                                    layers)
+        return total
+    buckets: Dict[Tuple, int] = {}
+    for bkey in shapes:
+        buckets[bkey] = buckets.get(bkey, 0) + 1
+    for bkey, count in buckets.items():   # insertion order == walk order
+        layers = bkey[1] if bkey[0] == 3 else 1
+        total = total + _scaled(matrix_write_cost(*bkey[-2:], ccfg),
+                                count * layers)
+    return total
+
+
+def programming_dispatch_plan(params: Any) -> Dict[str, int]:
+    """Dispatch accounting of one :func:`program_rram` walk: ``kernels``
+    programmed kernels, collapsing into ``groups`` distinct (ndim, shape)
+    buckets.  Pure shape math -- works on programmed or digital trees."""
+    shapes = _kernel_shapes(params)
     return {"kernels": len(shapes), "groups": len(set(shapes))}
 
 

@@ -105,6 +105,12 @@ class Server:
             toks.append(tok)
         return torch.cat(toks, dim=1), caches
 
+    def dispatches_per_batch(self, n_tokens: int) -> int:
+        """Step calls one ``generate(batch, n_tokens)`` makes: a prefill and
+        ``n_tokens - 1`` calls to ``decode_step``.  The reference counts 1
+        or 2 (its decode is one fused scan); this decode is a host loop."""
+        return n_tokens
+
     def generate(self, batch: Dict, n_tokens: int) -> torch.Tensor:
         """Greedy continuation of ``batch['tokens']`` (B, T) -> (B,
         n_tokens) int32."""

@@ -2184,3 +2184,92 @@ def test_programmed_model_backward_on_card(cuda_device):
         assert (a is None) == (b is None), path
         if a is not None:
             assert rel(a.cpu(), b) <= 1e-4, path
+
+
+def _serving_cfg(rram, run_model):
+    """Two reduced rwkv6 tenants, 8 requests, a cache below two images (the
+    trace evicts and reprograms)."""
+    from repro_torch.serving import (BatchingConfig, ServingConfig,
+                                     TenantSpec, TrafficConfig)
+    return ServingConfig(
+        tenants=(TenantSpec("acme", "rwkv6-1.6b"),
+                 TenantSpec("initech", "rwkv6-1.6b")),
+        traffic=TrafficConfig(n_requests=8, rate_rps=6.0, zipf_s=1.0,
+                              prompt_lens=(4, 8), prompt_mix=(0.6, 0.4),
+                              decode_lens=(3, 5), decode_mix=(0.6, 0.4),
+                              seed=2),
+        batching=BatchingConfig(max_batch=2, prompt_buckets=(4, 8),
+                                decode_buckets=(4, 8), batch_buckets=(1, 2)),
+        rram=rram, cache_capacity_bytes=1_000_000, policy="write_cost",
+        seed=0, max_len=32, run_model=run_model)
+
+
+@pytest.mark.parametrize("analog", [True, False])
+def test_simulate_on_the_card_equals_the_cpu(cuda_device, analog):
+    """``simulate`` serving every batch on the card (``run_model=True``)
+    gives the records, summary and cache stats of the CPU's run without
+    the model; the analog run launches the EC kernels and nothing else,
+    the digital run none.  The equality covers the simulator's bookkeeping
+    (host arithmetic on shapes), not the tokens the card computes."""
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.serving import simulate
+    rram = RRAMBackendConfig(enabled=True) if analog else None
+    kernels.reset_launches()
+    card = simulate(_serving_cfg(rram, True))
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    host = simulate(_serving_cfg(rram, False), device="cpu")
+    assert card.records == host.records and card.summary == host.summary
+    assert card.cache_stats == host.cache_stats
+    used = {k for k, v in counts.items() if v}
+    assert used == ({"ec_rmatmul", "stencil_denoise"} if analog else set())
+    if analog:
+        assert card.cache_stats["reprograms"] >= 1
+
+
+def test_image_cache_eviction_frees_the_image_on_the_card(cuda_device):
+    """A reduced programmed Server evicted from an ImageCache gives back
+    its ``analog_image_bytes`` of device memory once the caller drops it;
+    the digital weights it shared stay."""
+    import gc
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import analog_image_bytes, strip_rram
+    from repro_torch.serving import ImageCache
+    from repro_torch.train.serve import Server
+    cfg = get_arch("qwen3-1.7b").reduced()
+    params = PM.materialize(tf.init_specs(cfg), 0, device=cuda_device)
+    rram = RRAMBackendConfig(enabled=True, cell_rows=32, cell_cols=32,
+                             dw_dtype="float32")
+
+    def build(key):
+        def run():
+            srv = Server(tf, cfg, strip_rram(params), rt=Runtime(rram=rram),
+                         max_len=16, key=key)
+            return srv, analog_image_bytes(srv.params), srv.write_stats
+        return run
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    a = build(1)()[0]
+    image = analog_image_bytes(a.params)
+    del a
+    gc.collect()
+    assert torch.cuda.memory_allocated() == base
+    cache = ImageCache(int(1.5 * image), "lru")
+    first, _ = cache.get("a", build(1), 0.0)
+    # The allocator rounds each block up to 512 bytes.
+    assert abs(torch.cuda.memory_allocated() - base - image) <= 0.01 * image
+    del first
+    second, out = cache.get("b", build(2), 1.0)
+    assert out.evicted == ("a",)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert abs(torch.cuda.memory_allocated() - base - image) <= 0.01 * image
+    del second, cache
+    gc.collect()
+    assert torch.cuda.memory_allocated() == base

@@ -249,6 +249,36 @@ def test_training_imports_with_jax_and_repro_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_port_file_list_covers_the_serving_slice():
+    """The import scan reaches every module of the serving simulator."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("__init__", "traffic", "batching", "cache", "metrics",
+                "simulator"):
+        assert f"src/repro_torch/serving/{rel}.py" in names, rel
+
+
+def test_serving_imports_with_jax_and_repro_blocked():
+    """The serving simulator imports with ``jax`` and ``repro`` made
+    unimportable, and exports the reference's names."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.serving import (Batch, BatchingConfig,\n"
+        "    CacheOverBudgetError, ImageCache, MetricsAccumulator,\n"
+        "    RequestQueue, ServingConfig, generate_trace, simulate)\n"
+        "from repro_torch.train.serve import Server\n"
+        "assert Server.dispatches_per_batch\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):
