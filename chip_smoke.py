@@ -245,13 +245,38 @@ non-zero, printing no result, without them or without the repository's
      adds less those its evictions free, within 1 % of an image), a hit
      programs nothing, each generate counted against the padded shape's
      analog denses, the peak within the weights + 3 images + activations,
-     and the memory back to the start at the end.
+     and the memory back to the start at the end;
+ 17. the reference analysis registry's two paper-scale cores
+     (``analysis_phase``, after [16]): a 65,536^2 banded producer
+     (``ImplicitBandedMatrix``, seed 2) programmed ``resident=False``
+     (taox-hfox, k = 5, EC on, 4 x 4 MCAs of 512^2: 1,024 capacity blocks
+     of 2,048^2 an MVM); [17a] on a 1 x 1 mesh ``mvm_fn`` both ways and
+     ``pdhg_pipeline`` (tau = sigma = 0.1, 2 iterations), [17b] on the 2 x
+     4 mesh ``lsqr_pipeline`` (2 iterations): each call's largest tensor
+     (``analysis.max_aval_elements``) <= n^2 / 8 and <= 4 capacity blocks,
+     its allocator peak over the start (``analysis.peak_bytes``) <= 12
+     capacity blocks, one producer call and one EC launch a block an MVM
+     (none at programming), one stencil a segment, every iterate finite,
+     and an MVM's wall and device-busy ms.
+
+Beside the calls they wrap, [3] / [3t] hold ``engine.mvm_fn`` both ways,
+[6] ``group_mvm_fn`` and [6c] ``chain_fn`` to them bit for bit under one
+key with the same launches; [4] and [5] run ``cg_pipeline``,
+``lsqr_pipeline``, ``lsmr_pipeline`` and ``pdhg_pipeline`` at their public
+solves' settings, bit for bit in x, history, iterations and MVMs, their
+launches by formula; [12] holds ``Server.decode_fn(8)`` after a prefill to
+``decode_tokens`` after a second, fresh prefill (8 x (197 + 197)
+launches); [15a] holds ``analysis.model_flops.param_count`` to the
+materialized count and prints its train_4k FLOPs a token beside the hand
+count, their difference in closed form.
 
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
 5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13, 14
-and 15's main calls, before [16a]'s served runs and [16b]'s batches, and
-read just after: every kernel must have run on the path that uses it.  The last three lines of output are the kernel table as JSON, the card's name and power
-limit, and the result line.  Peak rates are the published H100 SXM figures
+and 15's main calls, before [16a]'s served runs and [16b]'s batches and
+before each of [17]'s counted calls, and read just after: every kernel
+must have run on the path that uses it.  The last three lines of output are
+the kernel table as JSON, the card's name and power limit, and the result
+line.  Peak rates are the published H100 SXM figures
 (3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
 """
 from __future__ import annotations
@@ -299,6 +324,7 @@ REGISTRY_N = 12         # [4r]: each registry solver's problem size
 # Mixtral-8x7B (src/repro/configs/mixtral_8x7b.py): one MoE layer's experts.
 D_MODEL, D_FF, N_EXPERTS, N_LAYERS = 4096, 14336, 8, 32
 CHAIN_TOL = 1e-4        # cuda vs reference after N_LAYERS chained layers
+HOOK_KEY = 13           # [3], [3t], [6], [6c]: a hook and its call's key
 ENCODE_ROWS = 256       # rows of x in phase 7
 ENCODE_SEED = 2024
 # Thomas, a block scan (csrc/tridiag.cu): in each of its two passes a thread
@@ -357,6 +383,7 @@ LM_RT_KW = {"q_chunk": 512, "kv_chunk": 520}   # chunks that divide 1,024
 LM_DENSE_ROWS = (1, 4, 8, 64)  # [12]: decode panels checked, beside each
                                # request's prefill panel (b * t rows)
 LM_DIGITAL_TOL = 1e-4   # [12]: DAC-off logits against the digital model
+LM_DECODE_FN_TOKENS = 8  # [12]: Server.decode_fn's steps after a prefill
 LM_TIMING_REPS = 3
 LM_PROFILE_STEPS = 8
 # [13]: the attention-based families, float32, weights from LM_SEED.
@@ -425,6 +452,15 @@ CACHE_BATCHING = {"max_batch": 4, "prompt_buckets": (16, 32),
                   "decode_buckets": (4, 8), "batch_buckets": (1, 2, 4)}
 CACHE_MAX_LEN = 64
 CACHE_MEM_TOL = 0.01    # of one image: the bytes an eviction frees, the end
+# [17]: the reference registry's paper-scale entries
+# (src/repro/analysis/pipelines.py: VIRTUAL_N, _virtual_cfg, _banded, _key).
+ANALYSIS_N = 65_536
+ANALYSIS_GEOM = (4, 4, 512, 512)   # capacity 2,048^2: 1,024 blocks an MVM
+ANALYSIS_SEED = 2                  # the banded producer's seed
+ANALYSIS_KEY = 7
+# Of the registry's 100 (PDHG) and 50 (LSQR) iterations: at 4, [17] took
+# 102 s on an H100 (each call runs twice, once under the dispatch mode).
+ANALYSIS_MAXITER = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -660,6 +696,58 @@ def timed_solves(name, solve, counts, mvm_ms, calls):
               f"{ {k: v for k, v in used.items() if v} }", flush=True)
         check(res.converged, f"{name} did not converge to {EIGEN_TOL}")
     return res, used
+
+
+def nonzero(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def hook_check(tag, what, hook, call, want):
+    """An engine hook's closure (``mvm_fn``, ``group_mvm_fn``,
+    ``chain_fn``) against the engine call it wraps, under the same key: bit
+    for bit, each launching ``want``.  Returns the hook's launches."""
+    from repro_torch import kernels
+    runs = []
+    for fn in (call, hook):
+        before = dict(kernels.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        runs.append((out, nonzero({k: v - before[k]
+                                   for k, v in kernels.LAUNCHES.items()})))
+    (want_out, call_counts), (got, hook_counts) = runs
+    equal = torch.equal(got, want_out)
+    print(f"{tag} {what}: bit for bit {equal}; launches {hook_counts} (the "
+          f"call's {call_counts})", flush=True)
+    check(equal and hook_counts == call_counts == want,
+          f"{tag} {what}: not the call bit for bit, or launches other than "
+          f"{want}")
+    return hook_counts
+
+
+def core_check(tag, what, core, args, res, want):
+    """A solver core (``cg_pipeline`` and the others) at its public call's
+    settings against that call's result ``res``: x, the history, the
+    iterations and the MVMs bit for bit, and its launches ``want(k, mvms)``.
+    Returns the core's outputs and launches."""
+    from repro_torch import kernels
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    out = core(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = nonzero({k: v - before[k] for k, v in kernels.LAUNCHES.items()})
+    x, (hist, k, mvms) = out[0], out[1:4] if len(out) == 5 else out[2:5]
+    equal = (torch.equal(x[:, 0], res.x) and k == res.iterations
+             and mvms == res.ledger.mvms
+             and torch.equal(hist[:k, 0], res.residuals[:k])
+             and bool(torch.isnan(hist[k:]).all()))
+    print(f"{tag} {what}: {k} iterations, {mvms} MVMs in {wall * 1e3:.1f} "
+          f"ms, the public call's x, history, iterations and MVMs bit for "
+          f"bit {equal}; launches {used}", flush=True)
+    check(equal, f"{tag} {what} differs from its public solver")
+    check(used == want(k, mvms),
+          f"{tag} {what}: launches {used}, expected {want(k, mvms)}")
+    return out, used
 
 
 def launch_floor(dev, kernels, lam, h):
@@ -1585,7 +1673,7 @@ def distributed_phase(dev, gen, dub, *, n=N, d_ff=D_FF, d_model=D_MODEL,
     launches of the phase's main runs.  ``geom`` ([10a], [10d]; default 8
     x 8 MCAs of 512^2) and ``band_geom`` ([10c]; 8 x 8 of 1,024^2) and the
     sizes are arguments, so the phase can be rehearsed small on the CPU."""
-    from repro_torch import kernels, solvers
+    from repro_torch import analysis, kernels, solvers
     from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
                                   MCAGeometry, get_device)
     from repro_torch.core.prng import fold_in
@@ -1780,17 +1868,21 @@ def distributed_phase(dev, gen, dub, *, n=N, d_ff=D_FF, d_model=D_MODEL,
         return block(i, j)
 
     b_vec = torch.ones(band_n, device=dev)
-    torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     beng = AnalogEngine(bcfg, execution="distributed", backend="cuda",
                         mesh=mesh)
-    B = beng.program(producer, 0, shape=(band_n, band_n), resident=False)
-    after_program = calls[0]
-    res, cg_counts, cg_ms = launches(lambda: solvers.cg(
-        B, b_vec, tol=2e-2, maxiter=4, key=0, backend="cuda"))
-    peak_c = torch.cuda.max_memory_allocated() - base
+    solved = {}
+
+    def program_and_solve(rhs):
+        solved["B"] = B_ = beng.program(producer, 0, shape=(band_n, band_n),
+                                        resident=False)
+        solved["after_program"] = calls[0]
+        solved["run"] = launches(lambda: solvers.cg(
+            B_, rhs, tol=2e-2, maxiter=4, key=0, backend="cuda"))
+
+    peak_c = analysis.peak_bytes(program_and_solve, b_vec)
+    B, after_program = solved["B"], solved["after_program"]
+    res, cg_counts, cg_ms = solved.pop("run")
     bblock = bcap * bcap * 4
     mvms = res.ledger.mvms + res.ledger.mvms_single
     nbb = (band_n // bcap) ** 2
@@ -1820,7 +1912,7 @@ def distributed_phase(dev, gen, dub, *, n=N, d_ff=D_FF, d_model=D_MODEL,
           f"[10c] not {nbb} ec_matmul + {R} stencils an MVM and one "
           f"cg_update an iteration: {cg_counts}")
     check(peak_c <= 12 * bblock, "[10c] peak above 12 capacity blocks")
-    del B, res, b_vec
+    del B, res, b_vec, solved
     torch.cuda.empty_cache()
 
     # 10d. Grouped placement: the [6] Mixtral w1 group over the mesh.
@@ -2403,6 +2495,30 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     check(b > 8 or step_counts == {"ec_rmatmul": per_pass,
                                    "stencil_denoise": per_pass},
           f"[12] a decode step's launches are not {per_pass} + {per_pass}")
+    # Server.decode_fn after a prefill, against decode_tokens after a
+    # second, fresh prefill (the KV caches are written in place: the two
+    # share none).  Checked here; the tally above is the served requests'.
+    steps = min(n - 1, LM_DECODE_FN_TOKENS)
+    tok, caches = srv.prefill(batches[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got, _ = srv.decode_fn(steps)(tok, caches)
+    torch.cuda.synchronize()
+    fn_counts = nonzero(kernels.LAUNCHES)
+    tok2, caches2 = srv.prefill(batches[0])
+    want, _ = srv.decode_tokens(tok2, caches2, steps)
+    per_step = per_pass * -(-b // 8)
+    print(f"[12] decode_fn({steps}) after a prefill: tokens "
+          f"{tuple(got.shape)} equal to decode_tokens after a fresh prefill "
+          f"{torch.equal(got, want)}; launches {fn_counts} ({steps} x "
+          f"{per_step} + {steps} x {per_pass} expected)", flush=True)
+    check(torch.equal(tok, tok2) and torch.equal(got, want),
+          "[12] decode_fn's tokens differ from decode_tokens'")
+    check(fn_counts == {"ec_rmatmul": steps * per_step,
+                        "stencil_denoise": steps * per_pass},
+          f"[12] decode_fn's launches are not {steps} x ({per_step} + "
+          f"{per_pass})")
+    del tok2, caches2, got, want
 
     # Times: host clock around synchronised work (every path warmed above).
     for s, bt, (b, t, n, ml) in zip(servers, batches, requests):
@@ -3260,8 +3376,10 @@ def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
     import gc
     import tempfile
     from repro_torch import kernels
+    from repro_torch.analysis import model_flops
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import RRAMBackendConfig, TrainConfig
+    from repro_torch.configs.base import (SHAPES, RRAMBackendConfig,
+                                          TrainConfig)
     from repro_torch.data import Prefetcher, batches, synthetic_batch
     from repro_torch.distributed import CheckpointManager
     from repro_torch.models import params as PM
@@ -3332,6 +3450,31 @@ def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
           f"2 x {n_layers / 1e9:.4f} G x {tokens}, attention's score "
           f"products left out) = {tflops * 1e12 / FP32_FLOPS_PER_S:.3f} of "
           f"the {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
+    # The analysis package's count over shapes alone, and its train_4k FLOPs
+    # a token beside the hand count: they differ by the embedding's
+    # 6 n_embed (gathered, left out above), the attention term 3 x 4 L H Dh
+    # (S / 2) (left out above) and less the remat forward 2 n_layers (not
+    # in model_flops).
+    arch = dataclasses.replace(get_arch(TRAIN_ARCH), model=cfg)
+    mf = model_flops.model_flops(arch, "train_4k")
+    per_tok, hand = mf["model_flops"] / mf["tokens"], flops / tokens
+    s_kv = min(SHAPES["train_4k"].seq_len, cfg.swa_window
+               or SHAPES["train_4k"].seq_len) / 2
+    attn = 12.0 * (cfg.n_layers + cfg.n_enc_layers) * cfg.n_heads \
+        * cfg.d_head * s_kv
+    gap = 6 * n_embed + attn - 2 * n_layers
+    print(f"[15a] analysis.model_flops: param_count {mf['params']} (the "
+          f"materialized model {n_all}); train_4k {per_tok / 1e9:.4f} GFLOP "
+          f"a token against the hand count's {hand / 1e9:.4f}: the "
+          f"difference {(per_tok - hand) / 1e9:.4f} G = 6 n_embed "
+          f"{6 * n_embed / 1e9:.4f} + attention {attn / 1e9:.4f} (S_kv "
+          f"{s_kv:g}) - the remat forward {2 * n_layers / 1e9:.4f}",
+          flush=True)
+    check(model_flops.param_count(arch) == mf["params"] == n_all,
+          "[15a] analysis.model_flops.param_count is not the model's count")
+    check(abs(per_tok - hand - gap) <= 1e-12 * per_tok,
+          "[15a] model_flops and the hand count differ by other than the "
+          "embedding, the attention term and the remat forward")
     print(f"[15a] peak memory {peak / gib:.2f} GiB (held at the start "
           f"{start_bytes / gib:.2f}; predicted "
           f"{TRAIN_PEAK_PREDICTED_GIB[0]:.0f}-{TRAIN_PEAK_PREDICTED_GIB[1]:.0f}"
@@ -3958,6 +4101,149 @@ def serving_phase(dev):
     return counts
 
 
+def analysis_phase(dev, *, n=ANALYSIS_N, geom=None):
+    """[17] the reference registry's two paper-scale entries on the card
+    (src/repro/analysis/pipelines.py, ``_build_virtual``, ``_build_pdhg``,
+    ``_build_lstsq_virtual``): an n^2 ``resident=False`` operator from the
+    banded producer (taox-hfox, k = 5, EC on, ``geom``, default 4 x 4 MCAs
+    of 512^2: 1,024 capacity blocks of 2,048^2 an MVM at 65,536^2),
+    programmed with nothing resident.  [17a] on a 1 x 1 mesh: ``mvm_fn`` both
+    ways and ``pdhg_pipeline`` (tau = sigma = 0.1, tol 1e-4,
+    ``ANALYSIS_MAXITER``); [17b] on the 2 x 4 mesh: ``lsqr_pipeline`` (tol
+    1e-4, ``ANALYSIS_MAXITER``).
+    Each call runs once under ``analysis.peak_bytes`` (its launches and
+    producer calls counted, its wall timed) and once under
+    ``analysis.max_aval_elements``; an MVM's device-busy ms comes from the
+    profiler.  Checks: max elements <= n^2 / 8 and <= 4 capacity blocks,
+    peak <= 12 capacity blocks, one producer call and one EC launch a block
+    an MVM (none at programming), one stencil a segment, every iterate
+    finite.  Returns the launches of the counted runs.  A function with
+    size arguments, so that it can be rehearsed on the CPU."""
+    from repro_torch import analysis, kernels, solvers
+    from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
+                                  MCAGeometry, get_device)
+    from repro_torch.engine import AnalogEngine
+    from repro_torch.launch import make_mesh
+    geom = geom or MCAGeometry(*ANALYSIS_GEOM)
+    maxiter = ANALYSIS_MAXITER
+    cfg = CrossbarConfig(device=get_device("taox-hfox"), geom=geom,
+                         k_iters=5, ec=True)
+    cap = cfg.geom.capacity[0]
+    blocks = (n // cap) ** 2
+    block_elems = cap * cap
+    gib = 2.0 ** 30
+    imp = ImplicitBandedMatrix(n=n, cap_m=cap, cap_n=cap, seed=ANALYSIS_SEED,
+                               device=dev)
+    calls = [0]
+
+    def producer(i, j):
+        calls[0] += 1
+        return imp.block(i, j)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def measured(tag, what, fn, args, mvms, segments, transposed):
+        """``fn(*args)`` counted under ``peak_bytes``, then its largest
+        tensor in a second run; the checks above, ``mvms`` forward and
+        ``transposed`` transposed MVMs, ``segments`` its stencils."""
+        out = []
+        kernels.reset_launches()
+        before = calls[0]
+        t0 = time.perf_counter()
+        peak = analysis.peak_bytes(lambda *a: out.append(fn(*a)), *args)
+        wall = (time.perf_counter() - t0) * 1e3
+        used = nonzero(kernels.LAUNCHES)
+        for k_, v_ in used.items():
+            counts[k_] += v_
+        made = calls[0] - before
+        t0 = time.perf_counter()
+        elems = analysis.max_aval_elements(fn, *args)
+        mode_ms = (time.perf_counter() - t0) * 1e3
+        total = mvms + transposed
+        want = nonzero({"ec_matmul": blocks * mvms,
+                        "ec_rmatmul": blocks * transposed,
+                        "stencil_denoise": segments})
+        print(f"{tag} {what}: {total} MVMs ({mvms} + {transposed} "
+              f"transposed) in {wall:.1f} ms = {wall / total:.1f} ms an MVM; "
+              f"max elements {elems} = {elems / block_elems:.3f} capacity "
+              f"blocks (n^2/8 = {n * n // 8}; its run under the dispatch "
+              f"mode {mode_ms:.1f} ms); peak over the start "
+              f"{peak / gib:.4f} GiB = {peak / (4 * block_elems):.2f} "
+              f"capacity blocks; producer calls {made} ({blocks} an MVM); "
+              f"launches {used}", flush=True)
+        check(elems <= n * n // 8 and elems <= 4 * block_elems,
+              f"{tag} {what}: a tensor of {elems} elements, over n^2/8 or 4 "
+              f"capacity blocks")
+        check(peak <= 12 * 4 * block_elems,
+              f"{tag} {what}: peak above 12 capacity blocks")
+        check(made == blocks * total,
+              f"{tag} {what}: the producer ran other than once a block an "
+              f"MVM")
+        check(used == want, f"{tag} {what}: launches {used}, expected {want}")
+        return out[0], wall / total
+
+    def mvm_busy(tag, what, fn, args, wall):
+        split = kernel_split(lambda: fn(*args), iters=1)
+        dev_ms = sum(split.values())
+        print(f"{tag} {what}, one MVM: wall {wall:.1f} ms, device busy "
+              f"{dev_ms:.1f} ms (idle share {1 - dev_ms / wall:.3f})",
+              flush=True)
+
+    for tag, shape in (("[17a]", (1, 1)), ("[17b]", (2, 4))):
+        R, C = shape
+        mesh = make_mesh(shape, ("data", "model"), device=dev)
+        eng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                           mesh=mesh)
+        t0 = time.perf_counter()
+        A = eng.program(producer, ANALYSIS_KEY, shape=(n, n), resident=False)
+        print(f"{tag} resident=False {n}^2 over {R} x {C} ({cfg.device.name}, "
+              f"k = {cfg.k_iters}, {blocks} blocks of {cap}^2): programmed "
+              f"in {(time.perf_counter() - t0) * 1e3:.1f} ms, image "
+              f"{A.image_nbytes} B, producer calls {calls[0]}", flush=True)
+        check(calls[0] == 0, f"{tag} programming called the producer")
+        op = solvers.as_operator(A)
+        b = torch.randn(n, 1, generator=gen, device=dev)
+        zeros = torch.zeros(n, 1, device=dev)
+        if shape == (1, 1):
+            x = torch.randn(n, generator=gen, device=dev)
+            for what, transpose in (("A @ x", False), ("A.T @ y", True)):
+                fn = eng.mvm_fn(A, transpose=transpose)
+                y, ms = measured(tag, what, fn, (x, ANALYSIS_KEY),
+                                 0 if transpose else 1, 1, int(transpose))
+                check(tuple(y.shape) == (n,) and bool(torch.isfinite(y).all()),
+                      f"{tag} {what}: wrong shape or non-finite")
+                mvm_busy(tag, what, fn, (x, ANALYSIS_KEY), ms)
+            c = torch.rand(n, 1, generator=gen, device=dev)
+            core = solvers.pdhg_pipeline(op, tau=0.1, sigma=0.1, tol=1e-4,
+                                         maxiter=maxiter)
+            # The steps are given: no power iteration, one MVM each way at
+            # entry and one each way an iteration.
+            out, _ = measured(tag, f"pdhg (maxiter {maxiter})", core,
+                              (b, c, zeros, zeros, ANALYSIS_KEY),
+                              1 + maxiter, 2 * (1 + maxiter), 1 + maxiter)
+            x_, y_, hist, k, mvms, pi_mvms, _ = out
+            check(k == maxiter and mvms == 1 + k and pi_mvms == 0,
+                  f"{tag} pdhg: {k} iterations, {mvms} MVMs")
+            iterates = (x_, y_, hist[:k])
+        else:
+            core = solvers.lsqr_pipeline(op, tol=1e-4, maxiter=maxiter)
+            out, _ = measured(tag, f"lsqr (maxiter {maxiter})", core,
+                              (b, zeros, ANALYSIS_KEY), 1 + maxiter,
+                              (R + C) * (1 + maxiter), 1 + maxiter)
+            x_, hist, k, mvms, _ = out
+            check(k == maxiter and mvms == 1 + k,
+                  f"{tag} lsqr: {k} iterations, {mvms} MVMs")
+            iterates = (x_, hist[:k])
+        print(f"{tag} the core's residuals "
+              + " ".join(f"{float(v):.4e}" for v in hist[:k, 0]), flush=True)
+        check(all(bool(torch.isfinite(t).all()) for t in iterates),
+              f"{tag} a non-finite iterate")
+        del A, op, out, iterates
+        calls[0] = 0
+    return counts
+
+
 def kernel_phases():
     """Phases [1]-[11]; returns what the report needs: the nvidia-smi line,
     the kernel rows of [2], the other shapes' rows and the main paths'
@@ -4209,6 +4495,12 @@ def kernel_phases():
               for be in ("cuda", "reference")}
     print(f"    corrected MVM, batch 1, per call: cuda {mvm_ms['cuda']:.3f} "
           f"ms, reference {mvm_ms['reference']:.3f} ms", flush=True)
+    for k_, v_ in hook_check(
+            "[3]", "mvm_fn(A) vs engine.mvm (batch 8, one key)",
+            lambda: engine.mvm_fn(A)(xs, HOOK_KEY),
+            lambda: engine.mvm(A, xs, key=HOOK_KEY),
+            {"ec_matmul": 1, "stencil_denoise": 1}).items():
+        served[k_] += v_
     del digital, det, batched, singles
 
     # ------------------------------------- 3t. serve transposed + Thomas (main)
@@ -4273,6 +4565,12 @@ def kernel_phases():
     print(f"    corrected A.T @ y, batch 1, per call: cuda "
           f"{rmvm_ms['cuda']:.3f} ms, reference {rmvm_ms['reference']:.3f} ms",
           flush=True)
+    for k_, v_ in hook_check(
+            "[3t]", "mvm_fn(A, transpose=True) vs engine.rmvm (batch 8, one "
+            "key)", lambda: engine.mvm_fn(A, transpose=True)(ys, HOOK_KEY),
+            lambda: engine.rmvm(A, ys, key=HOOK_KEY),
+            {"ec_rmatmul": 1, "stencil_denoise": 1}).items():
+        served_t[k_] += v_
     # at / da (phase 2's names for the image) go too, or the 8 GiB image
     # stays alive through every later phase.
     del A, a, at, da, digital_t, views, det, batched, singles, thomas, \
@@ -4292,7 +4590,7 @@ def kernel_phases():
     # (digital outer residual) goes below it.
     noise_floor = rel_l2(A @ x_true, b)
     kernels.reset_launches()
-    solved = {}
+    solved, results = {}, {}
     runs = (
         ("cg", lambda: solvers.cg(A, b, tol=SOLVE_TOL, maxiter=50,
                                   backend="cuda")),
@@ -4319,7 +4617,7 @@ def kernel_phases():
             led = res.ledger
             mvms = led.mvms + led.mvms_single
             used = {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
-            solved[name] = used
+            solved[name], results[name] = used, res
             print(f"[4] {name} ({run}): {res.iterations} iterations, {mvms} "
                   f"MVMs, converged={res.converged}, x err {err:.3e}, "
                   f"residual {res.final_residual:.3e}, {wall * 1e3:.1f} ms = "
@@ -4347,6 +4645,16 @@ def kernel_phases():
           solved["refine[cg]"]["cg_update"] > 0,
           f"the solvers did not launch their update kernels: {solved}")
     solve_counts = dict(kernels.LAUNCHES)
+    # The CG core at the public call's settings: the warm solve bit for bit.
+    _, used = core_check(
+        "[4]", "cg_pipeline(backend='cuda')",
+        solvers.cg_pipeline(solvers.as_operator(A), tol=SOLVE_TOL,
+                            maxiter=50, backend="cuda"),
+        (b[:, None], torch.zeros(N, 1, device=dev), 0), results["cg"],
+        lambda k, mvms: {"ec_matmul": mvms, "stencil_denoise": mvms,
+                         "cg_update": k})
+    for k_, v_ in used.items():
+        solve_counts[k_] += v_
     # A CG and a Richardson step's device time (not in the tally above).
     cg_mvms, cg_step_ms, tier2_ms = cg_step(solvers, A, b)
     print(f"[4] a CG step: {cg_step_ms:.4f} ms device (the solve's kernels "
@@ -4474,6 +4782,14 @@ def kernel_phases():
                   f"{name}: x error {err:.3e} above kappa^2 tol")
             check(used["ec_rmatmul"] == led.mvms_t,
                   f"{name} did not run every A.T @ u through ec_rmatmul")
+        # The core at the public call's settings: the warm solve bit for bit.
+        core_check(
+            "[5]", f"{name}_pipeline",
+            getattr(solvers, f"{name}_pipeline")(
+                solvers.as_operator(A), tol=SOLVE_TOL, maxiter=200),
+            (b[:, None], torch.zeros(n, 1, device=dev), 0), res,
+            lambda k, mvms: {"ec_matmul": mvms, "ec_rmatmul": mvms,
+                             "stencil_denoise": 2 * mvms})
     lstsq_counts = dict(kernels.LAUNCHES)
 
     # ------------------------------- 5e. ||A||_2 of the least-squares image
@@ -4520,6 +4836,22 @@ def kernel_phases():
           f"iterations")
     check(lp_counts["ec_rmatmul"] == led.mvms_t + led.mvms_single_t,
           "pdhg did not run every A.T @ y through ec_rmatmul")
+    # The core at the public call's settings (power-iteration steps
+    # included): the solve bit for bit, its dual too.
+    out, used = core_check(
+        "[5]", "pdhg_pipeline", solvers.pdhg_pipeline(
+            solvers.as_operator(A), tol=SOLVE_TOL, maxiter=PDHG_MAXITER),
+        (b[:, None], c[:, None], torch.zeros(n, 1, device=dev),
+         torch.zeros(m, 1, device=dev), 0), res,
+        lambda k, mvms: {"ec_matmul": mvms + led.mvms_single,
+                         "ec_rmatmul": mvms + led.mvms_single_t,
+                         "stencil_denoise": 2 * mvms + led.mvms_single
+                         + led.mvms_single_t})
+    check(torch.equal(out[1][:, 0], res.dual) and out[5] == led.mvms_single,
+          "[5] pdhg_pipeline's dual or power steps differ from pdhg's")
+    for k_, v_ in used.items():
+        lp_counts[k_] += v_
+    del out
     del A, b, c, x_star, y_star
     torch.cuda.synchronize()
 
@@ -4662,6 +4994,12 @@ def kernel_phases():
           flush=True)
     check(same_fwd and solo_err_t <= EC_TOL,
           "a group member differs from its solo execute")
+    for k_, v_ in hook_check(
+            "[6]", "group_mvm_fn(G) vs group_mvm (batch 8, one key)",
+            lambda: geng.group_mvm_fn(G)(gx[8], HOOK_KEY),
+            lambda: geng.group_mvm(G, gx[8], key=HOOK_KEY),
+            {"ec_group_matmul": 1, "stencil_denoise": 1}).items():
+        group_counts[k_] += v_
     det_err = {}
     for label, gcfg in (("neumann", exact), ("thomas", thomas_cfg)):
         views = [group_view(G, gcfg, be) for be in ("cuda", "reference")]
@@ -4742,6 +5080,12 @@ def kernel_phases():
           f"chain did not run one ec_matmul per layer: {chain_counts}")
     check(chain_det <= CHAIN_TOL,
           "chain cuda path disagrees with the reference pipeline")
+    for k_, v_ in hook_check(
+            "[6c]", "chain_fn(C, relu) vs chain_mvm (one key)",
+            lambda: geng.chain_fn(C, activation="relu")(h, HOOK_KEY),
+            lambda: geng.chain_mvm(C, h, key=HOOK_KEY, activation="relu"),
+            nonzero(chain_counts)).items():
+        chain_counts[k_] += v_
     del C, layers, chained, chain_ref, want, views, det
     torch.cuda.empty_cache()
 
@@ -5064,6 +5408,12 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(serving_phase(torch.device("cuda")))
     print(f"[16] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ------------- 17. the analysis cores at the paper's 65,536^2 scale
+    t0 = time.perf_counter()
+    all_counts.append(analysis_phase(torch.device("cuda")))
+    print(f"[17] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

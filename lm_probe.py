@@ -7,6 +7,7 @@
     python3 lm_probe.py rehearse-recurrent
     python3 lm_probe.py rehearse-train
     python3 lm_probe.py rehearse-serving
+    python3 lm_probe.py rehearse-analysis
     python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
@@ -37,6 +38,9 @@ it, on the CPU; ``image_cache_phase`` at the reduced qwen3-1.7b, cells of
 tensors (found through ``gc``) standing in for the allocator's counts,
 and replays the card's own [16b] schedule at full width on shapes alone
 (``dry_cache_schedule``), which must evict and reprogram.
+``rehearse-analysis`` runs phase 17 (``analysis_phase``) on the CPU on a
+512^2 virtual operator of 64^2 capacity blocks (the reference registry's
+small cells), with ``analysis.peak_bytes`` reporting 0 (no allocator).
 
 ``serve-ab`` times phase 12's serving on the card for this tree and the
 trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
@@ -205,6 +209,27 @@ def rehearse_train(args) -> None:
         grad_tokens=13, dense_rows=(8, 13), rram=rram, profile_steps=2)
     print(f"rehearsal of phase 15 (qwen3-1.7b reduced) on the CPU passed "
           f"in {time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def rehearse_analysis(args) -> None:
+    """chip_smoke.py's phase 17 on a 512^2 virtual operator (2 x 2 MCAs
+    of 32^2: 64 capacity blocks an MVM), on the 1 x 1 and 2 x 4 meshes."""
+    from repro_torch import analysis
+    from repro_torch.core import MCAGeometry
+
+    chip_smoke = _rehearsal_shims()
+
+    def no_peak(fn, *a, **kw):
+        fn(*a, **kw)
+        return 0
+
+    analysis.peak_bytes = no_peak
+    t0 = time.perf_counter()
+    counts = chip_smoke.analysis_phase(torch.device("cpu"), n=512,
+                                       geom=MCAGeometry(2, 2, 32, 32))
+    print(f"rehearsal of [17] (512^2, 64^2 blocks) on the CPU passed in "
+          f"{time.perf_counter() - t0:.1f} s; calls "
           f"{ {k: v for k, v in counts.items() if v} }")
 
 
@@ -408,7 +433,7 @@ def main(argv=None) -> int:
                                      "rehearse-families",
                                      "rehearse-recurrent",
                                      "rehearse-train", "rehearse-serving",
-                                     "serve-ab",
+                                     "rehearse-analysis", "serve-ab",
                                      "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
@@ -433,6 +458,8 @@ def main(argv=None) -> int:
         rehearse_recurrent(args)
     elif args.what == "rehearse-serving":
         rehearse_serving(args)
+    elif args.what == "rehearse-analysis":
+        rehearse_analysis(args)
     else:
         rehearse_train(args)
     return 0

@@ -1196,6 +1196,29 @@ class AnalogEngine:
                 use_kernel=use_kernel, eta=None if eta is None else eta[g]))
         return y[:, 0] if squeeze else y
 
+    # ---------------------------------------------------------- analysis hooks
+    def mvm_fn(self, A: AnalogMatrix, *, transpose: bool = False):
+        """A ``(vec, key) -> out`` closure over a programmed handle: the
+        call :meth:`mvm` (or :meth:`rmvm`) makes, which
+        :mod:`repro_torch.analysis` measures and the solver cores take as
+        their operator's matvec."""
+        if transpose:
+            return lambda y, key: self.rmvm(A, y, key=key)
+        return lambda x, key: self.mvm(A, x, key=key)
+
+    def group_mvm_fn(self, G: AnalogMatrixGroup, *, transpose: bool = False):
+        """The :meth:`mvm_fn` of a group: ``(vec, key) -> out`` over
+        :meth:`group_mvm` (or :meth:`group_rmvm`)."""
+        if transpose:
+            return lambda y, key: self.group_rmvm(G, y, key=key)
+        return lambda x, key: self.group_mvm(G, x, key=key)
+
+    def chain_fn(self, G: AnalogMatrixGroup, *,
+                 activation: Optional[str] = None):
+        """A ``(vec, key) -> out`` closure over :meth:`chain_mvm`."""
+        return lambda x, key: self.chain_mvm(G, x, key=key,
+                                             activation=activation)
+
     def _check_group(self, G) -> None:
         if not isinstance(G, AnalogMatrixGroup):
             raise TypeError("group execution takes an AnalogMatrixGroup; use "

@@ -12,27 +12,29 @@ Every method is matvec-only (plus ``rmatvec``, the transposed MVM against the
 same image, for LSQR, LSMR, PDHG, ADMM and ``operator_norm``; refinement also
 reads the digital matrix) and takes ``(n,)`` or ``(n, batch)`` right-hand
 sides;
-``backend="cuda"`` fuses CG's and Richardson's update step into a
-hand-written kernel, also inside refinement.  An operand that carries no
+``cg_pipeline``, ``pdhg_pipeline``, ``lsqr_pipeline`` and
+``lsmr_pipeline`` return the core each public solver runs (panels in,
+the loop's raw outputs back).  ``backend="cuda"`` fuses CG's and
+Richardson's update step into a hand-written kernel, also inside
+refinement.  An operand that carries no
 device (a numpy array, a bare matvec) runs on ``device=``, default
 ``"cuda"``; a tensor keeps its own device.
 """
 from .admm import admm, admm_pipeline, random_box_qp
-from .base import (LinearOperator, SolveLedger, SolveResult, as_operator,
-                   col_norms, pack_result)
+from .base import LinearOperator, SolveLedger, SolveResult, as_operator
 from .eigen import (lanczos, lanczos_pipeline, lobpcg, lobpcg_pipeline,
                     operator_norm)
-from .krylov import bicgstab, cg, gmres
-from .lstsq import lsmr, lsqr
-from .pdhg import pdhg, random_feasible_lp
+from .krylov import bicgstab, cg, cg_pipeline, gmres
+from .lstsq import lsmr, lsmr_pipeline, lsqr, lsqr_pipeline
+from .pdhg import pdhg, pdhg_pipeline, random_feasible_lp
 from .refinement import refine
 from .registry import SolverSpec, registry
 from .stationary import estimate_omega, jacobi, richardson, spectral_bounds
 
 __all__ = ["LinearOperator", "SolveLedger", "SolveResult", "as_operator",
-           "col_norms", "pack_result", "cg", "bicgstab", "gmres", "refine",
-           "richardson", "jacobi", "spectral_bounds", "estimate_omega",
-           "lsqr", "lsmr", "pdhg", "random_feasible_lp", "lanczos",
-           "lanczos_pipeline", "lobpcg", "lobpcg_pipeline", "operator_norm",
-           "admm", "admm_pipeline", "random_box_qp", "SolverSpec",
-           "registry"]
+           "cg", "cg_pipeline", "bicgstab", "gmres", "refine", "richardson",
+           "jacobi", "spectral_bounds", "estimate_omega", "lsqr",
+           "lsqr_pipeline", "lsmr", "lsmr_pipeline", "pdhg", "pdhg_pipeline",
+           "random_feasible_lp", "lanczos", "lanczos_pipeline", "lobpcg",
+           "lobpcg_pipeline", "operator_norm", "admm", "admm_pipeline",
+           "random_box_qp", "SolverSpec", "registry"]

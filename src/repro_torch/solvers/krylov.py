@@ -17,6 +17,7 @@ outside any kernel.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,7 +27,7 @@ from ..core.prng import fold_in
 from .base import (LinearOperator, SolveResult, as_operator, as_panel,
                    col_norms, diverged, init_history, pack_result, use_cuda)
 
-__all__ = ["cg", "bicgstab", "gmres"]
+__all__ = ["cg", "bicgstab", "gmres", "cg_pipeline"]
 
 _TINY = 1e-30
 
@@ -98,6 +99,17 @@ def _cg_core(op: LinearOperator, b: torch.Tensor, x0: torch.Tensor, key: int,
     return x, hist, k, mvms, rel0
 
 
+def cg_pipeline(op: LinearOperator, *, tol: float = 1e-6, maxiter: int = 200,
+                backend: Optional[str] = None,
+                divergence: Optional[float] = None):
+    """The CG core ``(b, x0, key) -> (x, hist, k, mvms, rel0)`` that
+    :func:`cg` runs, on (n, batch) panels ``b`` and ``x0`` on the operator's
+    device; ``backend="cuda"`` takes the ``cg_update`` kernel.  ``k`` and
+    ``mvms`` are Python ints (the reference's are int32 arrays)."""
+    return functools.partial(_cg_core, op, tol=tol, maxiter=maxiter,
+                             kernel=use_cuda(backend), divergence=divergence)
+
+
 def cg(A, b, *, tol: float = 1e-6, maxiter: int = 200, x0=None,
        key: int = 0, backend: Optional[str] = None,
        divergence: Optional[float] = None, device=None) -> SolveResult:
@@ -107,11 +119,10 @@ def cg(A, b, *, tol: float = 1e-6, maxiter: int = 200, x0=None,
     ``divergence`` x the best seen (the reliability wrappers' in-loop fault
     detector); the default None keeps the plain loop."""
     op = as_operator(A, device=device)
-    kernel = use_cuda(backend)
+    core = cg_pipeline(op, tol=tol, maxiter=maxiter, backend=backend,
+                       divergence=divergence)
     b, x, squeeze = _prep(op, b, x0)
-    x, hist, k, mvms, rel0 = _cg_core(op, b, x, key, tol=tol,
-                                      maxiter=maxiter, kernel=kernel,
-                                      divergence=divergence)
+    x, hist, k, mvms, rel0 = core(b, x, key)
     return pack_result(op, "cg", x, hist, k, mvms, tol, squeeze, rel0=rel0)
 
 

@@ -20,6 +20,7 @@ reference ``lax.while_loop``'s iterations.  Key folds follow the reference:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -28,7 +29,7 @@ from ..core.prng import fold_in
 from .base import (LinearOperator, SolveResult, as_operator, as_panel,
                    col_norms, init_history, pack_result)
 
-__all__ = ["lsqr", "lsmr"]
+__all__ = ["lsqr", "lsmr", "lsqr_pipeline", "lsmr_pipeline"]
 
 _TINY = 1e-30
 
@@ -72,7 +73,9 @@ def _bidiag_step(op: LinearOperator, u, v, alpha, key: int, k: int):
     return u, beta, v, alpha
 
 
-def _lsqr_loop(op, b, x, key, tol, maxiter, explicit_x0):
+def _lsqr_core(op: LinearOperator, b, x0, key: int, *, tol: float,
+               maxiter: int, explicit_x0: bool):
+    x = x0
     u, v, alpha, beta = _bidiag_init(op, b, x, key)
     atb = _atb_norm(op, b, key, alpha, beta, explicit_x0)
     rel0 = rel = alpha * beta / atb
@@ -95,10 +98,23 @@ def _lsqr_loop(op, b, x, key, tol, maxiter, explicit_x0):
         rel = torch.abs(phibar * alpha * c) / atb
         hist[k] = rel
         k += 1
-    return x, hist, k, rel0
+    return x, hist, k, 1 + k, rel0
 
 
-def _lsmr_loop(op, b, x, key, tol, maxiter, explicit_x0):
+def lsqr_pipeline(op: LinearOperator, *, tol: float = 1e-4,
+                  maxiter: int = 200, explicit_x0: bool = False):
+    """The LSQR core ``(b, x0, key) -> (x, hist, k, mvms, rel0)`` that
+    :func:`lsqr` runs: ``b`` an (m, batch) panel, ``x0`` (n, batch), both
+    on the operator's device; ``mvms = 1 + k`` forward MVMs.
+    ``explicit_x0`` adds the ``||A'b||`` normalization rmatvec for a
+    caller-supplied start point."""
+    return functools.partial(_lsqr_core, op, tol=tol, maxiter=maxiter,
+                             explicit_x0=explicit_x0)
+
+
+def _lsmr_core(op: LinearOperator, b, x0, key: int, *, tol: float,
+               maxiter: int, explicit_x0: bool):
+    x = x0
     u, v, alpha, beta = _bidiag_init(op, b, x, key)
     atb = _atb_norm(op, b, key, alpha, beta, explicit_x0)
     rel0 = rel = alpha * beta / atb
@@ -134,10 +150,18 @@ def _lsmr_loop(op, b, x, key, tol, maxiter, explicit_x0):
         rel = torch.abs(zetabar) / atb
         hist[k] = rel
         k += 1
-    return x, hist, k, rel0
+    return x, hist, k, 1 + k, rel0
 
 
-def _lstsq_solve(loop, name: str, A, b, *, tol, maxiter, x0, key,
+def lsmr_pipeline(op: LinearOperator, *, tol: float = 1e-4,
+                  maxiter: int = 200, explicit_x0: bool = False):
+    """The LSMR core ``(b, x0, key) -> (x, hist, k, mvms, rel0)``; see
+    :func:`lsqr_pipeline` for the calling convention."""
+    return functools.partial(_lsmr_core, op, tol=tol, maxiter=maxiter,
+                             explicit_x0=explicit_x0)
+
+
+def _lstsq_solve(pipeline, name: str, A, b, *, tol, maxiter, x0, key,
                  device) -> SolveResult:
     op = as_operator(A, device=device)
     if op.rmatvec is None:
@@ -153,11 +177,12 @@ def _lstsq_solve(loop, name: str, A, b, *, tol, maxiter, x0, key,
     explicit_x0 = x0 is not None
     x = torch.zeros(n, bb.shape[1], dtype=torch.float32, device=op.device) \
         if x0 is None else as_panel(x0, op.device)[0]
-    x, hist, k, rel0 = loop(op, bb, x, key, tol, maxiter, explicit_x0)
+    core = pipeline(op, tol=tol, maxiter=maxiter, explicit_x0=explicit_x0)
+    x, hist, k, mvms, rel0 = core(bb, x, key)
     # Forward MVMs: init + one per iteration; transposed MVMs mirror them,
     # plus the ||A'b|| normalization when x0 was given.
-    return pack_result(op, name, x, hist, k, 1 + k, tol, squeeze, rel0=rel0,
-                       mvms_t=1 + k + int(explicit_x0))
+    return pack_result(op, name, x, hist, k, mvms, tol, squeeze, rel0=rel0,
+                       mvms_t=mvms + int(explicit_x0))
 
 
 def lsqr(A, b, *, tol: float = 1e-4, maxiter: int = 200, x0=None,
@@ -167,7 +192,7 @@ def lsqr(A, b, *, tol: float = 1e-4, maxiter: int = 200, x0=None,
     (m, batch), each column its own problem; the history is the
     normal-equations relative residual.  The ledger bills forward and
     transposed MVMs separately against the one image write."""
-    return _lstsq_solve(_lsqr_loop, "lsqr", A, b, tol=tol, maxiter=maxiter,
+    return _lstsq_solve(lsqr_pipeline, "lsqr", A, b, tol=tol, maxiter=maxiter,
                         x0=x0, key=key, device=device)
 
 
@@ -175,5 +200,5 @@ def lsmr(A, b, *, tol: float = 1e-4, maxiter: int = 200, x0=None,
          key: int = 0, device=None) -> SolveResult:
     """LSMR for ``min ||A x - b||``: MINRES on the normal equations, so
     ``||A'r||`` decreases monotonically.  Same contract as :func:`lsqr`."""
-    return _lstsq_solve(_lsmr_loop, "lsmr", A, b, tol=tol, maxiter=maxiter,
+    return _lstsq_solve(lsmr_pipeline, "lsmr", A, b, tol=tol, maxiter=maxiter,
                         x0=x0, key=key, device=device)

@@ -23,6 +23,7 @@ reliability wrappers' in-loop fault detector on the KKT residual (see
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -32,7 +33,7 @@ from ..core.prng import fold_in, generator
 from .base import (LinearOperator, SolveResult, as_operator, as_panel,
                    col_norms, diverged, init_history, pack_result)
 
-__all__ = ["pdhg", "random_feasible_lp"]
+__all__ = ["pdhg", "pdhg_pipeline", "random_feasible_lp"]
 
 _TINY = 1e-30
 
@@ -94,6 +95,62 @@ def _kkt(b, c, bn, cn, x, y, ax, aty) -> torch.Tensor:
     return torch.maximum(torch.maximum(primal, dual), gap)
 
 
+def _pdhg_core(op: LinearOperator, b, c, x0, y0, key: int, *, tau, sigma,
+               eta: float, tol: float, maxiter: int, power_iters: int,
+               divergence: Optional[float] = None):
+    """PDHG on (m, batch) ``b`` / ``y0`` and (n, batch) ``c`` / ``x0``
+    panels; returns ``(x, y, history, iterations, forward MVMs, power
+    steps, KKT residual at entry)`` as the reference's ``_pdhg_core``
+    does."""
+    x, y = x0, y0
+    bn, cn = 1.0 + col_norms(b), 1.0 + col_norms(c)
+
+    if tau is None or sigma is None:
+        step = eta / _power_norm(op, fold_in(key, 900_003), power_iters)
+        tau_v = step if tau is None else float(tau)
+        sigma_v = step if sigma is None else float(sigma)
+        pi_mvms = power_iters
+    else:
+        tau_v, sigma_v, pi_mvms = float(tau), float(sigma), 0
+
+    aty = op.rmatvec(y, fold_in(key, 0))
+    ax = op.matvec(x, fold_in(key, 1))
+    rel0 = rel = best = _kkt(b, c, bn, cn, x, y, ax, aty)
+    hist = init_history(maxiter, b.shape[1], op.device)
+    k = 0
+    while k < maxiter and not bool(torch.all(rel <= tol)) \
+            and not diverged(rel, best, divergence, tol):
+        x_new = torch.clamp(x - tau_v * (c + aty), min=0.0)
+        ax_bar = op.matvec(2.0 * x_new - x, fold_in(key, 2 + 2 * k))
+        y = y + sigma_v * (ax_bar - b)
+        aty = op.rmatvec(y, fold_in(key, 3 + 2 * k))
+        # A x_{k+1} from x_bar = 2 x_{k+1} - x_k: exact for a digital
+        # operator, an averaged estimate for the analog one; no extra MVM.
+        ax = 0.5 * (ax_bar + ax)
+        x = x_new
+        rel = _kkt(b, c, bn, cn, x, y, ax, aty)
+        hist[k] = rel
+        if divergence is not None:
+            best = torch.minimum(best, rel)
+        k += 1
+    # Forward MVMs: init + one per iteration; the transposed count mirrors
+    # it, and the power iteration adds pi_mvms of each at batch 1.
+    return x, y, hist, k, 1 + k, pi_mvms, rel0
+
+
+def pdhg_pipeline(op: LinearOperator, *, tau: Optional[float] = None,
+                  sigma: Optional[float] = None, eta: float = 0.9,
+                  tol: float = 1e-4, maxiter: int = 2000,
+                  power_iters: int = 16, divergence: Optional[float] = None):
+    """The PDHG core ``(b, c, x0, y0, key) -> (x, y, hist, k, mvms,
+    pi_mvms, rel0)`` that :func:`pdhg` runs (step-size power iteration,
+    loop, KKT residuals) on panels on the operator's device; the counts
+    are Python ints."""
+    return functools.partial(
+        _pdhg_core, op, tau=tau, sigma=sigma, eta=eta, tol=tol,
+        maxiter=maxiter, power_iters=power_iters, divergence=divergence)
+
+
 def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
          eta: float = 0.9, tau: Optional[float] = None,
          sigma: Optional[float] = None, x0=None, y0=None, key: int = 0,
@@ -129,42 +186,14 @@ def pdhg(A, b, c, *, tol: float = 1e-4, maxiter: int = 2000,
             f"of shape {op.shape}; expected ({m}, batch) and ({n}, batch)")
     if bb.shape[1] != cc.shape[1]:
         raise ValueError(f"b batch {bb.shape[1]} != c batch {cc.shape[1]}")
-    x = torch.zeros_like(cc) if x0 is None else as_panel(x0, op.device)[0]
-    y = torch.zeros_like(bb) if y0 is None else as_panel(y0, op.device)[0]
-    bn, cn = 1.0 + col_norms(bb), 1.0 + col_norms(cc)
-
-    if tau is None or sigma is None:
-        step = eta / _power_norm(op, fold_in(key, 900_003), power_iters)
-        tau_v = step if tau is None else float(tau)
-        sigma_v = step if sigma is None else float(sigma)
-        pi_mvms = power_iters
-    else:
-        tau_v, sigma_v, pi_mvms = float(tau), float(sigma), 0
-
-    aty = op.rmatvec(y, fold_in(key, 0))
-    ax = op.matvec(x, fold_in(key, 1))
-    rel0 = rel = best = _kkt(bb, cc, bn, cn, x, y, ax, aty)
-    hist = init_history(maxiter, bb.shape[1], op.device)
-    k = 0
-    while k < maxiter and not bool(torch.all(rel <= tol)) \
-            and not diverged(rel, best, divergence, tol):
-        x_new = torch.clamp(x - tau_v * (cc + aty), min=0.0)
-        ax_bar = op.matvec(2.0 * x_new - x, fold_in(key, 2 + 2 * k))
-        y = y + sigma_v * (ax_bar - bb)
-        aty = op.rmatvec(y, fold_in(key, 3 + 2 * k))
-        # A x_{k+1} from x_bar = 2 x_{k+1} - x_k: exact for a digital
-        # operator, an averaged estimate for the analog one; no extra MVM.
-        ax = 0.5 * (ax_bar + ax)
-        x = x_new
-        rel = _kkt(bb, cc, bn, cn, x, y, ax, aty)
-        hist[k] = rel
-        if divergence is not None:
-            best = torch.minimum(best, rel)
-        k += 1
-    # Forward MVMs: init + one per iteration; the transposed count mirrors
-    # it, and the power iteration adds pi_mvms of each at batch 1.
-    res = pack_result(op, "pdhg", x, hist, k, 1 + k, tol, squeeze,
-                      mvms_single=pi_mvms, rel0=rel0, mvms_t=1 + k,
+    x0b = torch.zeros_like(cc) if x0 is None else as_panel(x0, op.device)[0]
+    y0b = torch.zeros_like(bb) if y0 is None else as_panel(y0, op.device)[0]
+    core = pdhg_pipeline(op, tau=tau, sigma=sigma, eta=eta, tol=tol,
+                         maxiter=maxiter, power_iters=power_iters,
+                         divergence=divergence)
+    x, y, hist, k, mvms, pi_mvms, rel0 = core(bb, cc, x0b, y0b, key)
+    res = pack_result(op, "pdhg", x, hist, k, mvms, tol, squeeze,
+                      mvms_single=pi_mvms, rel0=rel0, mvms_t=mvms,
                       mvms_single_t=pi_mvms)
     res.dual = y[:, 0] if squeeze else y
     return res

@@ -105,6 +105,13 @@ class Server:
             toks.append(tok)
         return torch.cat(toks, dim=1), caches
 
+    def decode_fn(self, n: int):
+        """The ``n``-token decode as a ``(tok, caches) -> ((B, n) int32,
+        caches)`` callable over this server's params.  The reference's is
+        one fused scan; this one is :meth:`decode_tokens`' host loop, one
+        ``decode_step`` a token, and it writes ``caches`` in place."""
+        return lambda tok, caches: self.decode_tokens(tok, caches, n)
+
     def dispatches_per_batch(self, n_tokens: int) -> int:
         """Step calls one ``generate(batch, n_tokens)`` makes: a prefill and
         ``n_tokens - 1`` calls to ``decode_step``.  The reference counts 1

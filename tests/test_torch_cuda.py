@@ -2273,3 +2273,90 @@ def test_image_cache_eviction_frees_the_image_on_the_card(cuda_device):
     del second, cache
     gc.collect()
     assert torch.cuda.memory_allocated() == base
+
+
+@pytest.mark.parametrize("solver", ["cg", "lsqr", "lsmr", "pdhg"])
+def test_solver_cores_on_card_equal_their_solvers(cuda_device, solver):
+    """Each core (``cg_pipeline`` with the ``cg_update`` kernel,
+    ``lsqr_pipeline``, ``lsmr_pipeline``, ``pdhg_pipeline`` with the power
+    steps) on a programmed image on the card is its public solver bit for
+    bit: x, the history, the iterations and the MVMs; and its launches
+    are one EC launch and one stencil an MVM (CG: one cg_update an
+    iteration)."""
+    dev = cuda_device
+    cfg = CrossbarConfig(device=get_device("epiram"),
+                         geom=MCAGeometry(2, 2, 64, 64))
+    if solver == "cg":
+        r = randn((256, 256), 110, dev) / 256
+        a = r + r.T + 2 * torch.eye(256, device=dev)
+        b = randn((256,), 111, dev)
+    elif solver == "pdhg":
+        a, b, c, _, _ = solvers.random_feasible_lp(3, 96, 200, device=dev)
+    else:
+        a = randn((300, 160), 112, dev) / 300 ** 0.5
+        b = randn((300,), 113, dev)
+    A = AnalogEngine(cfg, backend="cuda", device=dev).program(a, 5)
+    op = solvers.as_operator(A)
+    zeros = torch.zeros(a.shape[1], 1, device=dev)
+    if solver == "cg":
+        res = solvers.cg(A, b, tol=1e-4, maxiter=50, key=3, backend="cuda")
+        core = solvers.cg_pipeline(op, tol=1e-4, maxiter=50, backend="cuda")
+        args = (b[:, None], zeros, 3)
+    elif solver == "pdhg":
+        res = solvers.pdhg(A, b, c, tol=1e-3, maxiter=3000, key=3,
+                           power_iters=8)
+        core = solvers.pdhg_pipeline(op, tol=1e-3, maxiter=3000,
+                                     power_iters=8)
+        args = (b[:, None], c[:, None], zeros,
+                torch.zeros(a.shape[0], 1, device=dev), 3)
+    else:
+        res = getattr(solvers, solver)(A, b, tol=1e-4, maxiter=100, key=3)
+        core = getattr(solvers, f"{solver}_pipeline")(op, tol=1e-4,
+                                                      maxiter=100)
+        args = (b[:, None], zeros, 3)
+    kernels.reset_launches()
+    out = core(*args)
+    torch.cuda.synchronize()
+    x, (hist, k, mvms) = out[0], (out[1:4] if len(out) == 5 else out[2:5])
+    assert torch.equal(x[:, 0], res.x) and k == res.iterations > 1
+    assert mvms == res.ledger.mvms == 1 + k
+    assert torch.equal(hist[:k, 0], res.residuals[:k])
+    assert bool(torch.isnan(hist[k:]).all())
+    fwd = mvms + (out[5] if solver == "pdhg" else 0)
+    back = 0 if solver == "cg" else fwd
+    assert kernels.LAUNCHES["ec_matmul"] == fwd
+    assert kernels.LAUNCHES["ec_rmatmul"] == back
+    assert kernels.LAUNCHES["stencil_denoise"] == fwd + back
+    assert kernels.LAUNCHES["cg_update"] == (k if solver == "cg" else 0)
+    if solver == "pdhg":
+        assert torch.equal(out[1][:, 0], res.dual) and out[5] == 8
+
+
+def test_analysis_memory_on_card(cuda_device):
+    """``max_aval_elements`` and ``peak_bytes`` on a small virtual handle
+    (a 1 x 1 ``resident=False`` 1,024^2 banded producer, 64^2 capacity
+    blocks) on the card: the largest tensor one capacity block, under
+    n^2/8; the peak over the call above zero and at most 12 blocks; and
+    ``peak_bytes`` refuses a call on the CPU."""
+    from repro_torch import analysis
+    from repro_torch.core.matrices import ImplicitBandedMatrix
+    dev = cuda_device
+    n, cap = 1024, 64
+    cfg = CrossbarConfig(device=get_device("taox-hfox"),
+                         geom=MCAGeometry(2, 2, 32, 32), k_iters=5, ec=True)
+    imp = ImplicitBandedMatrix(n=n, cap_m=cap, cap_n=cap, seed=2,
+                               device=dev)
+    eng = AnalogEngine(cfg, execution="distributed", backend="cuda",
+                       mesh=_mesh((1, 1), dev))
+    A = eng.program(imp.block, 7, shape=(n, n), resident=False)
+    x = randn((n,), 114, dev)
+    for transpose in (False, True):
+        fn = eng.mvm_fn(A, transpose=transpose)
+        elems = analysis.max_aval_elements(fn, x, 7)
+        peak = analysis.peak_bytes(fn, x, 7)
+        assert cap * cap <= elems < n * n // 8
+        assert elems <= 4 * cap * cap
+        assert 0 < peak <= 12 * 4 * cap * cap
+        assert torch.equal(fn(x, 7), fn(x, 7))
+    with pytest.raises(ValueError, match="CUDA"):
+        analysis.peak_bytes(lambda v: v * 2, x.cpu())

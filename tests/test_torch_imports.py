@@ -279,6 +279,40 @@ def test_serving_imports_with_jax_and_repro_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_port_file_list_covers_the_analysis_slice():
+    """The import scan reaches the analysis package and the rehearsal of
+    its chip phase."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/analysis/__init__.py",
+                "src/repro_torch/analysis/memory.py",
+                "src/repro_torch/analysis/model_flops.py", "lm_probe.py"):
+        assert rel in names, rel
+
+
+def test_analysis_imports_with_jax_and_repro_blocked():
+    """The analysis package and the solver cores import with ``jax`` and
+    ``repro`` made unimportable, and count qwen3-1.7b's parameters over
+    shapes alone."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.analysis import (max_aval_elements, model_flops,\n"
+        "    peak_bytes)\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.solvers import (cg_pipeline, lsmr_pipeline,\n"
+        "    lsqr_pipeline, pdhg_pipeline)\n"
+        "print(model_flops.param_count(get_arch('qwen3-1.7b')))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["2032264192"]
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_neither_jax_nor_repro(path):
