@@ -257,7 +257,17 @@ non-zero, printing no result, without them or without the repository's
      its allocator peak over the start (``analysis.peak_bytes``) <= 12
      capacity blocks, one producer call and one EC launch a block an MVM
      (none at programming), one stencil a segment, every iterate finite,
-     and an MVM's wall and device-busy ms.
+     and an MVM's wall and device-busy ms;
+ 18. the invariant registry on the card (``invariants_phase``, after
+     [17]): each of the 29 pipelines of ``repro_torch.analysis.pipelines``
+     at ``scale="paper"`` (the six virtual entries at 65,536^2, 1,024
+     blocks of 2,048^2, ``resident=False``; the virtual solves at 2
+     iterations) run once under the five audits of
+     ``repro_torch.analysis.verify``; its record printed as one JSON line,
+     no violation, the record equal field for field to the ``cuda``
+     section of ``INVARIANTS_torch.json`` (launches per kernel included),
+     and on the six virtual entries the allocator's peak over the start
+     (``analysis.peak_bytes``, the audited run) <= 12 capacity blocks.
 
 Beside the calls they wrap, [3] / [3t] hold ``engine.mvm_fn`` both ways,
 [6] ``group_mvm_fn`` and [6c] ``chain_fn`` to them bit for bit under one
@@ -461,6 +471,9 @@ ANALYSIS_KEY = 7
 # Of the registry's 100 (PDHG) and 50 (LSQR) iterations: at 4, [17] took
 # 102 s on an H100 (each call runs twice, once under the dispatch mode).
 ANALYSIS_MAXITER = 2
+# [18]: the manifest the registry's records are held to (its cuda section).
+INVARIANTS = Path(__file__).resolve().parent / "INVARIANTS_torch.json"
+INVARIANTS_PEAK_BLOCKS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -4244,6 +4257,43 @@ def analysis_phase(dev, *, n=ANALYSIS_N, geom=None):
     return counts
 
 
+def invariants_phase(dev):
+    """[18] every pipeline of ``repro_torch.analysis.pipelines`` at the
+    scale of ``dev``'s type, once under the five audits
+    (``pipelines.check_section``; on the card each virtual entry under
+    ``peak_bytes`` too): each record printed as a JSON line, no violation,
+    the record equal to ``INVARIANTS_torch.json``'s section for ``dev``
+    (launches included on the card), and each virtual entry's peak over
+    the start <= 12 capacity blocks.  Returns the launches of the audited
+    runs.  Rehearsed on the CPU at the reduced scale."""
+    from repro_torch import kernels
+    from repro_torch.analysis import pipelines as P
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    block = 4 * P.VIRTUAL_CAP ** 2                  # bytes of one block
+    for c in P.check_section(dev, json.loads(INVARIANTS.read_text()),
+                             peak=dev.type == "cuda"):
+        check(c.row is not None,
+              f"[18] {c.name}: in the manifest, not in the registry")
+        for k_, v_ in c.reports["DispatchCount"].summary["launches"].items():
+            counts[k_] += v_
+        print("[18] " + json.dumps(c.row, sort_keys=True), flush=True)
+        ab = c.reports["AvalBound"].summary
+        peak = ab.get("peak_bytes")
+        print(f"[18] {c.name}: {c.seconds:.2f} s, largest {ab['max_aval']} "
+              f"at {ab['at']}"
+              + ("" if peak is None else f", peak over the start {peak} B "
+                 f"({peak / block:.2f} capacity blocks)"), flush=True)
+        check(not c.row["violations"],
+              f"[18] {c.name}: violations {c.row['violations']}")
+        check(not c.diff, f"[18] {c.name}: (measured, manifest) differ: "
+              f"{c.diff}")
+        if peak is not None:
+            check(peak <= INVARIANTS_PEAK_BLOCKS * block,
+                  f"[18] {c.name}: peak {peak} B over "
+                  f"{INVARIANTS_PEAK_BLOCKS} capacity blocks")
+    return counts
+
+
 def kernel_phases():
     """Phases [1]-[11]; returns what the report needs: the nvidia-smi line,
     the kernel rows of [2], the other shapes' rows and the main paths'
@@ -5414,6 +5464,12 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(analysis_phase(torch.device("cuda")))
     print(f"[17] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # -------------- 18. the invariant registry at the paper's 65,536^2
+    t0 = time.perf_counter()
+    all_counts.append(invariants_phase(torch.device("cuda")))
+    print(f"[18] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

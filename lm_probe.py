@@ -8,6 +8,7 @@
     python3 lm_probe.py rehearse-train
     python3 lm_probe.py rehearse-serving
     python3 lm_probe.py rehearse-analysis
+    python3 lm_probe.py rehearse-invariants
     python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
@@ -41,6 +42,11 @@ and replays the card's own [16b] schedule at full width on shapes alone
 ``rehearse-analysis`` runs phase 17 (``analysis_phase``) on the CPU on a
 512^2 virtual operator of 64^2 capacity blocks (the reference registry's
 small cells), with ``analysis.peak_bytes`` reporting 0 (no allocator).
+
+``rehearse-invariants`` runs phase 18 (``invariants_phase``) on the CPU at
+``scale="cpu"`` against the ``cpu`` section of ``INVARIANTS_torch.json``,
+and prints the launches the counting wrappers saw (the card's ``cuda``
+section counts the same kernels on the same small entries).
 
 ``serve-ab`` times phase 12's serving on the card for this tree and the
 trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
@@ -229,6 +235,17 @@ def rehearse_analysis(args) -> None:
     counts = chip_smoke.analysis_phase(torch.device("cpu"), n=512,
                                        geom=MCAGeometry(2, 2, 32, 32))
     print(f"rehearsal of [17] (512^2, 64^2 blocks) on the CPU passed in "
+          f"{time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
+def rehearse_invariants(args) -> None:
+    """chip_smoke.py's phase 18 at ``scale="cpu"``, held to the manifest's
+    ``cpu`` section."""
+    chip_smoke = _rehearsal_shims()
+    t0 = time.perf_counter()
+    counts = chip_smoke.invariants_phase(torch.device("cpu"))
+    print(f"rehearsal of [18] (scale cpu) on the CPU passed in "
           f"{time.perf_counter() - t0:.1f} s; calls "
           f"{ {k: v for k, v in counts.items() if v} }")
 
@@ -433,7 +450,8 @@ def main(argv=None) -> int:
                                      "rehearse-families",
                                      "rehearse-recurrent",
                                      "rehearse-train", "rehearse-serving",
-                                     "rehearse-analysis", "serve-ab",
+                                     "rehearse-analysis",
+                                     "rehearse-invariants", "serve-ab",
                                      "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
@@ -460,6 +478,8 @@ def main(argv=None) -> int:
         rehearse_serving(args)
     elif args.what == "rehearse-analysis":
         rehearse_analysis(args)
+    elif args.what == "rehearse-invariants":
+        rehearse_invariants(args)
     else:
         rehearse_train(args)
     return 0

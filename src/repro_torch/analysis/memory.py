@@ -25,18 +25,25 @@ reference's resident bound expects.
 statically: the caching allocator's peak over one call above its start.
 
 The reference's ``jaxpr_max_elements`` (its jaxpr walker, shared with the
-invariant passes of ``repro.analysis.verify``) has no counterpart here; the
-audits decide what replaces it.
+invariant passes of ``repro.analysis.verify``) has no counterpart: there is
+no jaxpr to walk.  Its role goes to
+:func:`repro_torch.analysis.verify.aval_bound`, whose report's
+``max_elements`` is :func:`max_aval_elements`' number for the same run,
+with the largest tensor, its operator and its line.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
-from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 __all__ = ["max_aval_elements", "peak_bytes"]
+
+
+#: the site :meth:`_LargestTensor.finish` names: a call's arguments and
+#: result, which no operator of the call need have read or written
+ARGUMENTS = "<arguments and result>"
 
 
 def _largest(tree) -> int:
@@ -52,18 +59,58 @@ def _largest(tree) -> int:
     return 0
 
 
+def _tensors(tree, out: list) -> list:
+    """The tensors of nested lists, tuples and dicts, appended to ``out``."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            _tensors(item, out)
+    elif isinstance(tree, dict):
+        for item in tree.values():
+            _tensors(item, out)
+    return out
+
+
+def _describe(t: torch.Tensor) -> str:
+    dtype = str(t.dtype).replace("torch.", "")
+    return f"{dtype}[{','.join(map(str, t.shape))}]"
+
+
 class _LargestTensor(TorchDispatchMode):
-    """Records the largest tensor any dispatched operator reads or writes."""
+    """Records the largest tensor any dispatched operator reads or writes,
+    and, only when a new maximum is seen, that tensor (``largest``) and
+    where it was (``site``: the operator's name; a subclass may say more
+    by overriding :meth:`_site`).  :meth:`observe` is the per-operator
+    hook a subclass extends; :meth:`finish` adds the call's arguments and
+    result."""
 
     def __init__(self):
         super().__init__()
         self.elements = 0
+        self.largest = "?"
+        self.site: Any = None
+
+    def _site(self, op: str) -> Any:
+        return op
+
+    def see(self, tree, op) -> None:
+        n = _largest(tree)
+        if n > self.elements:
+            t = max(_tensors(tree, []), key=lambda v: v.numel())
+            self.elements, self.largest = n, _describe(t)
+            self.site = self._site(str(op))
+
+    def observe(self, func, args, kwargs, out) -> None:
+        self.see((args, kwargs, out), func)
+
+    def finish(self, args, kwargs, out) -> None:
+        self.see((args, kwargs, out), ARGUMENTS)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.elements = max(self.elements, _largest(args), _largest(kwargs),
-                            _largest(out))
+        self.observe(func, args, kwargs, out)
         return out
 
 
@@ -73,7 +120,8 @@ def max_aval_elements(fn, *args: Any, **kwargs: Any) -> int:
     once, as it would without the measurement."""
     with _LargestTensor() as mode:
         out = fn(*args, **kwargs)
-    return max(mode.elements, _largest((args, kwargs, out)))
+    mode.finish(args, kwargs, out)
+    return mode.elements
 
 
 def peak_bytes(fn, *args: Any, **kwargs: Any) -> int:
@@ -82,8 +130,7 @@ def peak_bytes(fn, *args: Any, **kwargs: Any) -> int:
     the call's tensor arguments; raises ``ValueError`` for a call with no
     CUDA tensor argument.  It resets the device's peak statistics, so it
     must not run inside another such window."""
-    devs = {t.device for t in pytree.tree_leaves((args, kwargs))
-            if isinstance(t, torch.Tensor) and t.is_cuda}
+    devs = {t.device for t in _tensors((args, kwargs), []) if t.is_cuda}
     if len(devs) != 1:
         raise ValueError(
             "peak_bytes measures a call on one CUDA device; its tensor "

@@ -54,7 +54,7 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from ..launch.mesh import Mesh, mesh_axis_sizes, psum
+from ..launch.mesh import Mesh, gather_to_lead, mesh_axis_sizes, psum
 from .crossbar import (CrossbarConfig, _denoise_output, _encode_vec,
                        group_program_blocks,
                        grouped_block_mvm, grouped_block_rmvm,
@@ -210,8 +210,7 @@ def _reduce(grid: RankGrid, partials, cfg, use_kernel, transpose):
         sums = psum(mesh, partials, grid.col_axis)
         segs = [sums[grid.ranks[r][0]] for r in range(grid.R)]
     segs = [_denoise_output(s, cfg, use_kernel=use_kernel) for s in segs]
-    axis = 1 if segs[0].ndim == 3 else 0
-    return torch.cat([s.to(mesh.lead_device) for s in segs], dim=axis)
+    return gather_to_lead(mesh, segs, 1 if segs[0].ndim == 3 else 0)
 
 
 def _split(u: torch.Tensor, parts: int, index: int, device,

@@ -18,12 +18,22 @@ seeded from the key it belongs to (:func:`generator`).  The schedule:
 
 The numbers differ from ``jax.random``'s; tests that need identical noise
 draw it with ``jax.random`` and hand it to the port as ``eta=``.
+
+Every draw of the port goes through :func:`generator`, so it is where the
+key audit of :mod:`repro_torch.analysis.verify` observes them: while
+:data:`OBSERVERS` is not empty, each call hands every observer the key.
+Idle, the hook is one list test.
 """
 from __future__ import annotations
 
+from typing import Callable, List
+
 import torch
 
-__all__ = ["fold_in", "block_key", "generator"]
+__all__ = ["fold_in", "block_key", "generator", "OBSERVERS"]
+
+#: ``observer(key)`` for every :func:`generator` call while an audit runs.
+OBSERVERS: List[Callable] = []
 
 _MASK64 = (1 << 64) - 1
 
@@ -47,4 +57,6 @@ def block_key(key: int, i: int, j: int) -> int:
 
 def generator(key: int, device) -> torch.Generator:
     """A fresh ``torch.Generator`` on ``device`` seeded from ``key``."""
+    for observe in OBSERVERS:
+        observe(int(key))
     return torch.Generator(device=device).manual_seed(int(key))

@@ -8,6 +8,13 @@ one partial per rank over the named axes in fixed rank order, on the device
 of the first rank of each group, so a result does not depend on where the
 ranks run.
 
+:func:`gather_to_lead` joins the ranks' output segments in order on the
+lead device.  The collective audit of :mod:`repro_torch.analysis.verify`
+observes both: while :data:`OBSERVERS` is not empty, each :func:`psum` and
+:func:`gather_to_lead` call hands every observer ``(kind, axes,
+tensors)``, ``kind`` ``"psum"`` or ``"gather"``.  Idle, the hook is one
+list test.
+
 Every rank of a mesh must name the same device: several cards need a
 ``torch.distributed`` (NCCL) process group behind the same :func:`psum`,
 which ROADMAP Queue A16 holds; any other mesh raises ``ValueError`` naming
@@ -18,12 +25,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "axis_index",
-           "mesh_axis_sizes", "psum"]
+           "mesh_axis_sizes", "psum", "gather_to_lead", "OBSERVERS"]
+
+#: ``observer(kind, axes, tensors)`` for every :func:`psum` and
+#: :func:`gather_to_lead` call while an audit runs.
+OBSERVERS: List[Callable] = []
 
 _MULTI_DEVICE = ("ROADMAP Queue A16 (several cards: a torch.distributed "
                  "NCCL process group behind the same psum)")
@@ -143,6 +154,8 @@ def psum(mesh: Mesh, partials: Sequence[torch.Tensor],
     if len(partials) != mesh.size:
         raise ValueError(f"psum needs one partial per rank ({mesh.size}), "
                          f"got {len(partials)}")
+    for observe in OBSERVERS:
+        observe("psum", axes, partials)
     groups: Dict[tuple, List[int]] = {}
     for r in range(mesh.size):
         c = mesh.coords(r)
@@ -159,3 +172,12 @@ def psum(mesh: Mesh, partials: Sequence[torch.Tensor],
         for r in ranks:
             out[r] = acc
     return out
+
+
+def gather_to_lead(mesh: Mesh, segments: Sequence[torch.Tensor],
+                   dim: int = 0) -> torch.Tensor:
+    """The ranks' output segments joined in order along ``dim`` on the
+    mesh's lead device: one global tensor."""
+    for observe in OBSERVERS:
+        observe("gather", (), segments)
+    return torch.cat([s.to(mesh.lead_device) for s in segments], dim=dim)

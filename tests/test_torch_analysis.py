@@ -366,3 +366,25 @@ def test_chip_smoke_analysis_phase_rehearses_on_cpu():
     assert lines[-1].startswith("rehearsal of [17]")
     assert any(ln.startswith("[17a] A @ x") for ln in lines)
     assert any(ln.startswith("[17b] lsqr") for ln in lines)
+
+
+# ------------------------------------------------- chip_smoke.py's [18]
+def test_chip_smoke_invariants_phase_rehearses_on_cpu():
+    """chip_smoke.py's phase 18 takes its device and runs the registry at
+    that device's scale: on the CPU (``lm_probe.py rehearse-invariants``,
+    ``scale="cpu"``: the kernel wrappers counting their launches)
+    each of the 29 records is printed, shows no violation and equals
+    INVARIANTS_torch.json's ``cpu`` section; the counted launches are the
+    small entries' the card's section holds (49 ``ec_matmul``, 169
+    ``ec_rmatmul``, one of each grouped kernel, 158 stencils)."""
+    out = subprocess.run(
+        [sys.executable, str(REPO / "lm_probe.py"), "rehearse-invariants"],
+        text=True, capture_output=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert sum(ln.startswith("[18] {") for ln in lines) == 29
+    assert lines[-1].startswith("rehearsal of [18]")
+    assert lines[-1].endswith(
+        "{'ec_matmul': 49, 'ec_rmatmul': 169, 'ec_group_matmul': 1, "
+        "'ec_group_rmatmul': 1, 'stencil_denoise': 158}")

@@ -2360,3 +2360,63 @@ def test_analysis_memory_on_card(cuda_device):
         assert torch.equal(fn(x, 7), fn(x, 7))
     with pytest.raises(ValueError, match="CUDA"):
         analysis.peak_bytes(lambda v: v * 2, x.cpu())
+
+
+# The kernels each -cuda registry entry (and the analog decode) launches,
+# from its shapes: one EC kernel + one stencil a local MVM or group call,
+# one EC kernel a 64^2 block (16) + one stencil a streamed MVM, one
+# ec_matmul a block of each of the chain's 8 members (2 x 2 blocks; its
+# tier-2 is plain), and for the decode one ec_rmatmul + one stencil an
+# analog dense (19 a step, 8 steps).
+REGISTRY_LAUNCHES = {
+    "local-forward-cuda": {"ec_matmul": 1, "stencil_denoise": 1},
+    "local-rmatvec-cuda": {"ec_rmatmul": 1, "stencil_denoise": 1},
+    "streamed-forward-cuda": {"ec_matmul": 16, "stencil_denoise": 1},
+    "streamed-rmatvec-cuda": {"ec_rmatmul": 16, "stencil_denoise": 1},
+    "group-forward-cuda": {"ec_group_matmul": 1, "stencil_denoise": 1},
+    "group-rmatvec-cuda": {"ec_group_rmatmul": 1, "stencil_denoise": 1},
+    "group-chain-wholemodel-cuda": {"ec_matmul": 32},
+    "serving-decode-fused-rwkv6": {"ec_rmatmul": 152,
+                                   "stencil_denoise": 152},
+}
+
+
+def test_invariant_registry_launches_on_card(cuda_device):
+    """The registry's entries that reach a kernel, on the card at the
+    paper's scale (these entries are the same at both scales): no
+    violation, each kernel's launches as their shapes give them and as the
+    ``cuda`` section of INVARIANTS_torch.json holds them; every other
+    small entry launches nothing."""
+    import json
+    from pathlib import Path
+    from repro_torch.analysis import pipelines as P
+    want = json.loads((Path(__file__).resolve().parents[1]
+                       / "INVARIANTS_torch.json").read_text())["cuda"]
+    for spec in P.registered_pipelines(device=cuda_device, scale="paper"):
+        if "virtual65536" in spec.name or spec.direction == "solve":
+            continue
+        reports = P.verify_pipeline(spec)
+        row = P.manifest_record(spec, reports)
+        assert row["violations"] == [], (spec.name, row["violations"])
+        assert row["launches"] == REGISTRY_LAUNCHES.get(spec.name, {}), \
+            spec.name
+        assert row == want[spec.name], spec.name
+
+
+def test_invariant_audit_peak_on_small_virtual(cuda_device):
+    """``run_all(peak=True)`` on a 512^2 ``resident=False`` virtual MVM on
+    the card (64 blocks of 64^2, the registry's CPU scale): the peak over
+    the start in AvalBound's summary, above zero and within 12 capacity
+    blocks; the largest tensor one block; 64 producer calls; no launch
+    (the reference backend)."""
+    from repro_torch.analysis import pipelines as P
+    spec = {s.name: s for s in P.registered_pipelines(
+        device=cuda_device, scale="cpu")}[
+            "distributed-virtual65536-forward-2x4"]
+    reports = P.verify_pipeline(spec, peak=True)
+    assert all(r.ok for r in reports.values())
+    ab = reports["AvalBound"].summary
+    assert ab["max_elements"] == 64 * 64
+    assert 0 < ab["peak_bytes"] <= 12 * 4 * 64 * 64
+    dc = reports["DispatchCount"].summary
+    assert (dc["producer_calls"], dc["launches"]) == (64, {})

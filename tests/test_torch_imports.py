@@ -21,7 +21,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
      REPO / "examples" / "meliso_lp_torch.py",
      REPO / "examples" / "meliso_reliability_torch.py",
      REPO / "examples" / "serve_lm_torch.py",
-     REPO / "examples" / "train_lm_torch.py"]
+     REPO / "examples" / "train_lm_torch.py",
+     REPO / "tools" / "check_invariants_torch.py"]
 
 
 def imported_roots(path: Path):
@@ -311,6 +312,45 @@ def test_analysis_imports_with_jax_and_repro_blocked():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["2032264192"]
+
+
+def test_port_file_list_covers_the_invariant_slice():
+    """The import scan reaches the audits, the registry and the gate."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/analysis/verify.py",
+                "src/repro_torch/analysis/pipelines.py",
+                "src/repro_torch/core/prng.py",
+                "src/repro_torch/launch/mesh.py",
+                "tools/check_invariants_torch.py"):
+        assert rel in names, rel
+
+
+def test_invariants_import_with_jax_and_repro_blocked():
+    """The audits and the registry import with ``jax`` and ``repro`` made
+    unimportable, the registry names its 29 pipelines without building
+    one, and the package exports the reference's names less
+    ``jaxpr_max_elements`` and ``trace``, plus ``peak_bytes`` and
+    ``model_flops``."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch import analysis\n"
+        "from repro_torch.analysis import pipelines, verify\n"
+        "specs = pipelines.registered_pipelines(device='cpu', scale='cpu')\n"
+        "print(len(specs), ' '.join(sorted(analysis.__all__)))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [
+        "29", "CallCounter", "Report", "Site", "Violation", "aval_bound",
+        "collective_audit", "dispatch_count", "key_reuse",
+        "max_aval_elements", "model_flops", "peak_bytes", "precision_lint",
+        "run_all"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
