@@ -267,7 +267,23 @@ non-zero, printing no result, without them or without the repository's
      no violation, the record equal field for field to the ``cuda``
      section of ``INVARIANTS_torch.json`` (launches per kernel included),
      and on the six virtual entries the allocator's peak over the start
-     (``analysis.peak_bytes``, the audited run) <= 12 capacity blocks.
+     (``analysis.peak_bytes``, the audited run) <= 12 capacity blocks;
+ 19. the roofline of the main path (``roofline_phase``, after [18]):
+     ``repro_torch.analysis.analyze_run`` counts each call's flops and
+     bytes in one run (each kernel function by its declared cost,
+     ``repro_torch.kernels.cost``), and on the card reads its device time
+     (``torch.profiler``) against the bound: [19k] the ten kernel functions
+     at PERF.md section 6's shapes (their device ms a call beside that
+     table's, launches one a call); [19a] the 32,768^2 local corrected MVM
+     both ways at batch 1 and 8; [19b] a warm CG solve on an epiram SPD
+     32,768^2 image (flops and bytes an MVM, cg_update's share); [19c]
+     [17]'s 65,536^2 ``resident=False`` MVM with model_flops 4 n^2; [19d]
+     qwen3-1.7b whole (float32): a decode step at 4 rows (its EC bytes
+     equal to ``ec_bytes``, the idle share) and a 1 x 1,024 prefill (the
+     EC function bound beside the per-8-row launch traffic).  No achieved
+     over 1.05, and every count equal to the CPU's of the same calls
+     (``ROOFLINE_CPU_COUNTS``, from ``lm_probe.py rehearse-roofline
+     --full``).
 
 Beside the calls they wrap, [3] / [3t] hold ``engine.mvm_fn`` both ways,
 [6] ``group_mvm_fn`` and [6c] ``chain_fn`` to them bit for bit under one
@@ -283,11 +299,14 @@ count, their difference in closed form.
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
 5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13, 14
 and 15's main calls, before [16a]'s served runs and [16b]'s batches and
-before each of [17]'s counted calls, and read just after: every kernel
+before each of [17]'s counted calls, and [19] reads the change over each
+of its counted runs: every kernel
 must have run on the path that uses it.  The last three lines of output are
 the kernel table as JSON, the card's name and power limit, and the result
-line.  Peak rates are the published H100 SXM figures
-(3.35 TB/s of HBM, 67 TFLOP/s float32 outside the tensor cores).
+line.  Every bound is ``repro_torch.analysis.roofline.bound_ms`` of a
+declared cost from ``repro_torch.kernels.cost``, over the rates in
+``roofline.HW``: the published H100 SXM figures (3.35 TB/s of HBM,
+67 TFLOP/s float32 outside the tensor cores).
 """
 from __future__ import annotations
 
@@ -307,8 +326,6 @@ import torch
 N = 32768
 SEED = 0
 STENCIL_CHECK_LAM = 1e-2  # large enough that the stencil term shows in fp32
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 EC_TOL = 1e-5          # ec_(r)matmul vs its plain version (fp32 sums, other order)
 ELEMENTWISE_TOL = 1e-6  # the one-pass kernels, and thomas_solve (a contraction)
 SOLVE_TOL = 1e-3
@@ -474,6 +491,75 @@ ANALYSIS_MAXITER = 2
 # [18]: the manifest the registry's records are held to (its cuda section).
 INVARIANTS = Path(__file__).resolve().parent / "INVARIANTS_torch.json"
 INVARIANTS_PEAK_BLOCKS = 12
+# [19]: the roofline.  Each kernel function at PERF.md section 6's shape
+# (the arguments of its kernels.cost function), called ROOFLINE_REPS times
+# a counted run, and that table's device ms a launch beside it.
+ROOFLINE_KERNEL_SHAPES = {
+    "ec_matmul": (N, N, 1), "ec_rmatmul": (N, N, 1),
+    "ec_group_matmul": (N_EXPERTS, D_FF, D_MODEL, 1),
+    "ec_group_rmatmul": (N_EXPERTS, D_FF, D_MODEL, 1),
+    "stencil_denoise": (N, 1), "thomas_solve": (N, 1), "cg_update": (N, 1),
+    "richardson_update": (N, 1),
+    "encode_matmul": (ENCODE_ROWS, D_MODEL, D_FF),
+    "encode_matmul_rng": (ENCODE_ROWS, D_MODEL, D_FF)}
+ROOFLINE_REPS = {"ec_matmul": 3, "ec_rmatmul": 3, "ec_group_matmul": 3,
+                 "ec_group_rmatmul": 3, "stencil_denoise": 50,
+                 "thomas_solve": 50, "cg_update": 50,
+                 "richardson_update": 50, "encode_matmul": 3,
+                 "encode_matmul_rng": 3}
+ROOFLINE_SECTION6_MS = {"ec_matmul": 2.692, "ec_rmatmul": 2.677,
+                        "ec_group_matmul": 1.183, "ec_group_rmatmul": 1.185,
+                        "stencil_denoise": 0.00117, "thomas_solve": 0.0152,
+                        "cg_update": 0.00159, "richardson_update": 0.00130,
+                        "encode_matmul": 0.880, "encode_matmul_rng": 1.195}
+ROOFLINE_SEED = SEED + 19
+ROOFLINE_MAX_ACHIEVED = 1.05     # over it a count is wrong
+# [19d]: (batch, prompt tokens, max_len) of the decode step's prefill and
+# of the long prefill.
+ROOFLINE_LM_REQUESTS = ((4, 64, 128), (1, 1024, 1040))
+ROOFLINE_TIMEOUT_S = 300   # [19]'s own process
+# [19]: the CPU's flops and bytes of the same calls at the same shapes,
+# "tag what": [flops, bytes], as ``python3 lm_probe.py rehearse-roofline
+# --full`` printed them on the host of an NVIDIA H100 80GB HBM3 (700.00 W)
+# machine; the card's counts must equal them.
+ROOFLINE_CPU_COUNTS = {
+    "[19k] ec_matmul 32768x32768x1 x 3":
+        [12884901888, 25770983424],
+    "[19k] ec_rmatmul 32768x32768x1 x 3":
+        [12884901888, 25770983424],
+    "[19k] ec_group_matmul 8x14336x4096x1 x 3":
+        [5637144576, 11276451840],
+    "[19k] ec_group_rmatmul 8x14336x4096x1 x 3":
+        [5637144576, 11277434880],
+    "[19k] stencil_denoise 32768x1 x 50":
+        [9830400, 13107200],
+    "[19k] thomas_solve 32768x1 x 50":
+        [8192000, 13108000],
+    "[19k] cg_update 32768x1 x 50":
+        [6553600, 39321800],
+    "[19k] richardson_update 32768x1 x 50":
+        [4915200, 32768200],
+    "[19k] encode_matmul 256x4096x14336 x 3":
+        [90194313216, 1465909248],
+    "[19k] encode_matmul_rng 256x4096x14336 x 3":
+        [90194313216, 761266176],
+    "[19a] 32768^2 A @ x batch 1":
+        [4295557126, 8593604686],
+    "[19a] 32768^2 A.T @ y batch 1":
+        [4295557126, 8593604686],
+    "[19a] 32768^2 A @ x batch 8":
+        [34364456966, 8619294798],
+    "[19a] 32768^2 A.T @ y batch 8":
+        [34364456966, 8619294798],
+    "[19b] warm CG on the 32768^2 epiram SPD image":
+        [12887523427, 25787499222],
+    "[19c] resident=False 65536^2 A @ x (1024 blocks of 2048^2)":
+        [77377750016, 497208416256],
+    "[19d] qwen3-1.7b decode step at 4 rows":
+        [27745448882, 15819504936],
+    "[19d] qwen3-1.7b 1 x 1024 prefill":
+        [6030665616668, 102085239420]
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -627,17 +713,13 @@ def layout_line(name: str, lay) -> str:
             f"{lay.workspace_floats} floats")
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
+def compare(name, kernel_fn, plain_fn, tol, cost, iters,
             library_fn=None, plain_iters=None, plain_warmup=2):
-    """Kernel vs plain version on the same inputs: error, times, bound.
+    """Kernel vs plain version on the same inputs: error, times, and the
+    bound of the call's declared ``cost`` (``kernels.cost``).
     ``plain_iters`` / ``plain_warmup`` time a slow plain version with fewer
     calls than the kernel."""
+    from repro_torch.analysis.roofline import bound_ms
     got, want = kernel_fn(), plain_fn()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -647,7 +729,7 @@ def compare(name, kernel_fn, plain_fn, tol, nbytes, flops, iters,
           f"{name}: non-finite output")
     check(err <= tol, f"{name}: rel-L2 {err:.3e} against its plain version "
                       f"exceeds {tol:.0e}")
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(cost.flops, cost.bytes)
     row = {"rel_l2": err, "max_abs_err": max_abs,
            "ms": device_time_ms(kernel_fn, iters),
            "call_ms": call_time_ms(kernel_fn, iters),
@@ -807,6 +889,7 @@ def tier2_phase(dev, kernels, lam, h):
     once) and its share of it; and the stencil's TIER2_PREFILL_PANELS
     launched as a prefill launches them.  Returns ``{name: row}`` entries
     for the kernel table's shapes."""
+    from repro_torch.analysis.roofline import bound_ms
     gen = torch.Generator(device=dev).manual_seed(TIER2_SEED)
     rows = []
 
@@ -838,8 +921,9 @@ def tier2_phase(dev, kernels, lam, h):
                                                       h),
                       lambda: kernels.stencil_denoise_plain(
                           p, STENCIL_CHECK_LAM, h),
-                      ELEMENTWISE_TOL, nbytes=8 * n * batch,
-                      flops=6 * n * batch, iters=iters)
+                      ELEMENTWISE_TOL,
+                      cost=kernels.cost.stencil_denoise(n, batch),
+                      iters=iters)
         check(torch.equal(kernels.stencil_denoise(p, STENCIL_CHECK_LAM, h),
                           kernels.stencil_denoise(p, STENCIL_CHECK_LAM, h)),
               f"stencil_denoise {n}x{batch} is not the same run to run")
@@ -859,8 +943,8 @@ def tier2_phase(dev, kernels, lam, h):
         row = compare(f"cg_update {n}x{batch}",
                       lambda: kernels.cg_update(*v, alpha),
                       lambda: kernels.cg_update_plain(*v, alpha),
-                      ELEMENTWISE_TOL, nbytes=4 * (6 * n * batch + batch),
-                      flops=4 * n * batch, iters=500)
+                      ELEMENTWISE_TOL, cost=kernels.cost.cg_update(n, batch),
+                      iters=500)
         check(all(torch.equal(a, b) for a, b in zip(
                   kernels.cg_update(*v, alpha), kernels.cg_update(*v, alpha))),
               f"cg_update {n}x{batch} is not the same run to run")
@@ -878,8 +962,9 @@ def tier2_phase(dev, kernels, lam, h):
         row = compare(f"richardson_update {n}x{batch}",
                       lambda: kernels.richardson_update(*v, omega),
                       lambda: kernels.richardson_update_plain(*v, omega),
-                      ELEMENTWISE_TOL, nbytes=4 * (5 * n * batch + 1),
-                      flops=3 * n * batch, iters=500)
+                      ELEMENTWISE_TOL,
+                      cost=kernels.cost.richardson_update(n, batch),
+                      iters=500)
         check(all(torch.equal(a, b) for a, b in zip(
                   kernels.richardson_update(*v, omega),
                   kernels.richardson_update(*v, omega))),
@@ -903,8 +988,10 @@ def tier2_phase(dev, kernels, lam, h):
           f"stencil_denoise: not {count} launches for the prefill's panels")
     row = {"shape": f"qwen3-1.7b 1x1024 prefill's {count} panels",
            "launches": count, "ms": device_time_ms(prefill, 5),
-           "bound_ms": sum(8 * p.numel() * c for p, c in panels)
-           / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+           "bound_ms": bound_ms(0, sum(
+               kernels.cost.stencil_denoise(*p.shape).bytes * c
+               for p, c in panels))[0],
+           "bound_by": "bytes"}
     print(f"    stencil_denoise over a qwen3-1.7b 1 x 1,024 prefill's "
           f"{count} panels, back to back: {row['ms']:.4f} ms, "
           f"{share(row)} {row['bound_ms']:.4f} ms", flush=True)
@@ -1334,6 +1421,7 @@ def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
     banded producer: MVMs, peak memory, the one-shot form; [9c] CG on it.
     Appends the EC kernels' rows at both block shapes to ``more_shapes``;
     returns the launches of the phase's main runs."""
+    from repro_torch.analysis.roofline import HW
     from repro_torch import kernels, solvers
     from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
                                   get_device, streamed_corrected_mvm)
@@ -1373,16 +1461,14 @@ def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
                 f"ec_matmul {cm}x{cn} block ({tag}) batch 1",
                 lambda: kernels.ec_matmul(at_blk, da_blk, u, u_t),
                 lambda: kernels.ec_matmul_plain(at_blk, da_blk, u, u_t),
-                EC_TOL, nbytes=4 * (2 * cm * cn + 2 * cn + cm),
-                flops=4 * cm * cn, iters=20,
+                EC_TOL, cost=kernels.cost.ec_matmul(cm, cn, 1), iters=20,
                 library_fn=lambda: torch.matmul(at_blk, u)
                 + torch.matmul(da_blk, u_t)),
             "ec_rmatmul": compare(
                 f"ec_rmatmul {cm}x{cn} block ({tag}) batch 1",
                 lambda: kernels.ec_rmatmul(at_blk, da_blk, v, v_t),
                 lambda: kernels.ec_rmatmul_plain(at_blk, da_blk, v, v_t),
-                EC_TOL, nbytes=4 * (2 * cm * cn + 2 * cm + cn),
-                flops=4 * cm * cn, iters=20,
+                EC_TOL, cost=kernels.cost.ec_rmatmul(cm, cn, 1), iters=20,
                 library_fn=lambda: torch.matmul(at_blk.T, v)
                 + torch.matmul(da_blk.T, v_t))}
         for name, row in res.items():
@@ -1576,7 +1662,7 @@ def streamed_phase(dev, gen, cfg, engine, more_shapes, n, n_dub, dub_geom):
                                             dcfg.lam, dcfg.h), 20)}
     busy = sum(kernel_split(lambda: D @ xd, iters=2).values())
     wall = statistics.median(dms)
-    bound9 = 3 * D.image_nbytes / HBM_BYTES_PER_S * 1e3
+    bound9 = 3 * D.image_nbytes / HW['hbm_bw'] * 1e3
     print("[9b] a streamed A @ x, device ms: " + ", ".join(
         f"{k_} {v_:.3f}" for k_, v_ in split.items())
         + f"; wall {wall:.1f}, device busy {busy:.1f} (idle share "
@@ -2336,6 +2422,7 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     main path's launch counts.  A function with size arguments, so that it
     can be rehearsed on the CPU at a reduced config."""
     import gc
+    from repro_torch.analysis.roofline import HW
     from repro_torch import kernels
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import RRAMBackendConfig
@@ -2421,8 +2508,7 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
         row = compare(f"ec_rmatmul {m}x{k} batch {b0}",
                       lambda: kernels.ec_rmatmul(at, da, y, y_t),
                       lambda: kernels.ec_rmatmul_plain(at, da, y, y_t),
-                      EC_TOL, nbytes=4 * (2 * m * k + 2 * m * b0 + k * b0),
-                      flops=4 * m * k * b0, iters=20,
+                      EC_TOL, cost=kernels.cost.ec_rmatmul(m, k, b0), iters=20,
                       library_fn=lambda: torch.matmul(at.T, y)
                       + torch.matmul(da.T, y_t))
         row.update(shape=f"{m}x{k} (LM {name})", batch=b0)
@@ -2569,15 +2655,16 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
     ec_ms = sum(v for k_, v in split.items()
                 if any(e in k_ for e in ec_keys))
     busy = sum(split.values())
-    ec_bytes = sum(l_ * (8 * m * n_ + 8 * m * b + 12 * n_ * b)
+    ec_bytes = sum(l_ * (kernels.cost.ec_rmatmul(m, n_, b).bytes
+                         + kernels.cost.stencil_denoise(n_, b).bytes)
                    for l_, m, n_ in shapes)
-    ec_bound = ec_bytes / HBM_BYTES_PER_S * 1e3
+    ec_bound = ec_bytes / HW['hbm_bw'] * 1e3
     top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
     print(f"[12] a decode step at {b} rows ({steps} steps): wall "
           f"{wall:.3f} ms, device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall:.3f}); EC kernels {ec_ms:.3f} ms against "
           f"their byte bound {ec_bound:.3f} ms ({ec_bytes / 1e9:.3f} GB a "
-          f"step at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+          f"step at {HW['hbm_bw'] / 1e12:.2f} TB/s: "
           f"{ec_bound / ec_ms if ec_ms else 0.0:.3f} of the bound); the "
           f"largest: " + ", ".join(f"{short_kernel_name(k_)} {v:.3f}"
                                    for k_, v in top), flush=True)
@@ -2591,8 +2678,9 @@ def lm_phase(dev, more_shapes, *, cfg=None, rram=None, requests=LM_REQUESTS,
                              iters=1)
     st_ms = sum(v for k_, v in pre_split.items() if "stencil_" in k_)
     # The layers' stacked kernels see b t rows, the head b.
-    st_bound = sum(l_ * 8 * n_ * (b * t if l_ == cfg.n_layers else b)
-                   for l_, _, n_ in shapes) / HBM_BYTES_PER_S * 1e3
+    st_bound = sum(l_ * kernels.cost.stencil_denoise(
+        n_, b * t if l_ == cfg.n_layers else b).bytes
+        for l_, _, n_ in shapes) / HW['hbm_bw'] * 1e3
     pre_busy = sum(pre_split.values())
     print(f"[12] a {b} x {t} prefill: stencil_denoise {st_ms:.4f} ms device "
           f"over its {per_pass} launches, byte bound {st_bound:.4f} "
@@ -2693,8 +2781,10 @@ def ec_launches(calls) -> int:
 
 def ec_bytes(calls) -> int:
     """Bytes the EC launches of ``calls`` move: each launch reads both fp32
-    images (w_tilde, dw), every call its two input panels and its output."""
-    return sum(-(-r // 8) * 8 * m * n + 4 * r * (2 * m + n)
+    images (w_tilde, dw), every call its two input panels and its output
+    (``kernels.cost.ec_launch_bytes``)."""
+    from repro_torch.kernels import cost
+    return sum(cost.ec_launch_bytes(m, n, r, transpose=True)
                for m, n, r in calls)
 
 
@@ -2781,6 +2871,7 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
     model, two generate calls under one key equal; times and a decode
     step's idle share against its byte bound.  Returns (launch counts of
     the request, the server)."""
+    from repro_torch.analysis.roofline import HW
     from repro_torch import kernels
     from repro_torch.core.prng import fold_in
     from repro_torch.models import params as PM
@@ -2860,7 +2951,7 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
         e in k_ for e in ("ec_rmatmul", "partial_sum_kernel",
                           "stencil_")))
     step_bytes = ec_bytes(step_calls) + digital_weight_bytes(prog)
-    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    bound = step_bytes / HW['hbm_bw'] * 1e3
     top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
     print(f"{tag} prefill {statistics.median(pre):.2f} ms (min "
           f"{min(pre):.2f}), decode {dec:.3f} ms a token = "
@@ -2869,7 +2960,7 @@ def serve_family(tag, dev, mod, cfg, params, rram, request, extra, *,
           f"(idle share {1 - busy / wall:.3f}), EC kernels {ec_ms:.3f} ms; "
           f"bytes {step_bytes / 1e9:.3f} GB (EC "
           f"{ec_bytes(step_calls) / 1e9:.3f}), bound {bound:.3f} ms at "
-          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the largest: "
+          f"{HW['hbm_bw'] / 1e12:.2f} TB/s; the largest: "
           + ", ".join(f"{short_kernel_name(k_)} {v:.3f}" for k_, v in top),
           flush=True)
 
@@ -2918,6 +3009,7 @@ def experts_phase(dev, more_shapes, cfg, tree, rram, tokens):
     DAC on and counted (3 ec_group_rmatmul launches per 8 capacity slots,
     3 stencil_denoise), DAC off against the digital experts, timed against
     its byte bound.  Returns the launch counts."""
+    from repro_torch.analysis.roofline import HW
     from repro_torch import kernels
     from repro_torch.models import moe
     from repro_torch.models.common import Runtime
@@ -2969,9 +3061,9 @@ def experts_phase(dev, more_shapes, cfg, tree, rram, tokens):
     row = compare(f"ec_group_rmatmul {e}x{d}x{f} batch {caps[0]}",
                   lambda: kernels.ec_group_rmatmul(at, da, y, y_t),
                   lambda: kernels.ec_group_rmatmul_plain(at, da, y, y_t),
-                  EC_TOL, nbytes=4 * (2 * e * d * f + 2 * d * cols
-                                      + f * cols),
-                  flops=4 * e * d * f * caps[0], iters=20,
+                  EC_TOL, cost=kernels.cost.ec_group_rmatmul(e, d, f,
+                                                             caps[0]),
+                  iters=20,
                   library_fn=lambda: torch.bmm(
                       at.transpose(1, 2), y.view(d, e, -1).transpose(0, 1))
                   + torch.bmm(da.transpose(1, 2),
@@ -3001,15 +3093,15 @@ def experts_phase(dev, more_shapes, cfg, tree, rram, tokens):
         call = lambda: moe.moe_apply(prog, x, cfg,   # noqa: E731
                                      Runtime(rram=rram, key=LM_DAC_KEY))
         dev_ms, call_ms = device_time_ms(call, 5), call_time_ms(call, 5)
-        nbytes = 3 * (-(-cap // 8) * 8 * e * d * f) \
-            + 4 * e * cap * (2 * d + f) * 3
+        nbytes = 3 * kernels.cost.ec_launch_bytes(d, f, cap, transpose=True,
+                                                  g=e)
         print(f"[13b] moe_apply on {n_tok} tokens (capacity {cap}): "
               f"launches {({k_: v for k_, v in got.items() if v})} "
               f"(expected ec_group_rmatmul {want}, stencil_denoise 3); "
               f"DAC off vs the digital experts rel-L2 {off_err:.3e}, DAC "
               f"on {on_err:.3e}, run to run equal {torch.equal(out, again)}"
               f"; device {dev_ms:.3f} ms, per call {call_ms:.3f} ms, byte "
-              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+              f"bound {nbytes / HW['hbm_bw'] * 1e3:.3f} ms "
               f"({nbytes / 1e9:.3f} GB); aux {float(aux):.4f}", flush=True)
         check(got["ec_group_rmatmul"] == want
               and got["stencil_denoise"] == 3
@@ -3388,6 +3480,7 @@ def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
     launch counts ([15c]'s backward through the programmed model)."""
     import gc
     import tempfile
+    from repro_torch.analysis.roofline import HW
     from repro_torch import kernels
     from repro_torch.analysis import model_flops
     from repro_torch.configs import get_arch
@@ -3461,8 +3554,8 @@ def train_phase(dev, *, cfg=None, batch=TRAIN_BATCH, tcfg_kw=None,
           f"tokens/s; model {tflops:.2f} TFLOP/s ({flops / 1e12:.3f} TFLOP "
           f"a step: 6 x {n_ne / 1e9:.4f} G x {tokens} + the remat forward "
           f"2 x {n_layers / 1e9:.4f} G x {tokens}, attention's score "
-          f"products left out) = {tflops * 1e12 / FP32_FLOPS_PER_S:.3f} of "
-          f"the {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
+          f"products left out) = {tflops * 1e12 / HW['peak_flops']:.3f} of "
+          f"the {HW['peak_flops'] / 1e12:.0f} TFLOP/s fp32 peak", flush=True)
     # The analysis package's count over shapes alone, and its train_4k FLOPs
     # a token beside the hand count: they differ by the embedding's
     # 6 n_embed (gathered, left out above), the attention term 3 x 4 L H Dh
@@ -4294,12 +4387,406 @@ def invariants_phase(dev):
     return counts
 
 
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def roofline_line(tag, what, rec, smi, extra=""):
+    """One record of ``analysis.analyze_run`` as a line: its counts, terms
+    and, from the card, device time, achieved and each kernel function's
+    row; the card's name and power limit beside it."""
+    line = (f"{tag} {what}: flops {rec['flops_per_device']:.0f}, bytes "
+            f"{rec['bytes_per_device']:.0f}; bound {rec['dominant_time_s'] * 1e3:.4f} "
+            f"ms ({rec['dominant']})")
+    if "device_ms" in rec:
+        line += (f"; device {rec['device_ms']:.4f} ms, achieved "
+                 f"{rec['achieved']:.4f}; " + "; ".join(
+                     f"{k} {r['calls']} calls / {r['launches']} launches "
+                     f"{r['device_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                     f"({r['bound_by']}), achieved "
+                     f"{(r['achieved'] or 0.0):.4f}"
+                     for k, r in rec["by_kernel"].items()))
+    print(line + extra + f" | {smi}", flush=True)
+
+
+def roofline_phase(dev, *, kernel_shapes=None, n=N, analysis_n=ANALYSIS_N,
+                   geom=None, lm_cfg=None, rram=None, lm_requests=None,
+                   lm_rt_kw=None, cpu_counts=None):
+    """[19] the roofline of the main path (``analysis.analyze_run``): each
+    call's flops and bytes counted in one run (each kernel function by its
+    declared cost, ``kernels.cost``), its bound, and on the card its device
+    time, how close it came (``achieved``) and each kernel function's
+    calls, launches, device ms and bound.
+      [19k] each of the ten kernel functions at its PERF.md section 6
+        shape (``kernel_shapes``), repeated ``ROOFLINE_REPS`` times a run;
+      [19a] phase 3's local corrected MVM (n^2, taox-hfox, DAC on), both
+        directions, batch 1 and 8;
+      [19b] a warm CG solve on phase 4's kind of matrix (epiram SPD n^2);
+      [19c] phase 17's ``resident=False`` MVM on a 1 x 1 mesh
+        (``analysis_n``^2, 1,024 blocks of 2,048^2), ``model_flops`` 4 n^2;
+      [19d] phase 12's model (qwen3-1.7b at full width and depth, float32):
+        a decode step at 4 rows and a 1 x 1,024 prefill, their EC bytes
+        against ``ec_bytes(analog_calls(...))``.
+    Checks: no ``achieved`` over 1.05; each kernel function's launches one
+    a call (``[19k]``) and its declared cost that of its shapes; [19d]'s
+    decode EC bytes equal to ``ec_bytes``; and, given ``cpu_counts`` (the
+    CPU's counts of the same calls, ``lm_probe.py rehearse-roofline
+    --full``), every flops and bytes count equal to the CPU's.  Returns the
+    launches of the counted runs and the counts.  A function with size
+    arguments, so that it can be rehearsed on the CPU."""
+    import gc
+    from repro_torch import analysis, kernels, solvers
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.core import (CrossbarConfig, ImplicitBandedMatrix,
+                                  MCAGeometry, get_device)
+    from repro_torch.core.devices import effective_sigma_py
+    from repro_torch.engine import AnalogEngine
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import params as PM
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import Runtime
+    from repro_torch.train.serve import Server
+
+    card = dev.type == "cuda"
+    kc = kernels.cost
+    smi = card_line() if card else "CPU run: no device numbers"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(ROOFLINE_SEED)
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    got = {}
+
+    def measure(tag, what, fn, *args, model_flops=None, extra=None):
+        w0 = time.perf_counter()
+        rec = analysis.analyze_run(fn, *args, model_flops=model_flops)
+        wall = f"; analyze_run {time.perf_counter() - w0:.2f} s"
+        got[f"{tag} {what}"] = [rec["flops_per_device"],
+                                rec["bytes_per_device"]]
+        roofline_line(tag, what, rec, smi,
+                      (extra(rec) if extra else "") + wall)
+        if card:
+            check(rec["achieved"] <= ROOFLINE_MAX_ACHIEVED,
+                  f"{tag} {what}: achieved {rec['achieved']:.3f}, over "
+                  f"{ROOFLINE_MAX_ACHIEVED}: a count is wrong")
+            for k_, r in rec["by_kernel"].items():
+                counts[k_] += r["launches"]
+                check(r["achieved"] is not None
+                      and r["achieved"] <= ROOFLINE_MAX_ACHIEVED,
+                      f"{tag} {what}: {k_} achieved {r['achieved']}")
+        return rec
+
+    # ------------------------------------------ [19k] the kernel functions
+    shapes = kernel_shapes or ROOFLINE_KERNEL_SHAPES
+    taox = get_device("taox-hfox")
+    h = CrossbarConfig(device=taox).h
+    enc = dict(sigma=effective_sigma_py(taox, 5), levels=taox.levels,
+               block_k=512, block_n=512)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def operands(name, s):
+        if name in ("ec_matmul", "ec_rmatmul"):
+            m, k, b = s
+            rows = k if name == "ec_matmul" else m
+            return (rand(m, k), rand(m, k), rand(rows, b), rand(rows, b)), {}
+        if name.startswith("ec_group"):
+            g, m, k, b = s
+            rows = k if name == "ec_group_matmul" else m
+            return ((rand(g, m, k), rand(g, m, k), rand(rows, g * b),
+                     rand(rows, g * b)), {})
+        if name in ("stencil_denoise", "thomas_solve"):
+            return (rand(*s),), {"lam": STENCIL_CHECK_LAM, "h": h}
+        if name == "cg_update":
+            return (*(rand(*s) for _ in range(4)),
+                    torch.rand(s[1], generator=gen, device=dev)), {}
+        if name == "richardson_update":
+            return (*(rand(*s) for _ in range(3)),
+                    torch.rand((), generator=gen, device=dev)), {}
+        m, k, n_ = s
+        if name == "encode_matmul":
+            return (rand(m, k), rand(k, n_), rand(k, n_)), enc
+        return (rand(m, k), rand(k, n_)), enc
+
+    t0 = time.perf_counter()
+    for name, s in shapes.items():
+        args, kw = operands(name, s)
+        reps = ROOFLINE_REPS[name]
+        run = getattr(kernels, name)
+        if name == "encode_matmul_rng":
+            call = lambda *a: [run(ENCODE_SEED, *a, **kw)   # noqa: E731
+                               for _ in range(reps)][-1]
+        else:
+            call = lambda *a: [run(*a, **kw)                # noqa: E731
+                               for _ in range(reps)][-1]
+        one = (kc.thomas_solve(*s, STENCIL_CHECK_LAM, h)
+               if name == "thomas_solve" else getattr(kc, name)(*s))
+        rec = measure("[19k]", f"{name} {'x'.join(map(str, s))} x {reps}",
+                      call, *args)
+        check(rec["flops_per_device"] == reps * one.flops
+              and rec["bytes_per_device"] == reps * one.bytes,
+              f"[19k] {name}: counts other than {reps} x its declared cost")
+        if card:
+            row = rec["by_kernel"][name]
+            per = row["device_ms"] / reps
+            ref = ROOFLINE_SECTION6_MS[name]
+            print(f"    {name}: {per:.5f} ms a call against PERF.md section "
+                  f"6's {ref:.5f} ({per / ref - 1:+.1%}: "
+                  f"{'within' if abs(per / ref - 1) <= 0.1 else 'outside'} "
+                  f"10 %); launches {row['launches']} for {row['calls']} "
+                  f"calls | {smi}", flush=True)
+            check(row["calls"] == row["launches"] == reps,
+                  f"[19k] {name}: launches other than one a call")
+        del args, rec
+        free()
+    print(f"[19k] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ------------------------------------------ [19a] the local corrected MVM
+    t0 = time.perf_counter()
+    cfg = CrossbarConfig(device=taox)
+    A = AnalogEngine(cfg, backend="cuda", device=dev).program(rand(n, n), 1)
+    for b in (1, 8):
+        for what, op in (("A @ x", A), ("A.T @ y", A.T)):
+            v = rand(n, b)
+            name = "ec_rmatmul" if "T" in what else "ec_matmul"
+            rec = measure("[19a]", f"{n}^2 {what} batch {b}",
+                          lambda u, op=op: op @ u, v)
+            if "by_kernel" in rec:
+                want = getattr(kc, name)(n, n, b)
+                row = rec["by_kernel"][name]
+                check((row["flops"], row["bytes"]) == tuple(want),
+                      f"[19a] {what}: {name}'s counts are not its declared "
+                      f"cost")
+    del A
+    free()
+    print(f"[19a] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ------------------------------------------------------ [19b] warm CG
+    t0 = time.perf_counter()
+    a = rand(n, n).div_(n)
+    a = a + a.T
+    a.diagonal().add_(2.0)
+    b_ = torch.matmul(a, rand(n))
+    A = AnalogEngine(CrossbarConfig(device=get_device("epiram")),
+                     backend="cuda", device=dev).program(a, 2)
+    del a
+    free()
+    its = []
+
+    def solve(rhs):
+        res = solvers.cg(A, rhs, tol=SOLVE_TOL, maxiter=50, backend="cuda")
+        its.append(res.iterations)
+        return res.x
+
+    def cg_extra(rec):
+        k_ = its[-1]
+        mvms = k_ + 1
+        out = (f"; {k_} iterations ({mvms} MVMs): {rec['flops_per_device'] / mvms:.0f}"
+               f" flops, {rec['bytes_per_device'] / mvms:.0f} bytes an MVM")
+        if "by_kernel" in rec:
+            cgu = rec["by_kernel"].get("cg_update", {}).get("device_ms", 0.0)
+            out += (f"; {rec['device_ms'] / mvms:.4f} ms an MVM, cg_update's "
+                    f"share {cgu / rec['device_ms']:.5f}")
+        return out
+
+    measure("[19b]", f"warm CG on the {n}^2 epiram SPD image", solve, b_,
+            extra=cg_extra)
+    del A, b_
+    free()
+    print(f"[19b] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # --------------------------- [19c] the 65,536^2 resident=False MVM
+    t0 = time.perf_counter()
+    geom = geom or MCAGeometry(*ANALYSIS_GEOM)
+    vcfg = CrossbarConfig(device=taox, geom=geom, k_iters=5, ec=True)
+    cap = vcfg.geom.capacity[0]
+    imp = ImplicitBandedMatrix(n=analysis_n, cap_m=cap, cap_n=cap,
+                               seed=ANALYSIS_SEED, device=dev)
+    eng = AnalogEngine(vcfg, execution="distributed", backend="cuda",
+                       mesh=make_mesh((1, 1), ("data", "model"), device=dev))
+    V = eng.program(imp.block, ANALYSIS_KEY, shape=(analysis_n, analysis_n),
+                    resident=False)
+    fn = eng.mvm_fn(V)
+    measure("[19c]", f"resident=False {analysis_n}^2 A @ x ({(analysis_n // cap) ** 2} "
+            f"blocks of {cap}^2)", lambda x: fn(x, ANALYSIS_KEY),
+            rand(analysis_n), model_flops=4 * analysis_n ** 2,
+            extra=lambda r: (f"; useful ratio {r['useful_ratio']:.4f}, "
+                             f"roofline fraction "
+                             f"{r['roofline_fraction']:.4f}"))
+    del V, fn, eng, imp
+    free()
+    print(f"[19c] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ------------------------------------------------- [19d] the LM, served
+    t0 = time.perf_counter()
+    if lm_cfg is None:
+        lm_cfg = dataclasses.replace(get_arch(LM_ARCH).model,
+                                     param_dtype="float32",
+                                     compute_dtype="float32")
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    rt_kw = dict(LM_RT_KW if lm_rt_kw is None else lm_rt_kw)
+    (b0, t0_, ml0), (b1, t1, ml1) = lm_requests or ROOFLINE_LM_REQUESTS
+    params = PM.materialize(tf.init_specs(lm_cfg), LM_SEED,
+                            dtype=PM.torch_dtype(lm_cfg.param_dtype),
+                            device=dev)
+    srv = Server(tf, lm_cfg, params, rt=Runtime(rram=rram, key=LM_DAC_KEY,
+                                                 **rt_kw), max_len=ml0)
+    del params
+    long_srv = Server(tf, lm_cfg, srv.params, rt=srv.rt, max_len=ml1)
+
+    def tokens(b, t, i):
+        return torch.randint(0, lm_cfg.vocab, (b, t), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(LM_SEED + 10 + i))
+
+    tok, caches = srv.prefill({"tokens": tokens(b0, t0_, 0)})
+    length = caches["len"]
+
+    def step(t):
+        # Each run starts at the prefill's length: the caches' k / v are
+        # written in place at the same position, their lengths anew.
+        fresh = {**caches, "len": (length.clone() if torch.is_tensor(length)
+                                   else list(length))}
+        return srv.decode_tokens(t, fresh, 1)[0]
+
+    sync()
+    walls = []
+    for _ in range(3):
+        w0 = time.perf_counter()
+        step(tok)
+        sync()
+        walls.append((time.perf_counter() - w0) * 1e3)
+    wall = statistics.median(walls)
+    print(f"[19d] decode step walls (unprofiled) "
+          + ", ".join(f"{w:.3f}" for w in walls) + " ms", flush=True)
+    dec_calls = analog_calls(lm_cfg, b0, 1, prefill=False)
+    ec_b = ec_bytes(dec_calls)
+    st_b = sum(kc.stencil_denoise(n_, r).bytes for _, n_, r in dec_calls)
+
+    def dec_extra(rec):
+        out = (f"; EC declared bytes {ec_b} (ec_bytes(analog_calls(cfg, "
+               f"{b0}, 1, prefill=False)) = {ec_b / 1e9:.3f} GB, bound "
+               f"{ec_b / roofline.HW['hbm_bw'] * 1e3:.3f} ms; with the stencils' "
+               f"{st_b}: {(ec_b + st_b) / 1e9:.3f} GB, "
+               f"{(ec_b + st_b) / roofline.HW['hbm_bw'] * 1e3:.3f} ms)")
+        if "device_ms" in rec:
+            out += (f"; step wall {wall:.3f} ms unprofiled, idle share "
+                    f"{1 - rec['device_ms'] / wall:.3f}")
+        return out
+
+    rec = measure("[19d]", f"{LM_ARCH} decode step at {b0} rows", step, tok,
+                  extra=dec_extra)
+    if "by_kernel" in rec:
+        check(rec["by_kernel"]["ec_rmatmul"]["bytes"] == ec_b,
+              f"[19d] the decode step's EC bytes "
+              f"{rec['by_kernel']['ec_rmatmul']['bytes']} are not {ec_b}")
+    pre_calls = analog_calls(lm_cfg, b1, t1)
+    pre_declared = [sum(c) for c in zip(*(kc.ec_rmatmul(m, n_, r)
+                                          for m, n_, r in pre_calls))]
+    pre_bound, pre_by = roofline.bound_ms(*pre_declared)
+    pre_launch = ec_bytes(pre_calls)
+    launch_ms = pre_launch / roofline.HW['hbm_bw'] * 1e3
+
+    def pre_extra(rec):
+        out = (f"; EC declared {pre_declared[0]} flops, {pre_declared[1]} "
+               f"bytes: function bound {pre_bound:.3f} ms ({pre_by}; bytes "
+               f"{pre_declared[1] / roofline.HW['hbm_bw'] * 1e3:.3f} ms), as "
+               f"launched {pre_launch} bytes ({launch_ms:.3f} ms: "
+               f"{pre_launch / pre_declared[1]:.2f} x, the images once per "
+               f"8 rows)")
+        if "by_kernel" in rec:
+            ec = rec["by_kernel"]["ec_rmatmul"]
+            out += (f"; EC {ec['device_ms']:.3f} ms: {ec['achieved']:.4f} of "
+                    f"the function bound, {launch_ms / ec['device_ms']:.4f}"
+                    f" of the launch traffic's")
+        return out
+
+    rec = measure("[19d]", f"{LM_ARCH} {b1} x {t1} prefill",
+                  lambda t: long_srv.prefill({"tokens": t})[0],
+                  tokens(b1, t1, 1), extra=pre_extra)
+    if "by_kernel" in rec:
+        check(rec["by_kernel"]["ec_rmatmul"]["bytes"] == pre_declared[1],
+              "[19d] the prefill's EC bytes are not their declared cost")
+    del srv, long_srv, caches, tok, rec
+    free()
+    print(f"[19d] wall {time.perf_counter() - t0:.2f} s", flush=True)
+
+    print("[19] counts " + json.dumps(got), flush=True)
+    if cpu_counts is not None:
+        diff = {k: (got.get(k), v) for k, v in cpu_counts.items()
+                if got.get(k) != v}
+        check(not diff and set(got) == set(cpu_counts),
+              f"[19] counts differ from the CPU's: {diff}")
+        print(f"[19] all {len(got)} flops and bytes counts equal to the "
+              f"CPU's of the same calls", flush=True)
+    return counts
+
+
+def roofline_in_own_process() -> dict:
+    """[19] (``roofline_phase`` at its defaults, held to
+    ``ROOFLINE_CPU_COUNTS``) in a Python process of its own, its output
+    passed on line by line; returns its launches.  The earlier phases take
+    many device-only profiles (``kernel_split``), after which a profile in
+    the same process was seen to hold device records of earlier work and
+    to miss its own (torch 2.11, NVIDIA H100 80GB HBM3): ``analyze_run``'s
+    profiles need a process whose profiles are all its own."""
+    root = Path(__file__).resolve().parent
+    code = ("import json, sys, torch\n"
+            f"sys.path[:0] = [{str(root / 'src')!r}, {str(root)!r}]\n"
+            "import chip_smoke\n"
+            "counts = chip_smoke.roofline_phase(\n"
+            "    torch.device('cuda'),\n"
+            "    cpu_counts=chip_smoke.ROOFLINE_CPU_COUNTS)\n"
+            "print('[19] launches ' + json.dumps(counts), flush=True)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                            stdout=subprocess.PIPE, text=True)
+    launches = []
+
+    def relay():
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            if line.startswith("[19] launches "):
+                launches.append(json.loads(line[len("[19] launches "):]))
+
+    # The deadline holds while the output is read: a child that hangs with
+    # its output open is killed at ROOFLINE_TIMEOUT_S all the same.
+    reader = threading.Thread(target=relay, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=ROOFLINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = f"nothing: killed after {ROOFLINE_TIMEOUT_S} s"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    check(rc == 0 and len(launches) == 1,
+          f"[19] its process exited with {rc}")
+    return launches[0]
+
+
 def kernel_phases():
     """Phases [1]-[11]; returns what the report needs: the nvidia-smi line,
     the kernel rows of [2], the other shapes' rows and the main paths'
     launch counts."""
     import numpy as np
     from repro_torch import kernels, solvers
+    from repro_torch.analysis.roofline import HW, bound_ms
     from repro_torch.core import (CrossbarConfig, MCAGeometry,
                                   corrected_matmul, corrected_mvm, encode,
                                   get_device, rel_linf)
@@ -4315,10 +4802,7 @@ def kernel_phases():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda} | tf32 off",
           flush=True)
@@ -4368,8 +4852,7 @@ def kernel_phases():
             f"ec_matmul {m}x{k} batch {batch}",
             lambda: kernels.ec_matmul(at, da, x, x_t),
             lambda: kernels.ec_matmul_plain(at, da, x, x_t), EC_TOL,
-            nbytes=4 * (2 * m * k + 2 * k * batch + m * batch),
-            flops=4 * m * k * batch, iters=10,
+            cost=kernels.cost.ec_matmul(m, k, batch), iters=10,
             library_fn=lambda: torch.matmul(at, x) + torch.matmul(da, x_t))}
         lay = kernels.matmul_layout(at, da, batch)
         res["ec_matmul"]["layout"] = lay._asdict()
@@ -4386,8 +4869,8 @@ def kernel_phases():
                 f"stencil_denoise {m}x{batch} lam {lam:g}",
                 lambda: kernels.stencil_denoise(p, lam, cfg.h),
                 lambda: kernels.stencil_denoise_plain(p, lam, cfg.h),
-                ELEMENTWISE_TOL, nbytes=4 * 2 * m * batch,
-                flops=6 * m * batch, iters=50)
+                ELEMENTWISE_TOL,
+                cost=kernels.cost.stencil_denoise(m, batch), iters=50)
         # Timed at the engine's lam; its error is the one at the check lam.
         res["stencil_denoise"] = res.pop(f"stencil_denoise@{cfg.lam:g}")
         checked = res.pop(f"stencil_denoise@{STENCIL_CHECK_LAM:g}")
@@ -4409,8 +4892,7 @@ def kernel_phases():
             f"ec_rmatmul {m}x{k} batch {batch}",
             lambda: kernels.ec_rmatmul(at, da, y, y_t),
             lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
-            nbytes=4 * (2 * m * k + 2 * m * batch + k * batch),
-            flops=4 * m * k * batch, iters=10,
+            cost=kernels.cost.ec_rmatmul(m, k, batch), iters=10,
             library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))
         lay = kernels.rmatmul_layout(at, da, batch)
         res["ec_rmatmul"]["layout"] = lay._asdict()
@@ -4427,16 +4909,18 @@ def kernel_phases():
         # float64 solve, where the kernel's error must stay within twice the
         # plain version's (a scan that cut a carry short misses by far
         # more) -- and bit for bit run to run.  The plain version is 2n
-        # small steps from the host: timed once.  Bytes: p read, y written,
-        # and the coefficient rows before their fixed point (thomas_tail),
-        # the only ones the kernel reads.
+        # small steps from the host: timed once.  Its bytes
+        # (kernels.cost.thomas_solve): p read, y written, and the
+        # coefficient rows before their fixed point, the only ones the
+        # kernel reads.
         head = kernels.tridiag.thomas_tail(m, STENCIL_CHECK_LAM, cfg.h)[0]
         res["thomas_solve"] = compare(
             f"thomas_solve {m}x{batch} lam {STENCIL_CHECK_LAM:g}",
             lambda: kernels.thomas_solve(p, STENCIL_CHECK_LAM, cfg.h),
             lambda: kernels.thomas_solve_plain(p, STENCIL_CHECK_LAM, cfg.h),
-            ELEMENTWISE_TOL, nbytes=4 * (2 * m * batch + 2 * head),
-            flops=5 * m * batch, iters=50, plain_iters=1, plain_warmup=0)
+            ELEMENTWISE_TOL,
+            cost=kernels.cost.thomas_solve(m, batch, STENCIL_CHECK_LAM, cfg.h),
+            iters=50, plain_iters=1, plain_warmup=0)
         lam10, lam_big = THOMAS_CHECK_LAMS
         got = kernels.thomas_solve(p, lam10, cfg.h)
         err10 = rel_l2(got, kernels.thomas_solve_plain(p, lam10, cfg.h))
@@ -4483,15 +4967,14 @@ def kernel_phases():
             f"cg_update {m}x{batch}",
             lambda: kernels.cg_update(*v, alpha),
             lambda: kernels.cg_update_plain(*v, alpha), ELEMENTWISE_TOL,
-            nbytes=4 * (6 * m * batch + batch), flops=4 * m * batch,
-            iters=50)
+            cost=kernels.cost.cg_update(m, batch), iters=50)
         omega = torch.rand((), generator=gen, device=dev)
         res["richardson_update"] = compare(
             f"richardson_update {m}x{batch}",
             lambda: kernels.richardson_update(*v[:3], omega),
             lambda: kernels.richardson_update_plain(*v[:3], omega),
-            ELEMENTWISE_TOL, nbytes=4 * (5 * m * batch + 1),
-            flops=3 * m * batch, iters=50)
+            ELEMENTWISE_TOL,
+            cost=kernels.cost.richardson_update(m, batch), iters=50)
         for name in ("stencil_denoise", "thomas_solve", "cg_update",
                      "richardson_update"):
             res[name]["launch_floor_ms"] = floor_ms
@@ -4747,13 +5230,13 @@ def kernel_phases():
             f"ec_matmul {m}x{k} batch 1",
             lambda: kernels.ec_matmul(at, da, x, x_t),
             lambda: kernels.ec_matmul_plain(at, da, x, x_t), EC_TOL,
-            nbytes=4 * (2 * m * k + 2 * k + m), flops=4 * m * k, iters=10,
+            cost=kernels.cost.ec_matmul(m, k, 1), iters=10,
             library_fn=lambda: torch.matmul(at, x) + torch.matmul(da, x_t)),
             "ec_rmatmul": compare(
             f"ec_rmatmul {m}x{k} batch 1",
             lambda: kernels.ec_rmatmul(at, da, y, y_t),
             lambda: kernels.ec_rmatmul_plain(at, da, y, y_t), EC_TOL,
-            nbytes=4 * (2 * m * k + 2 * m + k), flops=4 * m * k, iters=10,
+            cost=kernels.cost.ec_rmatmul(m, k, 1), iters=10,
             library_fn=lambda: torch.matmul(at.T, y) + torch.matmul(da.T, y_t))}
         for name, query in (("ec_matmul", kernels.matmul_layout),
                             ("ec_rmatmul", kernels.rmatmul_layout)):
@@ -4788,8 +5271,8 @@ def kernel_phases():
             lambda: kernels.stencil_denoise(p, STENCIL_CHECK_LAM, scfg.h),
             lambda: kernels.stencil_denoise_plain(p, STENCIL_CHECK_LAM,
                                                   scfg.h),
-            ELEMENTWISE_TOL, nbytes=4 * 2 * p.shape[0], flops=6 * p.shape[0],
-            iters=50)
+            ELEMENTWISE_TOL,
+            cost=kernels.cost.stencil_denoise(p.shape[0], 1), iters=50)
         res["stencil_denoise"].update(err_lam=STENCIL_CHECK_LAM,
                                       ms_lam=STENCIL_CHECK_LAM)
         for row in res.values():
@@ -4948,23 +5431,20 @@ def kernel_phases():
         def members(u):    # (rows, g * b) panel -> (g, rows, b) for bmm
             return u.view(u.shape[0], g_, batch).permute(1, 0, 2)
 
-        image_bytes = 2 * g_ * mr * np_
         rows[batch]["ec_group_matmul"] = compare(
             f"ec_group_matmul {g_}x{mr}x{np_} batch {batch}",
             lambda: kernels.ec_group_matmul(at, da, x, x_t),
             lambda: kernels.ec_group_matmul_plain(at, da, x, x_t), EC_TOL,
-            nbytes=4 * (image_bytes + 2 * np_ * g_ * batch
-                        + mr * g_ * batch),
-            flops=4 * g_ * mr * np_ * batch, iters=10,
+            cost=kernels.cost.ec_group_matmul(g_, mr, np_, batch),
+            iters=10,
             library_fn=lambda: torch.bmm(at, members(x))
             + torch.bmm(da, members(x_t)))
         rows[batch]["ec_group_rmatmul"] = compare(
             f"ec_group_rmatmul {g_}x{mr}x{np_} batch {batch}",
             lambda: kernels.ec_group_rmatmul(at, da, y, y_t),
             lambda: kernels.ec_group_rmatmul_plain(at, da, y, y_t), EC_TOL,
-            nbytes=4 * (image_bytes + 2 * mr * g_ * batch
-                        + np_ * g_ * batch),
-            flops=4 * g_ * mr * np_ * batch, iters=10,
+            cost=kernels.cost.ec_group_rmatmul(g_, mr, np_, batch),
+            iters=10,
             library_fn=lambda: torch.bmm(at.transpose(1, 2), members(y))
             + torch.bmm(da.transpose(1, 2), members(y_t)))
         for name in ("ec_group_matmul", "ec_group_rmatmul"):
@@ -5122,7 +5602,7 @@ def kernel_phases():
           f"{chain_ms['reference']:.3f} ms); launches {chain_counts}; rel-L2 "
           f"vs digital: cuda {rel_l2(chained, want):.4e}, reference "
           f"{rel_l2(chain_ref, want):.4e}; DAC off cuda vs reference "
-          f"{chain_det:.3e}; bound {bound_ms(N_LAYERS * 2 * 4 * D_MODEL ** 2, 0)[0]:.3f} ms",
+          f"{chain_det:.3e}; bound {bound_ms(0, N_LAYERS * 2 * 4 * D_MODEL ** 2)[0]:.3f} ms",
           flush=True)
     check(bool(torch.isfinite(chained).all())
           and tuple(chained.shape) == (D_MODEL, 1), "chain output")
@@ -5171,7 +5651,7 @@ def kernel_phases():
         lambda: kernels.encode_matmul(x, wt, eps, **kw, **tiles),
         lambda: kernels.encode_matmul_plain(x, wt, eps, sigma, taox.levels,
                                             512, 512), EC_TOL,
-        nbytes=4 * (m * k + 2 * k * n + m * n), flops=2 * m * k * n, iters=5,
+        cost=kernels.cost.encode_matmul(m, k, n), iters=5,
         library_fn=lambda: torch.matmul(x, w_tilde))
     del w_tilde
     w_rng = q * (1.0 + sigma * kernels.philox_normal_plain(
@@ -5181,7 +5661,7 @@ def kernel_phases():
         lambda: kernels.encode_matmul_rng(ENCODE_SEED, x, wt, **kw, **tiles),
         lambda: kernels.encode_matmul_rng_plain(ENCODE_SEED, x, wt, **kw,
                                                 **tiles), EC_TOL,
-        nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n, iters=5,
+        cost=kernels.cost.encode_matmul_rng(m, k, n), iters=5,
         plain_iters=1, plain_warmup=1,
         library_fn=lambda: torch.matmul(x, w_rng))
     # What holds the product back: registers and spills (ptxas), the SM clock
@@ -5203,13 +5683,13 @@ def kernel_phases():
         row.update(sm_mhz=mhz, watts=watts, tflops=flops / row["ms"] / 1e9,
                    split_ms=kernel_split(fn))
         print(f"    {name}: {row['tflops']:.2f} TFLOP/s "
-              f"({row['tflops'] / (FP32_FLOPS_PER_S / 1e12):.1%} of fp32 "
+              f"({row['tflops'] / (HW['peak_flops'] / 1e12):.1%} of fp32 "
               f"peak) at SM {mhz} MHz, {watts} W ({samples} nvidia-smi "
               f"samples); ptxas {row['ptxas']}; per call "
               + ", ".join(f"{short_kernel_name(key)} {ms:.4f} ms"
                           for key, ms in row["split_ms"].items()), flush=True)
     gen_ms = (k * n * GEN_INSTRUCTIONS_PER_DRAW
-              / (FP32_FLOPS_PER_S / 2) * 1e3)
+              / (HW['peak_flops'] / 2) * 1e3)
     rows[1]["encode_matmul_rng"].update(
         bound_gen_ms=rows[1]["encode_matmul_rng"]["bound_ms"] + gen_ms,
         bound_gen_by=f"operations + generator ({GEN_INSTRUCTIONS_PER_DRAW} "
@@ -5343,8 +5823,7 @@ def kernel_phases():
     row66 = compare("ec_matmul 66x66 batch 1",
                     lambda: kernels.ec_matmul(at, da, u, u_t),
                     lambda: kernels.ec_matmul_plain(at, da, u, u_t), EC_TOL,
-                    nbytes=4 * (2 * 66 * 66 + 2 * 66 + 66),
-                    flops=4 * 66 * 66, iters=200,
+                    cost=kernels.cost.ec_matmul(66, 66, 1), iters=200,
                     library_fn=lambda: torch.matmul(at, u)
                     + torch.matmul(da, u_t))
     row66.update(shape="66x66", batch=1, layout=lay._asdict())
@@ -5470,6 +5949,13 @@ def main() -> int:
     t0 = time.perf_counter()
     all_counts.append(invariants_phase(torch.device("cuda")))
     print(f"[18] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ------------------------ 19. the roofline of the main path on the card
+    t0 = time.perf_counter()
+    free_cuda()
+    all_counts.append(roofline_in_own_process())
+    print(f"[19] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

@@ -31,11 +31,26 @@ from pathlib import Path
 import torch
 
 from chip_smoke import (D_FF, D_MODEL, EC_TOL, ENCODE_ROWS, ENCODE_SEED,
-                        FP32_FLOPS_PER_S, clock_under_load, device_time_ms,
-                        kernel_split, rel_l2)
+                        clock_under_load, device_time_ms, kernel_split,
+                        rel_l2)
 
 ITERS = 20
 HERE = Path(__file__).resolve().parent
+
+
+def card_rates() -> dict:
+    """``repro_torch.analysis.roofline.HW`` of the tree beside this script,
+    taken out of ``sys.modules`` again so that ``--src`` imports its own
+    package."""
+    src = str(HERE / "src")
+    sys.path.insert(0, src)
+    try:
+        return dict(importlib.import_module("repro_torch.analysis.roofline").HW)
+    finally:
+        sys.path.remove(src)
+        for name in [n for n in sys.modules
+                     if n == "repro_torch" or n.startswith("repro_torch.")]:
+            del sys.modules[name]
 
 
 def own_build_module():
@@ -56,6 +71,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("encode_probe: no CUDA device", file=sys.stderr)
         return 1
+    peak_flops = card_rates()["peak_flops"]
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch import kernels
     from repro_torch.core import CrossbarConfig, get_device
@@ -102,7 +118,7 @@ def main() -> int:
         split = kernel_split(kernel_fn)
         result[name] = {"ms": ms, "rel_l2": err, "tflops": flops / ms / 1e9,
                         "fp32_peak_share": flops / ms / 1e-3
-                        / FP32_FLOPS_PER_S, "sm_mhz": mhz, "watts": watts,
+                        / peak_flops, "sm_mhz": mhz, "watts": watts,
                         "clock_samples": samples, "split_ms": split}
         print(f"  {name}: {ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s, "
               f"rel-L2 {err:.2e}; SM {mhz} MHz, {watts} W ({samples} "

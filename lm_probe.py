@@ -9,6 +9,7 @@
     python3 lm_probe.py rehearse-serving
     python3 lm_probe.py rehearse-analysis
     python3 lm_probe.py rehearse-invariants
+    python3 lm_probe.py rehearse-roofline [--full]
     python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
@@ -47,6 +48,15 @@ small cells), with ``analysis.peak_bytes`` reporting 0 (no allocator).
 ``scale="cpu"`` against the ``cpu`` section of ``INVARIANTS_torch.json``,
 and prints the launches the counting wrappers saw (the card's ``cuda``
 section counts the same kernels on the same small entries).
+
+``rehearse-roofline`` runs phase 19 (``roofline_phase``) on the CPU at
+small sizes: the ten kernel functions at small shapes, a 256^2 local MVM
+and CG solve, phase 17's operator at 512^2 (64^2 blocks) and the reduced
+qwen3-1.7b; every call counted by ``analysis.analyze_run`` (no device
+numbers on the CPU).  ``--full`` runs it at the card's shapes, on the
+host's CPU: the counts it prints on its ``[19] counts`` line are the ones
+``chip_smoke.ROOFLINE_CPU_COUNTS`` holds the card to (about 30 GB of host
+memory: run it where the host has room).
 
 ``serve-ab`` times phase 12's serving on the card for this tree and the
 trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
@@ -250,6 +260,41 @@ def rehearse_invariants(args) -> None:
           f"{ {k: v for k, v in counts.items() if v} }")
 
 
+def rehearse_roofline(args) -> None:
+    """chip_smoke.py's phase 19 on the CPU: at small sizes, or with
+    ``--full`` at the card's (the CPU's counts for ROOFLINE_CPU_COUNTS)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.core import MCAGeometry
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    t0 = time.perf_counter()
+    if args.full:
+        chip_smoke.roofline_phase(torch.device("cpu"))
+    else:
+        chip_smoke.roofline_phase(
+            torch.device("cpu"),
+            kernel_shapes={"ec_matmul": (256, 192, 1),
+                           "ec_rmatmul": (256, 192, 1),
+                           "ec_group_matmul": (2, 96, 64, 1),
+                           "ec_group_rmatmul": (2, 96, 64, 1),
+                           "stencil_denoise": (512, 1),
+                           "thomas_solve": (512, 1), "cg_update": (512, 1),
+                           "richardson_update": (512, 1),
+                           "encode_matmul": (16, 64, 96),
+                           "encode_matmul_rng": (16, 64, 96)},
+            n=256, analysis_n=512, geom=MCAGeometry(2, 2, 32, 32),
+            lm_cfg=get_arch("qwen3-1.7b").reduced(),
+            rram=RRAMBackendConfig(enabled=True, dw_dtype="float32",
+                                   cell_rows=32, cell_cols=32),
+            lm_requests=((4, 8, 16), (1, 24, 32)),
+            lm_rt_kw=REHEARSAL_RT_KW)
+    print(f"rehearsal of [19] ({'full' if args.full else 'small'} sizes) "
+          f"on the CPU passed in {time.perf_counter() - t0:.1f} s")
+
+
 def live_tensor_bytes() -> int:
     """Bytes of every storage a live tensor holds: the CPU's stand-in for
     ``torch.cuda.memory_allocated``."""
@@ -451,7 +496,8 @@ def main(argv=None) -> int:
                                      "rehearse-recurrent",
                                      "rehearse-train", "rehearse-serving",
                                      "rehearse-analysis",
-                                     "rehearse-invariants", "serve-ab",
+                                     "rehearse-invariants",
+                                     "rehearse-roofline", "serve-ab",
                                      "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
@@ -461,6 +507,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT),
                     help="serve-times: the tree whose package is served")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--full", action="store_true",
+                    help="rehearse-roofline: the card's shapes")
     args = ap.parse_args(argv)
     if args.what == "host":
         return host(args)
@@ -480,6 +528,8 @@ def main(argv=None) -> int:
         rehearse_analysis(args)
     elif args.what == "rehearse-invariants":
         rehearse_invariants(args)
+    elif args.what == "rehearse-roofline":
+        rehearse_roofline(args)
     else:
         rehearse_train(args)
     return 0

@@ -60,8 +60,8 @@ from types import SimpleNamespace
 
 import torch
 
-from chip_smoke import (D_FF, D_MODEL, EC_TOL, HBM_BYTES_PER_S, N,
-                        N_EXPERTS, STENCIL_CHECK_LAM, TIER2_CG_SHAPES,
+from chip_smoke import (D_FF, D_MODEL, EC_TOL, N, N_EXPERTS,
+                        STENCIL_CHECK_LAM, TIER2_CG_SHAPES,
                         TIER2_STENCIL_SHAPES, cg_step, device_time_ms,
                         ec_stencil_pair_ms, kernel_split, launch_floor,
                         rel_l2, richardson_step, short_kernel_name,
@@ -149,8 +149,10 @@ def probe(direction, name, a, d, batch, gen, labels, trees, args):
         ("matmul" if forward else "rmatmul")
     want = getattr(trees[0].rram, fn_name + "_plain")(a, d, u, u_t)
     rows_out = m if forward else k
+    with active(trees[0]):
+        hw = importlib.import_module("repro_torch.analysis.roofline").HW
     bound = 4 * (2 * g * m * k + 2 * g * rows_in * batch
-                 + g * rows_out * batch) / HBM_BYTES_PER_S * 1e3
+                 + g * rows_out * batch) / hw["hbm_bw"] * 1e3
     shape = {"direction": direction, "shape": name, "batch": batch,
              "bound_ms": bound, "trees": {}}
     calls = []

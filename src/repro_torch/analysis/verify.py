@@ -249,7 +249,7 @@ def _observe(fn: Callable, args, kwargs, *, mode: bool = True,
     def on_draw(key):
         run.draws.append((key, _user_site("generator")))
 
-    def on_collective(kind, axes, tensors):
+    def on_collective(kind, axes, tensors, mesh):
         if kind == "psum":
             run.psums.append((axes, [str(t.dtype) for t in tensors],
                               _user_site("psum")))

@@ -1,6 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.  Wrappers run the kernel on CUDA tensors and the plain
-version on CPU tensors; ``build.LAUNCHES`` counts kernel launches."""
+version on CPU tensors; ``build.LAUNCHES`` counts kernel launches.
+:mod:`~repro_torch.kernels.cost` declares each kernel function's work (its
+flops and bytes from a call's shapes) and tells its observers of every
+call, the wrapper's or its plain twin's alike."""
+from . import cost
 from .build import LAUNCHES, reset_launches
 from .encode import (encode_matmul, encode_matmul_plain, encode_matmul_rng,
                      encode_matmul_rng_plain, philox_normal_plain,
@@ -15,6 +19,7 @@ from .tridiag import (stencil_denoise, stencil_denoise_plain, thomas_solve,
                       thomas_solve_plain)
 
 __all__ = [
+    "cost",
     "LAUNCHES",
     "reset_launches",
     "ec_matmul",

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.devices import quantize
-from . import build
+from . import build, cost
+from .cost import OBSERVERS
 from ._checks import check_panels, on_cpu
 
 __all__ = ["encode_matmul", "encode_matmul_plain", "encode_matmul_rng",
@@ -83,6 +84,9 @@ def encode_matmul_plain(x: torch.Tensor, w: torch.Tensor, eps: torch.Tensor,
     """``x @ W_tilde`` with ``W_tilde = Q(w) * (1 + sigma * eps)`` and a
     per-tile Q, on operands whose ``k`` and ``n`` are tile multiples (twin
     of ``encode_matmul_ref``)."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("encode_matmul", encode_matmul_plain, x, w, eps,
+                             sigma, levels, tile_k, tile_n)
     q = quantize_tile_plain(w, levels, tile_k, tile_n)
     w_tilde = q * (1.0 + sigma * eps.to(torch.float32))
     return x.to(torch.float32) @ w_tilde
@@ -142,6 +146,10 @@ def encode_matmul_rng_plain(seed: int, x: torch.Tensor, w: torch.Tensor, *,
     """The plain version of :func:`encode_matmul_rng`: the padded operands
     through :func:`encode_matmul_plain` with :func:`philox_normal_plain`'s
     draws."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("encode_matmul_rng", encode_matmul_rng_plain,
+                             seed, x, w, sigma=sigma, levels=levels,
+                             block_k=block_k, block_n=block_n)
     m, k = x.shape
     n = w.shape[1]
     xp, wp = _pad_to(x, (1, block_k)), _pad_to(w, (block_k, block_n))
@@ -202,6 +210,10 @@ def encode_matmul(x: torch.Tensor, w: torch.Tensor, eps: torch.Tensor, *,
     """``x @ (Q(w) * (1 + sigma * eps))`` with a per-(block_k, block_n)-tile
     Q; x (m, k), w and eps (k, n), float32; any shapes (a ragged edge tile
     is quantized as the zero-padded tile would be).  Returns (m, n)."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("encode_matmul", encode_matmul, x, w, eps,
+                             sigma=sigma, levels=levels, block_k=block_k,
+                             block_n=block_n)
     _check("encode_matmul", x, w, eps, block_k, block_n)
     if on_cpu(x):
         m, n = x.shape[0], w.shape[1]
@@ -220,6 +232,10 @@ def encode_matmul_rng(seed: int, x: torch.Tensor, w: torch.Tensor, *,
     """:func:`encode_matmul` with the noise drawn inside the kernel from
     ``seed`` (see :func:`philox_normal_plain`): W is the only k x n read.
     Each weight tile has one realisation for every row of x."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("encode_matmul_rng", encode_matmul_rng, seed, x,
+                             w, sigma=sigma, levels=levels, block_k=block_k,
+                             block_n=block_n)
     _check("encode_matmul_rng", x, w, None, block_k, block_n)
     if on_cpu(x):
         return encode_matmul_rng_plain(seed, x, w, sigma=sigma, levels=levels,

@@ -29,7 +29,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from . import build
+from . import build, cost
+from .cost import OBSERVERS
 from ._checks import check_images, check_panels, on_cpu, row_stride
 
 __all__ = ["ec_matmul", "ec_matmul_plain", "ec_rmatmul", "ec_rmatmul_plain",
@@ -45,6 +46,8 @@ MAX_KERNEL_BATCH = 8
 def ec_matmul_plain(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
                     x_t: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: two float32 products and a sum."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_matmul", ec_matmul_plain, at, da, x, x_t)
     return at @ x + da @ x_t
 
 
@@ -52,6 +55,8 @@ def ec_rmatmul_plain(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
                      y_t: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: two float32 products through transposed
     views (no copy) and a sum."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_rmatmul", ec_rmatmul_plain, at, da, y, y_t)
     return at.T @ y + da.T @ y_t
 
 
@@ -65,6 +70,9 @@ def ec_group_matmul_plain(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
                           x_t: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: :func:`ec_matmul_plain` member by member,
     each member's columns of the panels, concatenated back."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_group_matmul", ec_group_matmul_plain, at, da,
+                             x, x_t)
     g = at.shape[0]
     return torch.cat([ec_matmul_plain(at[i], da[i], u, u_t) for i, (u, u_t)
                       in enumerate(zip(_members(x, g), _members(x_t, g)))],
@@ -74,6 +82,9 @@ def ec_group_matmul_plain(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
 def ec_group_rmatmul_plain(at: torch.Tensor, da: torch.Tensor,
                            y: torch.Tensor, y_t: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: :func:`ec_rmatmul_plain` member by member."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_group_rmatmul", ec_group_rmatmul_plain, at,
+                             da, y, y_t)
     g = at.shape[0]
     return torch.cat([ec_rmatmul_plain(at[i], da[i], u, u_t) for i, (u, u_t)
                       in enumerate(zip(_members(y, g), _members(y_t, g)))],
@@ -138,6 +149,8 @@ def ec_matmul(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
     row is summed over 4,096-column pieces of K in a fixed order and the
     pieces are added in order, so the result depends on K alone: the same
     run to run, whatever the grid (:func:`matmul_layout`)."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_matmul", ec_matmul, at, da, x, x_t)
     _check("ec_matmul", at, da, x, x_t, at.shape[-1])
     if on_cpu(x):
         return ec_matmul_plain(at, da, x, x_t)
@@ -224,6 +237,8 @@ def ec_rmatmul(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
     returns (K, batch).  The kernel's blocks each sum a fixed range of row
     chunks, and a second pass adds their partials in a fixed order: the
     result is the same run to run (:func:`rmatmul_layout`)."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_rmatmul", ec_rmatmul, at, da, y, y_t)
     _check("ec_rmatmul", at, da, y, y_t, at.shape[0])
     if on_cpu(y):
         return ec_rmatmul_plain(at, da, y, y_t)
@@ -237,6 +252,9 @@ def ec_group_matmul(at: torch.Tensor, da: torch.Tensor, x: torch.Tensor,
     member g's columns at ``g * batch``; returns the (M, g * batch) panel
     laid out the same way.  Member g's columns equal the solo
     :func:`ec_matmul` on member g bit for bit."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_group_matmul", ec_group_matmul, at, da, x,
+                             x_t)
     batch = _check_group("ec_group_matmul", at, da, x, x_t, at.shape[-1])
     if on_cpu(x):
         return ec_group_matmul_plain(at, da, x, x_t)
@@ -251,6 +269,9 @@ def ec_group_rmatmul(at: torch.Tensor, da: torch.Tensor, y: torch.Tensor,
     columns at ``g * batch``.  The rows are cut for the whole group, so a
     member's sums may be cut otherwise than a solo :func:`ec_rmatmul` cuts
     them (equal to fp32 rounding); a group of one is the solo call."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("ec_group_rmatmul", ec_group_rmatmul, at, da, y,
+                             y_t)
     batch = _check_group("ec_group_rmatmul", at, da, y, y_t, at.shape[1])
     if on_cpu(y):
         return ec_group_rmatmul_plain(at, da, y, y_t)

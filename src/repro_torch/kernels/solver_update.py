@@ -23,7 +23,8 @@ from typing import Tuple
 
 import torch
 
-from . import build
+from . import build, cost
+from .cost import OBSERVERS
 from ._checks import check_panels, check_shapes, on_cpu
 
 __all__ = ["cg_update", "cg_update_plain", "richardson_update",
@@ -31,11 +32,16 @@ __all__ = ["cg_update", "cg_update_plain", "richardson_update",
 
 
 def cg_update_plain(x, r, p, ap, alpha) -> Tuple[torch.Tensor, torch.Tensor]:
+    if OBSERVERS and cost.outermost():
+        return cost.observed("cg_update", cg_update_plain, x, r, p, ap, alpha)
     a = alpha[None, :]
     return x + a * p, r - a * ap
 
 
 def richardson_update_plain(x, b, y, omega) -> Tuple[torch.Tensor, torch.Tensor]:
+    if OBSERVERS and cost.outermost():
+        return cost.observed("richardson_update", richardson_update_plain, x,
+                             b, y, omega)
     r = b - y
     return x + omega * r, r
 
@@ -44,6 +50,8 @@ def cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
               ap: torch.Tensor, alpha: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CG's twin axpy on (n, batch) panels with per-column ``alpha``."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("cg_update", cg_update, x, r, p, ap, alpha)
     check_panels("cg_update", x, r, p, ap, alpha)
     check_shapes("cg_update", x.shape, r, p, ap)
     if x.ndim != 2 or tuple(alpha.shape) != (x.shape[1],):
@@ -63,6 +71,9 @@ def cg_update(x: torch.Tensor, r: torch.Tensor, p: torch.Tensor,
 def richardson_update(x: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
                       omega: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Richardson's residual and relaxed step on (n, batch) panels."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("richardson_update", richardson_update, x, b, y,
+                             omega)
     check_panels("richardson_update", x, b, y, omega)
     check_shapes("richardson_update", x.shape, b, y)
     if x.ndim != 2 or omega.numel() != 1:

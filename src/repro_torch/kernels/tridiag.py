@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ..core.error_correction import stencil_apply
-from . import build
+from . import build, cost
+from .cost import OBSERVERS
 from ._checks import check_panels, on_cpu
 
 __all__ = ["stencil_denoise", "stencil_denoise_plain", "thomas_solve",
@@ -33,11 +34,16 @@ _TAILS: Dict[tuple, Tuple[int, float, float]] = {}
 def stencil_denoise_plain(p: torch.Tensor, lam: float,
                           h: float = -1.0) -> torch.Tensor:
     """The plain PyTorch version: ``p - lam * stencil(p)``."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("stencil_denoise", stencil_denoise_plain, p, lam,
+                             h)
     return p - lam * stencil_apply(p, h)
 
 
 def stencil_denoise(p: torch.Tensor, lam: float, h: float = -1.0) -> torch.Tensor:
     """First-order Neumann denoise of an (n, batch) float32 panel."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("stencil_denoise", stencil_denoise, p, lam, h)
     check_panels("stencil_denoise", p)
     if p.ndim != 2:
         raise ValueError(f"stencil_denoise: expected (n, batch), got "
@@ -107,6 +113,8 @@ def thomas_solve_plain(p: torch.Tensor, lam: float,
     """The plain PyTorch version: the kernel's two recurrences as a loop
     over rows, each step on the whole batch (2n small steps: slow on a
     large panel, by nature)."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("thomas_solve", thomas_solve_plain, p, lam, h)
     n = p.shape[0]
     cp, piv = thomas_coeffs(n, lam, h, p.device)
     a = float(np.float32(lam * h))
@@ -147,6 +155,8 @@ def thomas_solve_fp64(p: torch.Tensor, lam: float,
 def thomas_solve(p: torch.Tensor, lam: float, h: float = -1.0) -> torch.Tensor:
     """Exact tier-2 solve ``(I + lam L^T L) y = p`` of an (n, batch) float32
     panel."""
+    if OBSERVERS and cost.outermost():
+        return cost.observed("thomas_solve", thomas_solve, p, lam, h)
     check_panels("thomas_solve", p)
     if p.ndim != 2:
         raise ValueError(f"thomas_solve: expected (n, batch), got "

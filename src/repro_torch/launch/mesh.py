@@ -10,10 +10,11 @@ ranks run.
 
 :func:`gather_to_lead` joins the ranks' output segments in order on the
 lead device.  The collective audit of :mod:`repro_torch.analysis.verify`
-observes both: while :data:`OBSERVERS` is not empty, each :func:`psum` and
-:func:`gather_to_lead` call hands every observer ``(kind, axes,
-tensors)``, ``kind`` ``"psum"`` or ``"gather"``.  Idle, the hook is one
-list test.
+observes both, and so does the wire count of
+:mod:`repro_torch.analysis.wire`: while :data:`OBSERVERS` is not empty,
+each :func:`psum` and :func:`gather_to_lead` call hands every observer
+``(kind, axes, tensors, mesh)``, ``kind`` ``"psum"`` or ``"gather"``.
+Idle, the hook is one list test.
 
 Every rank of a mesh must name the same device: several cards need a
 ``torch.distributed`` (NCCL) process group behind the same :func:`psum`,
@@ -32,8 +33,8 @@ import torch
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "axis_index",
            "mesh_axis_sizes", "psum", "gather_to_lead", "OBSERVERS"]
 
-#: ``observer(kind, axes, tensors)`` for every :func:`psum` and
-#: :func:`gather_to_lead` call while an audit runs.
+#: ``observer(kind, axes, tensors, mesh)`` for every :func:`psum` and
+#: :func:`gather_to_lead` call while an audit or a cost count runs.
 OBSERVERS: List[Callable] = []
 
 _MULTI_DEVICE = ("ROADMAP Queue A16 (several cards: a torch.distributed "
@@ -155,7 +156,7 @@ def psum(mesh: Mesh, partials: Sequence[torch.Tensor],
         raise ValueError(f"psum needs one partial per rank ({mesh.size}), "
                          f"got {len(partials)}")
     for observe in OBSERVERS:
-        observe("psum", axes, partials)
+        observe("psum", axes, partials, mesh)
     groups: Dict[tuple, List[int]] = {}
     for r in range(mesh.size):
         c = mesh.coords(r)
@@ -179,5 +180,5 @@ def gather_to_lead(mesh: Mesh, segments: Sequence[torch.Tensor],
     """The ranks' output segments joined in order along ``dim`` on the
     mesh's lead device: one global tensor."""
     for observe in OBSERVERS:
-        observe("gather", (), segments)
+        observe("gather", (), segments, mesh)
     return torch.cat([s.to(mesh.lead_device) for s in segments], dim=dim)

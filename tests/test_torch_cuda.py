@@ -2420,3 +2420,76 @@ def test_invariant_audit_peak_on_small_virtual(cuda_device):
     assert 0 < ab["peak_bytes"] <= 12 * 4 * 64 * 64
     dc = reports["DispatchCount"].summary
     assert (dc["producer_calls"], dc["launches"]) == (64, {})
+
+
+# --------------------------------------------------------------------------
+# the declared costs and the roofline on the card
+# --------------------------------------------------------------------------
+
+def test_roofline_hw_is_this_card(cuda_device):
+    """The roofline's ``HW`` names this card and its memory."""
+    from repro_torch.analysis import HW
+    assert HW["card"] == torch.cuda.get_device_name(0)
+    assert HW["hbm_bytes"] == \
+        torch.cuda.get_device_properties(cuda_device).total_memory
+
+
+@pytest.mark.parametrize("name", ["ec_matmul", "ec_rmatmul",
+                                  "ec_group_matmul", "ec_group_rmatmul",
+                                  "stencil_denoise", "thomas_solve",
+                                  "cg_update", "richardson_update",
+                                  "encode_matmul", "encode_matmul_rng"])
+def test_declared_cost_same_on_card_and_cpu(cuda_device, name):
+    """Each kernel function, as its wrapper (the CUDA kernel) and as its
+    plain twin, counts the same flops and bytes on the card as on the CPU:
+    its declared cost, once, and nothing of what runs inside it."""
+    from _torch_roofline import kernel_calls
+    from repro_torch.analysis import measure_cost
+    got = {}
+    for dev in ("cpu", cuda_device):
+        wrap, plain, args, kw, pargs, pkw, want = kernel_calls(dev)[name]
+        before = dict(kernels.LAUNCHES)
+        for fn, a, k in ((wrap, args, kw), (plain, pargs, pkw)):
+            c = measure_cost(fn, *a, **k)
+            got[(str(dev), fn.__name__)] = (c.flops, c.bytes)
+        launched = kernels.LAUNCHES[name] - before[name]
+        assert launched == (0 if dev == "cpu" else 1), (name, dev)
+    assert set(got.values()) == {tuple(map(float, want))}, got
+
+
+def test_analyze_run_on_card(cuda_device):
+    """A corrected MVM's kernel pair under ``analyze_run``: device time,
+    each kernel function's launches equal to the change of
+    ``kernels.LAUNCHES`` over the counted run, no reading over 1.05 of the
+    bound."""
+    from repro_torch.analysis import analyze_run
+    m, k = 4096, 4096
+    at, da = randn((m, k), 0, cuda_device), randn((m, k), 1, cuda_device)
+    x, xt = randn((k, 1), 2, cuda_device), randn((k, 1), 3, cuda_device)
+
+    def call(at, da, x, xt):
+        return kernels.stencil_denoise(kernels.ec_matmul(at, da, x, xt),
+                                       1e-2)
+
+    before = dict(kernels.LAUNCHES)
+    rec = analyze_run(call, at, da, x, xt)
+    twice = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+    assert rec["device_ms"] > 0
+    assert set(rec["by_kernel"]) == {"ec_matmul", "stencil_denoise"}
+    for name, row in rec["by_kernel"].items():
+        assert row["calls"] == row["launches"] == 1
+        assert 2 * row["launches"] == twice[name]   # peak run + counted run
+        assert row["device_ms"] > 0 and row["achieved"] <= 1.05, row
+    assert rec["dominant"] == "memory"
+    assert 0 < rec["achieved"] <= 1.05
+    assert rec["memory"]["peak_bytes"] > 0 and rec["memory"]["fits_hbm"]
+
+
+def test_analyze_run_raises_without_device_time(cuda_device, monkeypatch):
+    """A CUDA call under a profile that records no device activity raises:
+    no record goes without its device time."""
+    from repro_torch.analysis import analyze_run, roofline
+    monkeypatch.setattr(roofline, "_ACTIVITIES", ("CPU",))
+    p = randn((4096, 1), 0, cuda_device)
+    with pytest.raises(RuntimeError, match="no device time"):
+        analyze_run(lambda q: kernels.stencil_denoise(q, 1e-2), p)

@@ -330,7 +330,7 @@ def test_invariants_import_with_jax_and_repro_blocked():
     unimportable, the registry names its 29 pipelines without building
     one, and the package exports the reference's names less
     ``jaxpr_max_elements`` and ``trace``, plus ``peak_bytes`` and
-    ``model_flops``."""
+    ``model_flops``, and the cost model's and roofline's."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -347,10 +347,11 @@ def test_invariants_import_with_jax_and_repro_blocked():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [
-        "29", "CallCounter", "Report", "Site", "Violation", "aval_bound",
-        "collective_audit", "dispatch_count", "key_reuse",
-        "max_aval_elements", "model_flops", "peak_bytes", "precision_lint",
-        "run_all"]
+        "29", "CallCounter", "HW", "Report", "RunCost", "Site", "Violation",
+        "analyze_run", "aval_bound", "collective_audit", "collective_wire",
+        "collective_wire_bytes", "count_op", "dispatch_count", "format_row",
+        "key_reuse", "max_aval_elements", "measure_cost", "model_flops",
+        "peak_bytes", "precision_lint", "roofline_terms", "run_all"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -423,3 +424,38 @@ def test_forward_layout_query_imports_alone():
                          capture_output=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["9", "pieces", "partials_per_block"]
+
+
+def test_port_file_list_covers_the_roofline_slice():
+    """The import scan reaches the declared kernel costs, the cost model,
+    the wire count and the roofline."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for rel in ("src/repro_torch/kernels/cost.py",
+                "src/repro_torch/analysis/cost.py",
+                "src/repro_torch/analysis/wire.py",
+                "src/repro_torch/analysis/roofline.py"):
+        assert rel in names, rel
+
+
+def test_roofline_slice_imports_with_jax_and_repro_blocked():
+    """The kernel costs, the cost model, the wire count and the roofline
+    import, and count a CPU call, with ``jax`` and ``repro`` made
+    unimportable."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "from repro_torch.kernels import cost, stencil_denoise\n"
+        "from repro_torch.analysis import analyze_run, measure_cost\n"
+        "from repro_torch.analysis import roofline, wire\n"
+        "c = measure_cost(stencil_denoise, torch.ones(16, 2), 1e-2)\n"
+        "assert (c.flops, c.bytes) == tuple(cost.stencil_denoise(16, 2))\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, text=True,
+                         capture_output=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
