@@ -283,7 +283,23 @@ non-zero, printing no result, without them or without the repository's
      EC function bound beside the per-8-row launch traffic).  No achieved
      over 1.05, and every count equal to the CPU's of the same calls
      (``ROOFLINE_CPU_COUNTS``, from ``lm_probe.py rehearse-roofline
-     --full``).
+     --full``);
+ 20. sharded execution on a one-card mesh (``sharded_phase``, after [19]):
+     every rank of a 1 x 1, 1 x 4 or 2 x 4 ("data", "model") mesh on the
+     card; [20a] one Mixtral-8x7B MoE layer's tree programmed on its own
+     ([12]'s backend) through ``moe_apply``'s tensor-parallel path on 1 x 4
+     and 2 x 128 tokens: 1 x 1 = the local path bit for bit with its
+     launches, each rank's expert_mm on views of its d_ff block within
+     EC_TOL of its plain twin, 3 ceil(cap / 8) ec_group_rmatmul + 3
+     stencil_denoise a rank and nothing else, DAC off within 1e-4 of the
+     digital TP path, the peak under the local call's + one rank's share
+     of one stack, device and per-call ms against the byte bound; [20b]
+     one layer of Mixtral at its published widths trained one step as
+     ``build_cell``'s train branch builds it, on each mesh against the
+     step without one (1e-5), and on 2 x 64 tokens (drops, peak, ms);
+     [20c] ``compressed_psum`` over 8 ranks of a 151,936 x 2,048 gradient
+     and ``ring_collective_matmul`` over 4 at 256 x 4,096 @ 4,096 x
+     14,336, their wire bytes at the ring formulas.
 
 Beside the calls they wrap, [3] / [3t] hold ``engine.mvm_fn`` both ways,
 [6] ``group_mvm_fn`` and [6c] ``chain_fn`` to them bit for bit under one
@@ -299,8 +315,8 @@ count, their difference in closed form.
 Launch counts are zeroed just before each solve of phases 4, 4e, 4r, 5,
 5e and 5q, and before phases 3, 3t, 6, 6c, 7, 8, 9, 10, 11, 12, 13, 14
 and 15's main calls, before [16a]'s served runs and [16b]'s batches and
-before each of [17]'s counted calls, and [19] reads the change over each
-of its counted runs: every kernel
+before each of [17]'s counted calls and [20a]'s tensor-parallel calls,
+and [19] reads the change over each of its counted runs: every kernel
 must have run on the path that uses it.  The last three lines of output are
 the kernel table as JSON, the card's name and power limit, and the result
 line.  Every bound is ``repro_torch.analysis.roofline.bound_ms`` of a
@@ -560,6 +576,22 @@ ROOFLINE_CPU_COUNTS = {
     "[19d] qwen3-1.7b 1 x 1024 prefill":
         [6030665616668, 102085239420]
 }
+
+
+# [20]: sharded execution on a one-card mesh (every rank on the card).
+SHARDED_MESHES = ((1, 1), (1, 4), (2, 4))       # (data, model)
+SHARDED_MOE_INPUTS = ((1, 4), (2, 128))   # (batch, tokens): replicated, split
+SHARDED_TRAIN_LAYERS = 1      # of Mixtral-8x7B's 32, at its published widths
+SHARDED_TRAIN_SMALL = (2, 4)  # capacity 8 >= every path's tokens: no drop
+SHARDED_TRAIN_BIG = (2, 64)
+SHARDED_TRAIN_MICRO = 2       # build_cell's max(B // 16, dsz) at 2 x 4
+SHARDED_TRAIN_TOL = 1e-5
+SHARDED_PSUM_SHAPE = (151_936, 2_048)   # qwen3-1.7b's embedding, a rank
+SHARDED_PSUM_RANKS = 8
+SHARDED_PSUM_TOL = 0.02       # the reference's int8 bound
+SHARDED_RING = (256, 4_096, 14_336)     # x (m, k) @ w (k, n)
+SHARDED_RING_RANKS = 4
+SHARDED_SEED = SEED + 20
 
 
 class SmokeFailure(RuntimeError):
@@ -4736,6 +4768,422 @@ def roofline_phase(dev, *, kernel_shapes=None, n=N, analysis_n=ANALYSIS_N,
     return counts
 
 
+def sharded_phase(dev, *, cfg=None, rram=None, meshes=SHARDED_MESHES,
+                  moe_inputs=SHARDED_MOE_INPUTS, train_cfg=None,
+                  train_small=SHARDED_TRAIN_SMALL,
+                  train_big=SHARDED_TRAIN_BIG, psum_shape=SHARDED_PSUM_SHAPE,
+                  ring=SHARDED_RING):
+    """[20] sharded execution on a mesh whose ranks all share the card
+    (``make_mesh(shape, ("data", "model"), "cuda")``): [20a] a Mixtral-8x7B
+    MoE layer's tree (seed LM_SEED) at its published widths programmed on
+    its own ([13b]'s backend), ``moe_apply`` through the tensor-parallel
+    path on each of ``meshes`` and ``moe_inputs``: 1 x 1 equal to the local
+    path bit for bit with its launches, each rank's ``expert_mm`` (on views of
+    its d_ff block) within EC_TOL of its plain twin, the launches exactly
+    3 ceil(cap_rank / 8) ec_group_rmatmul + 3 stencil_denoise a rank, DAC
+    off within LM_DIGITAL_TOL of the digital TP path, the allocator's peak
+    under the local call's + one rank's share of one stack (no block
+    copied), device and per-call ms against the byte bound; [20b] the
+    model at SHARDED_TRAIN_LAYERS layers, digital, one train step as
+    ``build_cell``'s train branch builds it (``make_runtime``,
+    ``grad_shardings`` under fsdp_tp, microbatch SHARDED_TRAIN_MICRO,
+    block remat) on ``train_small`` tokens without a mesh and on each
+    mesh: 1 x 1 and 1 x 4 within SHARDED_TRAIN_TOL of the step without a
+    mesh (loss, grad_norm, parameters), 2 x 4 -- whose MoE capacity and
+    aux are per data rank -- of the step without a mesh at microbatch
+    B / 2; then on ``train_big`` tokens on 2 x 4 and without a mesh, the
+    dropped assignments, peak and step ms, all finite; [20c]
+    ``compressed_psum`` over SHARDED_PSUM_RANKS data ranks of a
+    ``psum_shape`` gradient a rank and ``ring_collective_matmul`` over
+    SHARDED_RING_RANKS model ranks at ``ring``, each collective's wire
+    bytes at the ring formulas.  ``cfg`` / ``rram`` / ``train_cfg`` replace
+    the models, so the phase can be rehearsed on the CPU.  Returns the
+    launch counts of [20a]'s counted TP calls."""
+    from repro_torch import kernels
+    from repro_torch.analysis import wire
+    from repro_torch.analysis.roofline import bound_ms
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.distributed import compressed_psum, ring_collective_matmul
+    from repro_torch.distributed.sharding import (NamedSharding, P,
+                                                  param_shardings, shard)
+    from repro_torch.launch import make_mesh, make_runtime
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.models import params as PM
+    from repro_torch.models.common import Runtime
+    from repro_torch.models.rram import program_rram, strip_rram
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import make_train_step
+
+    gib = 2.0 ** 30
+    smi = card_line()
+    full = dataclasses.replace(get_arch(MOE_ARCH).model,
+                               param_dtype="float32", compute_dtype="float32")
+    cfg = cfg or full
+    rram = rram or RRAMBackendConfig(enabled=True, dw_dtype="float32")
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    grids = {m: make_mesh(m, ("data", "model"), dev) for m in meshes}
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    # [20a] the MoE's tensor-parallel path.
+    t0 = time.perf_counter()
+    free_cuda()
+    tree = PM.materialize(moe.moe_specs(cfg), LM_SEED, device=dev)
+    prog, _ = program_rram(tree, rram, 7)
+    digital = strip_rram(prog)
+    del tree
+    torch.cuda.synchronize()
+    print(f"[20a] {smi}; one MoE layer's tree of {MOE_ARCH} "
+          f"({e} x {d} x {f}, float32) programmed on its own in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    off = dataclasses.replace(rram, encode_inputs=False)
+
+    def rt_of(r, grid):
+        return Runtime(rram=r, key=LM_DAC_KEY, mesh=grid)
+
+    def peak_over(call):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    for b, t in moe_inputs:
+        x = torch.randn(b, t, d, generator=gen, device=dev)
+        kernels.reset_launches()
+        (local, local_aux), local_peak = peak_over(
+            lambda: moe.moe_apply(prog, x, cfg, rt_of(rram, None)))
+        local_launches = dict(kernels.LAUNCHES)
+        for shape, grid in grids.items():
+            dsz, msz = shape
+            split = b % dsz == 0
+            ranks = dsz * msz
+            cap = moe._capacity((b // dsz if split else b) * t, cfg)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            (out, aux), peak = peak_over(
+                lambda: moe.moe_apply(prog, x, cfg, rt_of(rram, grid)))
+            got = dict(kernels.LAUNCHES)
+            for k_, v in got.items():
+                counts[k_] += v
+            want = {"ec_group_rmatmul": ranks * 3 * -(-cap // 8),
+                    "stencil_denoise": 3 * ranks}
+            check(got == {k_: want.get(k_, 0) for k_ in got},
+                  f"[20a] {shape} {b} x {t}: launches {nonzero(got)}, not "
+                  f"{want}")
+            if shape == (1, 1):
+                check(torch.equal(out, local) and torch.equal(aux, local_aux)
+                      and got == local_launches,
+                      f"[20a] 1 x 1 {b} x {t}: not the local path bit for "
+                      f"bit, or launches {nonzero(got)} against "
+                      f"{nonzero(local_launches)}")
+            # Each rank's expert_mm against its plain twin on its inputs.
+            seen = []
+            real = moe.expert_mm
+
+            def spy(pd, xx, rt, _real=real):
+                salt = rt._salt
+                y = _real(pd, xx, rt)
+                seen.append((pd, xx, salt, y))
+                return y
+
+            moe.expert_mm = spy
+            try:
+                moe.moe_apply(prog, x, cfg, rt_of(rram, grid))
+            finally:
+                moe.expert_mm = real
+            errs = []
+            for pd, xx, salt, y in seen:
+                want_y = moe.expert_mm_plain(pd, xx, Runtime(
+                    rram=rram, key=LM_DAC_KEY, _salt=salt))
+                errs.append(rel_l2(y, want_y))
+            views = all(pd["w_tilde"].untyped_storage().data_ptr() ==
+                        prog[name]["w_tilde"].untyped_storage().data_ptr()
+                        for (pd, _, _, _), name in zip(
+                            seen, ["wg", "wu", "wd"] * ranks))
+            del seen
+            check(len(errs) == 3 * ranks and max(errs) <= EC_TOL and views,
+                  f"[20a] {shape} {b} x {t}: {len(errs)} expert_mm calls, "
+                  f"max rel-L2 {max(errs):.2e} against the plain twin, "
+                  f"views of the images {views}")
+            off_out, _ = moe.moe_apply(prog, x, cfg, rt_of(off, grid))
+            dig, _ = moe.moe_apply(digital, x, cfg, rt_of(None, grid))
+            off_err = rel_l2(off_out, dig)
+            share = e * d * (f // msz) * 4
+            check(off_err <= LM_DIGITAL_TOL and bool(torch.isfinite(out).all())
+                  and peak <= local_peak + share,
+                  f"[20a] {shape} {b} x {t}: DAC off {off_err:.3e} from the "
+                  f"digital TP path, or peak {peak / gib:.3f} GiB over the "
+                  f"local call's {local_peak / gib:.3f} + one rank's share "
+                  f"{share / gib:.3f} GiB")
+            call = lambda: moe.moe_apply(   # noqa: E731
+                prog, x, cfg, rt_of(rram, grid))
+            dev_ms, call_ms = device_time_ms(call, 5), call_time_ms(call, 5)
+            # moe_apply syncs with the host (bincount), so the events' time
+            # is near the wall: the profiler's kernel time is the device's.
+            ksplit = kernel_split(call, iters=3)
+            busy = sum(ksplit.values())
+            top = sorted(ksplit.items(), key=lambda kv: -kv[1])[:3]
+            view = shard(prog["wg"]["w_tilde"], NamedSharding(
+                grid, P(None, None, "model")))[0]
+            lay = kernels.rmatmul_layout(view, view, min(cap, 8)) \
+                if view.is_cuda else None
+            # Each rank reads its d_ff block of the three stacks once per 8
+            # capacity slots, so each data rank reads the images once.
+            fm = f // msz
+            nbytes = ranks * sum(
+                kernels.cost.ec_launch_bytes(m_, k_, cap, transpose=True,
+                                             g=e)
+                for m_, k_ in ((d, fm), (d, fm), (fm, d)))
+            b_ms, _ = bound_ms(0, nbytes)
+            print(f"[20a] {shape[0]} x {shape[1]}, x {b} x {t} "
+                  f"({'split' if split and dsz > 1 else 'whole'} batch, "
+                  f"capacity {cap} a rank): launches {nonzero(got)}; "
+                  f"expert_mm vs plain {min(errs):.1e}-{max(errs):.1e}; DAC "
+                  f"off vs digital TP {off_err:.3e}; peak {peak / gib:.3f} "
+                  f"GiB (local {local_peak / gib:.3f}); events "
+                  f"{dev_ms:.3f} ms, per call {call_ms:.3f} ms, kernels "
+                  f"busy {busy:.3f} ms (idle share "
+                  f"{1 - busy / call_ms if call_ms else 0:.3f}; "
+                  + ", ".join(f"{short_kernel_name(k_)} {v_:.3f}"
+                              for k_, v_ in top)
+                  + f"), byte bound {b_ms:.3f} ms ({nbytes / 1e9:.3f} GB); "
+                  f"aux {float(aux):.6f}", flush=True)
+            if lay is not None:
+                print(layout_line(f"rank 0's wg block {tuple(view.shape)} "
+                                  f"(strides {view.stride()})", lay),
+                      flush=True)
+            if lay is not None and msz > 1 and (b, t) == moe_inputs[0]:
+                # One launch on rank 0's wg block as a view and as a
+                # contiguous copy, in turns.
+                dview = shard(prog["wg"]["dw"], NamedSharding(
+                    grid, P(None, None, "model")))[0]
+                vc, dc = view.contiguous(), dview.contiguous()
+                y = torch.randn(d, e * 8, generator=gen, device=dev)
+                (v_ms, _, _), (c_ms, _, _) = alternating_ms(
+                    [lambda: kernels.ec_group_rmatmul(view, dview, y, y),
+                     lambda: kernels.ec_group_rmatmul(vc, dc, y, y)], 10)
+                print(f"[20a] ec_group_rmatmul at 8 columns a member on "
+                      f"rank 0's {tuple(view.shape)} wg block: as a view "
+                      f"{v_ms:.4f} ms, as a contiguous copy {c_ms:.4f} ms "
+                      f"(median of 10 turns); "
+                      + layout_line("contiguous copy",
+                                    kernels.rmatmul_layout(vc, dc, 8))
+                      .strip(), flush=True)
+                del vc, dc
+    del prog, digital
+    print(f"[20a] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [20b] a sharded train step, as build_cell's train branch builds it.
+    t0 = time.perf_counter()
+    free_cuda()
+    tcfg_m = train_cfg or dataclasses.replace(full,
+                                              n_layers=SHARDED_TRAIN_LAYERS)
+    specs = moe.init_specs(tcfg_m)
+
+    def params0():
+        """The seed-LM_SEED parameters, materialized anew for each step
+        (no pristine copy kept)."""
+        return PM.materialize(specs, LM_SEED, device=dev)
+
+    n_params = sum(math.prod(s_.shape) for _, s_ in PM.tree_paths(specs))
+    tok_gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED + 1)
+
+    def batch_of(b, t):
+        tok = torch.randint(0, tcfg_m.vocab, (b, t), generator=tok_gen,
+                            device=dev, dtype=torch.int32)
+        return {"tokens": tok, "labels": tok}
+
+    def runtime(grid):
+        if grid is not None:
+            return make_runtime(grid, causal_skip=True)
+        return Runtime(q_chunk=512, kv_chunk=512, causal_skip=True)
+
+    def train_step(grid, micro, batch):
+        """One step from ``params0()``: (params, metrics, ms, peak
+        bytes)."""
+        params = params0()
+        fn = make_train_step(
+            moe, tcfg_m, TrainConfig(microbatch=micro, remat="block"),
+            runtime(grid), grad_shardings=None if grid is None else
+            param_shardings(specs, grid, "fsdp_tp"))
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_ = time.perf_counter()
+        params, opt, met = fn(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_) * 1e3
+        del opt
+        return params, met, ms, torch.cuda.max_memory_allocated()
+
+    def drops(grid, batch):
+        """Dropped (token, expert) assignments of one forward: each token
+        group's expert counts over its capacity."""
+        seen = []
+        real = moe._moe_ffn_chunk
+
+        def counting(p_, x2, c_, rt, _real=real):
+            top = torch.topk((x2 @ p_["router"]["w"]).float(),
+                             c_.experts_per_token, dim=-1)[1]
+            n_e = torch.bincount(top.reshape(-1), minlength=c_.n_experts)
+            seen.append(int((n_e - moe._capacity(x2.shape[0], c_))
+                            .clamp(min=0).sum()))
+            return _real(p_, x2, c_, rt)
+
+        moe._moe_ffn_chunk = counting
+        try:
+            with torch.no_grad():
+                moe.loss(params0(), batch, tcfg_m, runtime(grid))
+        finally:
+            moe._moe_ffn_chunk = real
+        return sum(seen)
+
+    def worst(params, want) -> float:
+        return max(rel_l2(a, b) for (_, a), (_, b) in
+                   zip(PM.tree_paths(params), PM.tree_paths(want)))
+
+    def close(got, want) -> float:
+        return max(abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+                   for k in ("loss", "grad_norm"))
+
+    small = batch_of(*train_small)
+    mb = SHARDED_TRAIN_MICRO
+    train_step(None, mb, small)       # warm-up: the first step's set-up
+    ref_p, ref_m, ref_ms, ref_peak = train_step(None, mb, small)
+    print(f"[20b] {tcfg_m.n_layers} of {full.n_layers} layers of "
+          f"{MOE_ARCH} at its published widths, digital float32, "
+          f"{n_params:,} parameters; {train_small[0]} x {train_small[1]} "
+          f"tokens, microbatch {mb}, block remat; no mesh: loss "
+          f"{float(ref_m['loss']):.6f}, grad_norm "
+          f"{float(ref_m['grad_norm']):.6f}, step {ref_ms:.1f} ms, peak "
+          f"{ref_peak / gib:.2f} GiB", flush=True)
+    for shape, grid in grids.items():
+        if shape[0] == 1:
+            want_p, want_m, what = ref_p, ref_m, f"no mesh, microbatch {mb}"
+        else:
+            # Capacity and aux per data rank: the step without a mesh whose
+            # microbatches are the data ranks' token groups.
+            want_p, want_m, _, _ = train_step(None, mb // shape[0], small)
+            what = f"no mesh, microbatch {mb // shape[0]}"
+        params, met, ms, peak = train_step(grid, mb, small)
+        err, p_err = close(met, want_m), worst(params, want_p)
+        print(f"[20b] {shape[0]} x {shape[1]}: loss {float(met['loss']):.6f}"
+              f", grad_norm {float(met['grad_norm']):.6f}; against {what}: "
+              f"loss / grad_norm {err:.2e}, parameters {p_err:.2e} (against"
+              f" no mesh, microbatch {mb}: {close(met, ref_m):.2e}); step "
+              f"{ms:.1f} ms, peak {peak / gib:.2f} GiB", flush=True)
+        check(err <= SHARDED_TRAIN_TOL and p_err <= SHARDED_TRAIN_TOL,
+              f"[20b] {shape}: {err:.2e} / {p_err:.2e} from {what}")
+        del params, want_p
+    del ref_p
+    big = batch_of(*train_big)
+    for shape in ((2, 4), None):
+        grid = grids.get(shape) if shape else None
+        if shape and grid is None:
+            continue
+        n_drop = drops(grid, big)
+        params, met, ms, peak = train_step(grid, mb, big)
+        finite = all(bool(torch.isfinite(p_).all())
+                     for _, p_ in PM.tree_paths(params)) and \
+            all(bool(torch.isfinite(v).all()) for v in met.values())
+        del params
+        print(f"[20b] {train_big[0]} x {train_big[1]} tokens, "
+              f"{'2 x 4' if shape else 'no mesh'}: loss "
+              f"{float(met['loss']):.6f}, grad_norm "
+              f"{float(met['grad_norm']):.6f}, dropped assignments "
+              f"{n_drop}, peak {peak / gib:.2f} GiB, step {ms:.1f} ms",
+              flush=True)
+        check(finite, f"[20b] {train_big} on {shape}: a non-finite output")
+    print(f"[20b] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # [20c] the collectives at size, and their wire bytes.
+    t0 = time.perf_counter()
+    free_cuda()
+    records = []
+
+    def on_wire(kind, axes, tensors, grid):
+        records.append(wire.collective_record(kind, axes, tensors, grid))
+
+    n_r = SHARDED_PSUM_RANKS
+    grid8 = make_mesh((n_r,), ("data",), dev)
+    g = torch.randn((n_r,) + tuple(psum_shape), generator=gen, device=dev)
+    xs = list(g.unbind(0))
+    exact = g.sum(0)
+    mesh_mod.OBSERVERS.append(on_wire)
+    try:
+        outs, res = compressed_psum(grid8, xs, "data")
+        torch.cuda.synchronize()
+        out1 = outs[0]
+        del outs
+        err = float((out1 - exact).abs().max() / exact.abs().max())
+        scale = torch.stack([x_.abs().max() for x_ in xs]).max() / 127.0
+        for r in range(n_r):
+            q = torch.clamp(torch.round(xs[r] / scale), -127, 127).to(
+                torch.int8)
+            check(torch.equal(res[r], xs[r] - q.to(torch.float32) * scale),
+                  f"[20c] rank {r}'s residual is not its input less the "
+                  f"dequantised value")
+            del q
+        outs2, _ = compressed_psum(grid8, xs, "data", res)
+        out2 = outs2[0]
+        del outs2, res
+        ef_err = rel_l2(out1 + out2, 2 * exact)
+        plain_err = rel_l2(2 * out1, 2 * exact)
+        psum_records = list(records)
+        records.clear()
+        del out1, out2, g, xs, exact
+        free_cuda()
+        m_, k_, n_ = ring
+        grid4 = make_mesh((SHARDED_RING_RANKS,), ("model",), dev)
+        xr = torch.randn(m_, k_, generator=gen, device=dev)
+        wr = torch.randn(k_, n_, generator=gen, device=dev) / k_ ** 0.5
+        ws = shard(wr, NamedSharding(grid4, P("model", None)))
+        ys = ring_collective_matmul(grid4, [xr] * grid4.size, ws, "model")
+        torch.cuda.synchronize()
+    finally:
+        mesh_mod.OBSERVERS.remove(on_wire)
+    ring_records = records
+    want_y = xr @ wr
+    ring_err = max(rel_l2(y, want_y) for y in ys)
+    ring_ms = device_time_ms(lambda: ring_collective_matmul(
+        grid4, [xr] * grid4.size, ws, "model"), 5)
+    mm_ms = device_time_ms(lambda: xr @ wr, 5)
+    g_bytes = math.prod(psum_shape) * 4
+    shard_bytes = (k_ // SHARDED_RING_RANKS) * n_ * 4
+    want_psum = [("all-reduce", 4, n_r, wire.collective_wire(
+                      "all-reduce", 4, n_r)),
+                 ("all-reduce", g_bytes, n_r, wire.collective_wire(
+                     "all-reduce", g_bytes, n_r))] * 2
+    want_ring = [("collective-permute", shard_bytes, SHARDED_RING_RANKS,
+                  shard_bytes)] * SHARDED_RING_RANKS
+    as_rows = [(r_["op"], r_["bytes"], r_["group"], r_["wire"])
+               for r_ in psum_records + ring_records]
+    print(f"[20c] compressed_psum over {n_r} data ranks of "
+          f"{psum_shape[0]:,} x {psum_shape[1]:,} fp32 "
+          f"({g_bytes / 1e9:.3f} GB a rank): max error / max |sum| "
+          f"{err:.3e} (< {SHARDED_PSUM_TOL}); two steps rel-L2 with error "
+          f"feedback {ef_err:.3e}, without {plain_err:.3e}; ring "
+          f"{m_} x {k_} @ {k_} x {n_} over {SHARDED_RING_RANKS} model ranks: "
+          f"rel-L2 {ring_err:.2e} against x @ w, device {ring_ms:.3f} ms "
+          f"(one x @ w {mm_ms:.3f} ms); wire records {as_rows}; phase "
+          f"wall {time.perf_counter() - t0:.2f} s", flush=True)
+    check(err < SHARDED_PSUM_TOL and ef_err < plain_err
+          and ring_err <= SHARDED_TRAIN_TOL
+          and as_rows == want_psum + want_ring,
+          f"[20c] int8 error {err:.3e}, EF {ef_err:.3e} against "
+          f"{plain_err:.3e}, ring {ring_err:.2e}, or wire records {as_rows} "
+          f"against {want_psum + want_ring}")
+    del ys, ws, xr, wr, want_y
+    free_cuda()
+    return counts
+
+
 def roofline_in_own_process() -> dict:
     """[19] (``roofline_phase`` at its defaults, held to
     ``ROOFLINE_CPU_COUNTS``) in a Python process of its own, its output
@@ -5956,6 +6404,14 @@ def main() -> int:
     free_cuda()
     all_counts.append(roofline_in_own_process())
     print(f"[19] phase wall time {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # ---------------- 20. sharded execution on a one-card mesh (MoE TP,
+    # the sharded train step, the collectives)
+    t0 = time.perf_counter()
+    free_cuda()
+    all_counts.append(sharded_phase(torch.device("cuda")))
+    print(f"[20] phase wall time {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---------------------------------------------------------- report

@@ -10,6 +10,7 @@
     python3 lm_probe.py rehearse-analysis
     python3 lm_probe.py rehearse-invariants
     python3 lm_probe.py rehearse-roofline [--full]
+    python3 lm_probe.py rehearse-sharded
     python3 lm_probe.py serve-ab --other NAME=DIR [--other ...] [--reps 3]
 
 ``host`` serves phase 12's first request (qwen3-1.7b, full size, DAC on)
@@ -57,6 +58,10 @@ numbers on the CPU).  ``--full`` runs it at the card's shapes, on the
 host's CPU: the counts it prints on its ``[19] counts`` line are the ones
 ``chip_smoke.ROOFLINE_CPU_COUNTS`` holds the card to (about 30 GB of host
 memory: run it where the host has room).
+
+``rehearse-sharded`` runs phase 20 (``sharded_phase``) on the CPU at the
+reduced mixtral-8x7b (its MoE tree on cells of 32^2, one layer trained,
+small collectives) on the card's 1 x 1, 1 x 4 and 2 x 4 meshes.
 
 ``serve-ab`` times phase 12's serving on the card for this tree and the
 trees named by ``--other NAME=DIR`` (roots of unpacked ``git archive``s,
@@ -295,6 +300,30 @@ def rehearse_roofline(args) -> None:
           f"on the CPU passed in {time.perf_counter() - t0:.1f} s")
 
 
+def rehearse_sharded(args) -> None:
+    """chip_smoke.py's phase 20 at the reduced mixtral-8x7b (d_model 64,
+    d_ff 128, 4 experts): the MoE tree on cells of 32^2, x of 1 x 4 and 2
+    x 16 tokens, one layer trained on 2 x 4 and 2 x 32 tokens, a 64 x 32
+    compressed_psum and a 16 x 64 @ 64 x 32 ring."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+
+    chip_smoke = _rehearsal_shims()
+    chip_smoke.card_line = lambda: "CPU rehearsal"
+    cfg = get_arch("mixtral-8x7b").reduced()
+    rram = RRAMBackendConfig(enabled=True, dw_dtype="float32", cell_rows=32,
+                             cell_cols=32)
+    t0 = time.perf_counter()
+    counts = chip_smoke.sharded_phase(
+        torch.device("cpu"), cfg=cfg, rram=rram, moe_inputs=((1, 4), (2, 16)),
+        train_cfg=dataclasses.replace(cfg, n_layers=1), train_big=(2, 32),
+        psum_shape=(64, 32), ring=(16, 64, 32))
+    print(f"rehearsal of phase 20 (mixtral-8x7b reduced) on the CPU passed "
+          f"in {time.perf_counter() - t0:.1f} s; calls "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+
 def live_tensor_bytes() -> int:
     """Bytes of every storage a live tensor holds: the CPU's stand-in for
     ``torch.cuda.memory_allocated``."""
@@ -497,7 +526,8 @@ def main(argv=None) -> int:
                                      "rehearse-train", "rehearse-serving",
                                      "rehearse-analysis",
                                      "rehearse-invariants",
-                                     "rehearse-roofline", "serve-ab",
+                                     "rehearse-roofline",
+                                     "rehearse-sharded", "serve-ab",
                                      "serve-times"))
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=4)
@@ -530,6 +560,8 @@ def main(argv=None) -> int:
         rehearse_invariants(args)
     elif args.what == "rehearse-roofline":
         rehearse_roofline(args)
+    elif args.what == "rehearse-sharded":
+        rehearse_sharded(args)
     else:
         rehearse_train(args)
     return 0

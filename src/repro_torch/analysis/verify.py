@@ -250,10 +250,13 @@ def _observe(fn: Callable, args, kwargs, *, mode: bool = True,
         run.draws.append((key, _user_site("generator")))
 
     def on_collective(kind, axes, tensors, mesh):
-        if kind == "psum":
+        # The reference's audit counts psum equations: jax.lax.pmean is a
+        # psum and a division, pmax and ppermute are neither reduction nor
+        # gather there.
+        if kind in ("psum", "pmean"):
             run.psums.append((axes, [str(t.dtype) for t in tensors],
-                              _user_site("psum")))
-        else:
+                              _user_site(kind)))
+        elif kind == "gather":
             run.gathers.append((sum(t.numel() for t in tensors),
                                 _user_site("gather_to_lead")))
 

@@ -2,9 +2,12 @@
 
 The reference parses the compiled per-device program for its collectives.
 The port runs the call and sees its collectives through
-:data:`repro_torch.launch.mesh.OBSERVERS`: a :func:`~repro_torch.launch.mesh.psum`
-over axes of g ranks in all is an all-reduce of one partial's bytes over g,
-and a :func:`~repro_torch.launch.mesh.gather_to_lead` an all-gather of the
+:data:`repro_torch.launch.mesh.OBSERVERS`: a
+:func:`~repro_torch.launch.mesh.psum`, ``pmax`` or ``pmean`` over axes of
+g ranks in all is an all-reduce of one partial's bytes over g (XLA
+lowers all three to one), a ``ppermute`` a collective-permute of one
+rank's tensor, and a
+:func:`~repro_torch.launch.mesh.gather_to_lead` an all-gather of the
 joined output's bytes over the mesh's size.  Each becomes one record
 ``{"op", "bytes", "group", "wire"}``, with the per-device wire bytes of the
 ring model (:func:`collective_wire`, the reference's):
@@ -54,15 +57,22 @@ def collective_record(kind: str, axes: Sequence[str],
                       tensors: Sequence[torch.Tensor], mesh) -> Dict:
     """The record of one observed collective (``kind``, ``axes``,
     ``tensors``, ``mesh`` as :data:`repro_torch.launch.mesh.OBSERVERS` hand
-    them over): a psum is an all-reduce of one partial over the ranks of
-    its axes, a join an all-gather of the joined segments over the mesh."""
-    if kind == "psum":
-        sizes = dict(zip(mesh.axis_names, mesh.shape))
+    them over): a psum, pmax or pmean is an all-reduce of one partial over
+    the ranks of its axes, a ppermute a collective-permute of one rank's
+    tensor (one send, whatever the group), a join an all-gather of the
+    joined segments over the mesh."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    if kind in ("psum", "pmax", "pmean"):
         op, g = "all-reduce", math.prod(sizes[a] for a in axes)
         bytes_out = _nbytes(tensors[0])
-    else:
+    elif kind == "ppermute":
+        op, g = "collective-permute", math.prod(sizes[a] for a in axes)
+        bytes_out = _nbytes(tensors[0])
+    elif kind == "gather":
         op, g = "all-gather", mesh.size
         bytes_out = sum(_nbytes(t) for t in tensors)
+    else:
+        raise ValueError(f"unknown collective kind {kind!r}")
     return {"op": op, "bytes": bytes_out, "group": g,
             "wire": collective_wire(op, bytes_out, g)}
 

@@ -13,8 +13,8 @@ keyed by their path in JAX's ``keystr`` form (``['x']``, ``[0]``,
 ``.mvms``) and dict keys are visited sorted, as JAX's pytrees visit them,
 so a checkpoint written by either package restores in the other.
 :meth:`CheckpointManager.restore` rebuilds a template tree and puts each
-leaf on its template tensor's device and dtype (the port's counterpart of
-the reference's target shardings).
+leaf on its template tensor's device and dtype, or, given ``shardings``,
+on the device of the sharding's mesh (the reference's elastic restore).
 Saves snapshot the leaves to host memory synchronously and write them on a
 background thread; ``wait()`` joins it.  A SIGTERM handler sets
 :data:`PREEMPTED` so a loop can checkpoint and exit.
@@ -32,6 +32,8 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .sharding import check_sharding
 
 __all__ = ["CheckpointManager", "Watchdog", "install_preemption_handler",
            "PREEMPTED"]
@@ -187,19 +189,34 @@ class CheckpointManager:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, target_tree: Any, step: Optional[int] = None) -> Any:
+    def restore(self, target_tree: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Rebuild ``target_tree``-structured state from step ``step``
         (default: latest).  A tensor leaf comes back on its template's
         device and dtype; any other leaf as a numpy array of its
-        template's dtype."""
+        template's dtype.  ``shardings`` (the target tree's structure, a
+        :class:`~repro_torch.distributed.sharding.NamedSharding` a leaf)
+        retargets any mesh, the reference's elastic restore: each leaf is
+        checked against its sharding and comes back whole on the mesh's
+        device (the ranks of a port mesh share it), whatever mesh saved
+        it."""
+        placed = {} if shardings is None else dict(_leaves(shardings))
         path = os.path.join(self._step_dir(step), "arrays.npz")
         with np.load(path) as data:
             def load(key, leaf):
                 arr = data[key]
+                sh = placed.get(key)
+                if not isinstance(leaf, torch.Tensor):
+                    arr = arr.astype(np.asarray(leaf).dtype)
+                    if sh is None:
+                        return arr
+                t = torch.from_numpy(np.array(arr))
                 if isinstance(leaf, torch.Tensor):
-                    return torch.from_numpy(np.array(arr)).to(
-                        device=leaf.device, dtype=leaf.dtype)
-                return arr.astype(np.asarray(leaf).dtype)
+                    t = t.to(dtype=leaf.dtype)
+                if sh is None:
+                    return t.to(leaf.device)
+                check_sharding(arr.shape, sh)
+                return t.to(sh.mesh.lead_device)
             return _rebuild(target_tree, load)
 
 

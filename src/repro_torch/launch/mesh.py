@@ -8,12 +8,15 @@ one partial per rank over the named axes in fixed rank order, on the device
 of the first rank of each group, so a result does not depend on where the
 ranks run.
 
+:func:`pmax`, :func:`pmean` and :func:`ppermute` are ``jax.lax``'s
+namesakes on the same per-rank lists.
+
 :func:`gather_to_lead` joins the ranks' output segments in order on the
 lead device.  The collective audit of :mod:`repro_torch.analysis.verify`
-observes both, and so does the wire count of
+observes them all, and so does the wire count of
 :mod:`repro_torch.analysis.wire`: while :data:`OBSERVERS` is not empty,
-each :func:`psum` and :func:`gather_to_lead` call hands every observer
-``(kind, axes, tensors, mesh)``, ``kind`` ``"psum"`` or ``"gather"``.
+each call hands every observer ``(kind, axes, tensors, mesh)``, ``kind``
+``"psum"``, ``"pmax"``, ``"pmean"``, ``"ppermute"`` or ``"gather"``.
 Idle, the hook is one list test.
 
 Every rank of a mesh must name the same device: several cards need a
@@ -31,10 +34,11 @@ from typing import Callable, Dict, List, Sequence, Tuple, Union
 import torch
 
 __all__ = ["Mesh", "make_mesh", "make_production_mesh", "axis_index",
-           "mesh_axis_sizes", "psum", "gather_to_lead", "OBSERVERS"]
+           "mesh_axis_sizes", "psum", "pmax", "pmean", "ppermute",
+           "gather_to_lead", "OBSERVERS"]
 
-#: ``observer(kind, axes, tensors, mesh)`` for every :func:`psum` and
-#: :func:`gather_to_lead` call while an audit or a cost count runs.
+#: ``observer(kind, axes, tensors, mesh)`` for every collective of this
+#: module while an audit or a cost count runs.
 OBSERVERS: List[Callable] = []
 
 _MULTI_DEVICE = ("ROADMAP Queue A16 (several cards: a torch.distributed "
@@ -141,37 +145,108 @@ def axis_index(mesh: Mesh, rank: int, axis: str) -> int:
     return mesh.coords(rank)[axis]
 
 
+def _groups(mesh: Mesh, axes: Tuple[str, ...]) -> List[List[int]]:
+    """The ranks of each group that shares its indices off ``axes``, in
+    rank order."""
+    groups: Dict[tuple, List[int]] = {}
+    for r in range(mesh.size):
+        c = mesh.coords(r)
+        groups.setdefault(tuple(c[a] for a in mesh.axis_names
+                                if a not in axes), []).append(r)
+    return list(groups.values())
+
+
+def _reduce(kind: str, mesh: Mesh, partials: Sequence[torch.Tensor],
+            axes: Union[str, Sequence[str]], combine) -> List[torch.Tensor]:
+    """``combine(acc, partial)`` over each group's partials in rank order,
+    into a clone of the first on the device of the group's first rank;
+    the group's ranks share that one result tensor."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    unknown = set(axes) - set(mesh.axis_names)
+    if unknown:
+        raise ValueError(f"{kind} over {sorted(unknown)}: not axes of the "
+                         f"mesh {mesh.axis_names}")
+    if len(partials) != mesh.size:
+        raise ValueError(f"{kind} needs one partial per rank ({mesh.size}), "
+                         f"got {len(partials)}")
+    for observe in OBSERVERS:
+        observe(kind, axes, partials, mesh)
+    out: List[torch.Tensor] = [None] * mesh.size
+    for ranks in _groups(mesh, axes):
+        dev = mesh.devices[ranks[0]]
+        acc = partials[ranks[0]].to(dev)
+        if len(ranks) > 1:
+            acc = acc.clone()
+            for r in ranks[1:]:
+                acc = combine(acc, partials[r].to(dev))
+        for r in ranks:
+            out[r] = acc
+    return out
+
+
+def _add(acc, t):
+    acc += t
+    return acc
+
+
 def psum(mesh: Mesh, partials: Sequence[torch.Tensor],
          axes: Union[str, Sequence[str]]) -> List[torch.Tensor]:
     """Sum over ``axes`` (``jax.lax.psum``): ``partials[r]`` is rank ``r``'s;
     every rank gets the sum over the ranks that share its indices on the
     other axes.  Each group's partials are added in rank order on the device
     of its first rank, and the group's ranks share that one result tensor."""
+    return _reduce("psum", mesh, partials, axes, _add)
+
+
+def pmax(mesh: Mesh, partials: Sequence[torch.Tensor],
+         axes: Union[str, Sequence[str]]) -> List[torch.Tensor]:
+    """The elementwise maximum over ``axes`` (``jax.lax.pmax``), grouped as
+    :func:`psum` groups."""
+    return _reduce("pmax", mesh, partials, axes, torch.maximum)
+
+
+def pmean(mesh: Mesh, partials: Sequence[torch.Tensor],
+          axes: Union[str, Sequence[str]]) -> List[torch.Tensor]:
+    """The mean over ``axes`` (``jax.lax.pmean``: the :func:`psum` over the
+    group divided by its size), grouped as :func:`psum` groups."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
-    unknown = set(axes) - set(mesh.axis_names)
-    if unknown:
-        raise ValueError(f"psum over {sorted(unknown)}: not axes of the "
-                         f"mesh {mesh.axis_names}")
-    if len(partials) != mesh.size:
-        raise ValueError(f"psum needs one partial per rank ({mesh.size}), "
-                         f"got {len(partials)}")
+    sums = _reduce("pmean", mesh, partials, axes, _add)
+    sizes = mesh_axis_sizes(mesh)
+    n = math.prod(sizes[a] for a in axes)
+    means: Dict[int, torch.Tensor] = {}
+    return [means.setdefault(id(t), t / n) for t in sums]
+
+
+def ppermute(mesh: Mesh, tensors: Sequence[torch.Tensor], axis: str,
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``jax.lax.ppermute`` along ``axis``: for each ``(src, dst)`` of
+    ``perm``, the rank at index ``dst`` on ``axis`` receives the tensor of
+    the rank at index ``src`` with the same indices on the other axes
+    (moved to its device); a rank that receives nothing gets zeros."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"ppermute over {axis!r}: not an axis of the mesh "
+                         f"{mesh.axis_names}")
+    if len(tensors) != mesh.size:
+        raise ValueError(f"ppermute needs one tensor per rank ({mesh.size}), "
+                         f"got {len(tensors)}")
+    size = mesh_axis_sizes(mesh)[axis]
+    perm = [(int(s), int(d)) for s, d in perm]
+    if any(not (0 <= s < size and 0 <= d < size) for s, d in perm) or \
+            len({s for s, _ in perm}) != len(perm) or \
+            len({d for _, d in perm}) != len(perm):
+        raise ValueError(f"ppermute: {perm} is not a permutation of indices "
+                         f"of axis {axis!r} (size {size})")
     for observe in OBSERVERS:
-        observe("psum", axes, partials, mesh)
-    groups: Dict[tuple, List[int]] = {}
+        observe("ppermute", (axis,), tensors, mesh)
+    source = {d: s for s, d in perm}
+    out: List[torch.Tensor] = []
     for r in range(mesh.size):
         c = mesh.coords(r)
-        groups.setdefault(tuple(c[a] for a in mesh.axis_names
-                                if a not in axes), []).append(r)
-    out: List[torch.Tensor] = [None] * mesh.size
-    for ranks in groups.values():
-        dev = mesh.devices[ranks[0]]
-        acc = partials[ranks[0]].to(dev)
-        if len(ranks) > 1:
-            acc = acc.clone()
-            for r in ranks[1:]:
-                acc += partials[r].to(dev)
-        for r in ranks:
-            out[r] = acc
+        if c[axis] in source:
+            src = mesh.rank({**c, axis: source[c[axis]]})
+            out.append(tensors[src].to(mesh.devices[r]))
+        else:
+            out.append(torch.zeros_like(tensors[r]))
     return out
 
 

@@ -33,8 +33,8 @@ from ..core.prng import fold_in, generator
 from .params import ParamSpec, spec
 
 __all__ = [
-    "Runtime", "AnalogProduct", "ec_product", "dense", "dense_plain",
-    "dense_spec", "layer_body", "rmsnorm",
+    "Runtime", "constrain_batch", "AnalogProduct", "ec_product", "dense",
+    "dense_plain", "dense_spec", "layer_body", "rmsnorm",
     "rmsnorm_spec", "layernorm", "layernorm_spec", "rope", "rope_tables",
     "attention_specs", "attention", "init_kv_cache", "mlp_specs", "mlp",
     "embed_spec", "unembed_spec", "cross_entropy_loss",
@@ -54,10 +54,16 @@ class Runtime:
     takes the key ``fold_in(key, salt)`` (``key`` 0 when unset).  ``draw``,
     when set, replaces the DAC noise draw: ``draw(key, shape)`` returns the
     standard normals for the call keyed ``key`` (tests inject the
-    reference's draws through it)."""
+    reference's draws through it).  ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.Mesh`), when set, runs the MoE layers
+    tensor-parallel over ``model_axis`` with the batch over
+    ``batch_axes``."""
 
     rram: Optional[RRAMBackendConfig] = None
     key: Optional[int] = None
+    mesh: Any = None                    # for the MoE's tensor-parallel path
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
     flash_threshold: int = 512 * 512    # t*s above which attention chunks
     q_chunk: int = 1024
     kv_chunk: int = 1024
@@ -70,6 +76,16 @@ class Runtime:
     def next_key(self) -> int:
         self._salt += 1
         return fold_in(self.key if self.key is not None else 0, self._salt)
+
+
+def constrain_batch(x: torch.Tensor, rt: Optional[Runtime]) -> torch.Tensor:
+    """``x`` as it is.  The reference pins activations to batch-over-data
+    sharding here (when the data axes divide the batch), a layout hint to
+    GSPMD that changes no value; every rank of the port's mesh shares one
+    device, so there is no layout to pin.  The layers call it at the
+    reference's sites, where a layout across cards (ROADMAP A16) would
+    go."""
+    return x
 
 
 def layer_body(rt: Optional[Runtime], salt: Optional[int], fn: Callable,

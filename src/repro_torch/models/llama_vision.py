@@ -29,9 +29,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import transformer as base
-from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     embed_spec, init_kv_cache, layer_body, mlp, mlp_specs,
-                     rmsnorm, rmsnorm_spec, rope_tables, unembed_spec)
+from .common import (Runtime, attention, attention_specs, constrain_batch,
+                     cross_entropy_loss, embed_spec, init_kv_cache,
+                     layer_body, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
+                     rope_tables, unembed_spec)
 from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
@@ -80,7 +81,7 @@ def forward(params: Dict, tokens: torch.Tensor, patches: torch.Tensor,
             caches: Optional[Dict] = None):
     """tokens (B, T) -> (hidden (B, T, D), caches written in place)."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]
@@ -90,6 +91,7 @@ def forward(params: Dict, tokens: torch.Tensor, patches: torch.Tensor,
     for s, sp in enumerate(unstack(params["super"])):
         if rt is not None:
             rt._salt = first        # every super layer: the outer body's
+        x = constrain_batch(x, rt)
         for i, lp in enumerate(unstack(sp["self"])):
             cache = None if caches is None else \
                 {"k": caches["k"][s, i], "v": caches["v"][s, i],

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import Runtime, dense, dense_spec, rmsnorm, rmsnorm_spec
+from .common import (Runtime, constrain_batch, dense, dense_spec, rmsnorm,
+                     rmsnorm_spec)
 from .linear_attention import chunked_ssd, ssd_decode_step
 from .params import spec
 
@@ -82,6 +83,7 @@ def mamba_apply(p: Dict, x_in: torch.Tensor, cfg: ModelConfig,
                 rt: Optional[Runtime], state: Optional[Dict]
                 ) -> Tuple[torch.Tensor, Dict]:
     """x_in (B, T, D) -> (residual out, new state).  state None => zeros."""
+    x_in = constrain_batch(x_in, rt)
     b, t, d = x_in.shape
     di, n, h, ph = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, \
         cfg.ssm_head_dim

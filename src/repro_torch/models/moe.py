@@ -4,8 +4,11 @@ mixtral-8x7b, phi3.5-moe.
 Token-choice top-k routing with sort-based dispatch: assignments are sorted
 by expert id, positioned with a cumsum of counts, capacity-dropped and
 scattered into an ``(E, C, D)`` buffer, so no ``(N, E, C)`` one-hot tensor
-is built.  Only the reference's local path is ported (its ``shard_map``
-tensor-parallel path needs a mesh the port's ``Runtime`` does not have).
+is built.  Two paths, as in the reference: the local one, and with
+``rt.mesh`` set the tensor-parallel one (the reference's ``shard_map``:
+the batch over the data axes, expert d_ff over the model axis, the
+partial down-projections summed), run rank by rank on views of each
+rank's blocks, every rank of the mesh on one device.
 
 The expert stacks ``(E, D, F)`` are named ``"w"``.  In a model's stacked
 layers they are 4-D ``(L, E, D, F)``, which ``program_rram`` leaves digital,
@@ -29,10 +32,13 @@ import torch.nn.functional as F
 
 from .. import kernels
 from ..configs.base import ModelConfig
+from ..distributed.sharding import NamedSharding, P, shard, unshard
+from ..launch.mesh import mesh_axis_sizes, pmean, psum
 from . import transformer as base
 from .common import (Runtime, _encode_act, attention, attention_specs,
-                     cross_entropy_loss, ec_product, embed_spec, layer_body,
-                     rmsnorm, rmsnorm_spec, rope_tables, unembed_spec)
+                     constrain_batch, cross_entropy_loss, ec_product,
+                     embed_spec, layer_body, rmsnorm, rmsnorm_spec,
+                     rope_tables, unembed_spec)
 from .params import spec, stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "forward", "prefill", "decode_step",
@@ -202,10 +208,65 @@ def _moe_ffn_chunk(p: Dict, x2: torch.Tensor, cfg: ModelConfig,
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
               rt: Optional[Runtime]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, T, D) -> (out, aux): the reference's local path."""
+    """x (B, T, D) -> (out, aux): the local path, or with ``rt.mesh`` set
+    the reference's ``shard_map`` tensor-parallel path, rank by rank:
+    :func:`_moe_tp`."""
     b, t, d = x.shape
-    out, aux = _moe_ffn_local(p, x.reshape(b * t, d), cfg, rt)
-    return out.reshape(b, t, d), aux
+    if rt is None or rt.mesh is None:
+        out, aux = _moe_ffn_local(p, x.reshape(b * t, d), cfg, rt)
+        return out.reshape(b, t, d), aux
+    return _moe_tp(p, x, cfg, rt)
+
+
+def _moe_tp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            rt: Runtime) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-parallel MoE on ``rt.mesh``: the batch split over
+    ``rt.batch_axes`` (whole on every rank when they do not divide it), the
+    router whole, and every leaf of the expert stacks (``w``, ``w_tilde``,
+    ``dw``) split on d_ff over ``rt.model_axis``: ``wg`` / ``wu`` on their
+    last dim, ``wd`` on its rows.  Each rank runs :func:`_moe_ffn_local` on
+    views of its blocks (no copy), with its own capacity (that of its
+    tokens) and the DAC salts of the reference's one trace of the body
+    (reset before each rank); the partial down-projections are summed over
+    the model axis (``mesh.psum``), aux averaged over it and then over each
+    batch axis that splits the batch (``mesh.pmean``).  The tier-2 stencil
+    of an analog stack runs along each rank's d_ff block."""
+    b, t, d = x.shape
+    mesh, mp = rt.mesh, rt.model_axis
+    sizes = mesh_axis_sizes(mesh)
+    dsz = 1
+    for ax in rt.batch_axes:
+        dsz *= sizes.get(ax, 1)
+    # Batch must divide the data axes to shard it; a small batch (a B = 1
+    # decode) runs whole on every data rank instead.
+    batch_spec = rt.batch_axes if b % dsz == 0 else None
+    x_sh = NamedSharding(mesh, P(batch_spec, None, None))
+    xs = shard(x, x_sh)
+
+    def split(tree, spec):
+        return {k: shard(v, NamedSharding(mesh, spec))
+                for k, v in tree.items()}
+
+    stacks = {"wg": split(p["wg"], P(None, None, mp)),
+              "wu": split(p["wu"], P(None, None, mp)),
+              "wd": split(p["wd"], P(None, mp, None))}
+    first = rt._salt
+    outs, auxs = [], []
+    for r in range(mesh.size):
+        rt._salt = first          # shard_map traces the body once
+        pl = {"router": p["router"],
+              **{name: {k: v[r] for k, v in leaves.items()}
+                 for name, leaves in stacks.items()}}
+        bl, tl, _ = xs[r].shape
+        out_l, aux_l = _moe_ffn_local(pl, xs[r].reshape(bl * tl, d), cfg, rt)
+        outs.append(out_l.reshape(bl, tl, d))
+        auxs.append(aux_l)
+    outs = psum(mesh, outs, mp)
+    auxs = pmean(mesh, auxs, mp)
+    if batch_spec is not None:
+        for ax in rt.batch_axes:
+            auxs = pmean(mesh, auxs, ax)
+    return unshard(outs, x_sh), auxs[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -218,6 +279,7 @@ init_caches = base.init_caches
 def layer_apply(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
                 rt: Optional[Runtime], positions, cache: Optional[Dict],
                 rope_tabs=None):
+    x = constrain_batch(x, rt)
     a, cache = attention(lp["attn"], rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
                          cfg, rt, positions=positions, cache=cache,
                          rope_tabs=rope_tabs)
@@ -233,7 +295,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens (B, T) -> (hidden (B, T, D), caches, the layers' aux sum).
     Every layer takes the body's salts, as in :mod:`.transformer`."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]

@@ -31,9 +31,9 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import transformer as base
-from .common import (Runtime, cross_entropy_loss, dense, dense_spec,
-                     embed_spec, layer_body, rmsnorm, rmsnorm_spec,
-                     unembed_spec)
+from .common import (Runtime, constrain_batch, cross_entropy_loss, dense,
+                     dense_spec, embed_spec, layer_body, rmsnorm,
+                     rmsnorm_spec, unembed_spec)
 from .linear_attention import chunked_wkv, wkv_decode_step
 from .params import spec, stack_specs, torch_dtype, unstack
 
@@ -180,6 +180,7 @@ def init_caches(b: int, cfg: ModelConfig, device) -> Dict:
 def layer_apply(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
                 rt: Optional[Runtime], state: Optional[Dict]):
     """``state`` None (training: fresh zeros) or one layer's dict."""
+    x = constrain_batch(x, rt)
     st = state if state is not None else \
         _empty_state(x.shape[0], cfg, x.dtype, x.device)
     a, s_new, tm_x = time_mix(lp["tm"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
@@ -196,7 +197,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             rt: Optional[Runtime], caches: Optional[Dict] = None):
     """tokens (B, T) -> (hidden (B, T, D), caches written in place)."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     first = rt._salt if rt is not None else 0
     for l, lp in enumerate(unstack(params["layers"])):
         st = None if caches is None else \

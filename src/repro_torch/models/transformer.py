@@ -24,9 +24,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from .common import (
-    NEG_INF, Runtime, attention, attention_specs, cross_entropy_loss, dense,
-    embed_spec, init_kv_cache, layer_body, mlp, mlp_specs, rmsnorm,
-    rmsnorm_spec, rope_tables, unembed_spec,
+    NEG_INF, Runtime, attention, attention_specs, constrain_batch,
+    cross_entropy_loss, dense, embed_spec, init_kv_cache, layer_body, mlp,
+    mlp_specs, rmsnorm, rmsnorm_spec, rope_tables, unembed_spec,
 )
 from .params import stack_specs, torch_dtype, unstack
 
@@ -57,6 +57,7 @@ def init_specs(cfg: ModelConfig) -> Dict:
 def layer_apply(lp: Dict, x: torch.Tensor, cfg: ModelConfig,
                 rt: Optional[Runtime], positions, cache: Optional[Dict],
                 rope_tabs=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    x = constrain_batch(x, rt)
     a, cache = attention(lp["attn"], rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
                          cfg, rt, positions=positions, cache=cache,
                          rope_tabs=rope_tabs)
@@ -72,7 +73,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens (B, T) -> hidden (B, T, D).  ``caches`` (from
     :func:`init_caches`) are written in place and returned."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]

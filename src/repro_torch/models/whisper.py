@@ -21,9 +21,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import transformer as base
-from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     embed_spec, layer_body, layernorm, layernorm_spec,
-                     mlp, mlp_specs, sinusoidal_positions, unembed_spec)
+from .common import (Runtime, attention, attention_specs, constrain_batch,
+                     cross_entropy_loss, embed_spec, layer_body, layernorm,
+                     layernorm_spec, mlp, mlp_specs, sinusoidal_positions,
+                     unembed_spec)
 from .params import stack_specs, torch_dtype, unstack
 
 __all__ = ["init_specs", "loss", "encode", "decode", "prefill",
@@ -67,7 +68,7 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig,
     """frames (B, S, D) -> encoder states (B, S, D)."""
     pos = sinusoidal_positions(frames.shape[1], cfg.d_model,
                                device=frames.device).to(frames.dtype)
-    x = frames + pos[None]
+    x = constrain_batch(frames + pos[None], rt)
     first = rt._salt if rt is not None else 0
     for lp in unstack(params["enc_layers"]):
         # Every layer: the body's salts.
@@ -104,7 +105,7 @@ def decode(params: Dict, tokens: torch.Tensor, enc: torch.Tensor,
            caches: Optional[Dict] = None):
     """tokens (B, T) -> (hidden (B, T, D), caches written in place)."""
     cd = torch_dtype(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(cd)
+    x = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)[None, :]

@@ -33,10 +33,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import transformer as base
-from .common import (Runtime, attention, attention_specs, cross_entropy_loss,
-                     dense, dense_spec, embed_spec, init_kv_cache,
-                     layer_body, rmsnorm, rmsnorm_spec, rope_tables,
-                     unembed_spec)
+from .common import (Runtime, attention, attention_specs, constrain_batch,
+                     cross_entropy_loss, dense, dense_spec, embed_spec,
+                     init_kv_cache, layer_body, rmsnorm, rmsnorm_spec,
+                     rope_tables, unembed_spec)
 from .mamba2 import empty_state, mamba_apply, mamba_specs
 from .params import stack_specs, torch_dtype, unstack
 
@@ -127,7 +127,7 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             caches: Optional[Dict] = None):
     """tokens (B, T) -> (hidden (B, T, D), caches written in place)."""
     cd = torch_dtype(cfg.compute_dtype)
-    x0 = params["embed"][tokens.long()].to(cd)
+    x0 = constrain_batch(params["embed"][tokens.long()].to(cd), rt)
     x = x0
     groups, _, tail = _layout(cfg)
     if positions is None:
@@ -144,12 +144,13 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         gst = None if caches is None else \
             {name: caches["groups"][name][g] for name in ("conv", "ssm")}
         # The grouped blocks are digital (4-D kernels): no salt is drawn.
-        x = _mamba_stack(x, group_ps[g], gst, cfg, rt)
+        x = _mamba_stack(constrain_batch(x, rt), group_ps[g], gst, cfg, rt)
         # The shared attention invocation: fresh salts every group (and
         # its own remat, as the reference checkpoints it).
         kv = None if caches is None else \
             {name: caches["kv"][name][g] for name in ("k", "v", "len")}
-        x, kv = layer_body(rt, None, _shared_block, shared, x, x0, ains[g],
+        x, kv = layer_body(rt, None, _shared_block, shared,
+                           constrain_batch(x, rt), x0, ains[g],
                            aouts[g], cfg, rt, positions, kv, tabs)
         if caches is not None:
             caches["kv"]["len"][g] = kv["len"]

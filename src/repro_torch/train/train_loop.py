@@ -25,7 +25,8 @@ from ..models.common import Runtime
 from ..models.params import tree_map, tree_paths
 from .optimizer import OptState, adamw_init, adamw_update
 
-__all__ = ["make_train_step", "Trainer", "loss_and_grads"]
+__all__ = ["make_train_step", "Trainer", "loss_and_grads",
+           "check_grad_shardings"]
 
 
 def _from_leaves(tree, leaves: List[torch.Tensor]):
@@ -47,8 +48,26 @@ def loss_and_grads(mod, params, batch, cfg: ModelConfig,
     return loss.detach(), list(grads)
 
 
+def check_grad_shardings(grad_shardings, params) -> None:
+    """``grad_shardings`` (a tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding`) has the
+    parameters' leaves, and each sharding fits its leaf's shape on its
+    mesh; raises ``ValueError`` where not."""
+    from ..distributed.sharding import check_sharding
+    got = tree_paths(grad_shardings)
+    want = tree_paths(params)
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise ValueError("grad_shardings do not have the parameters' leaves")
+    for (path, sh), (_, leaf) in zip(got, want):
+        try:
+            check_sharding(leaf.shape, sh)
+        except ValueError as e:
+            raise ValueError(f"grad_shardings{path}: {e}") from None
+
+
 def make_train_step(mod, cfg: ModelConfig, tcfg: TrainConfig,
-                    rt: Optional[Runtime] = None) -> Callable:
+                    rt: Optional[Runtime] = None,
+                    grad_shardings=None) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``, which updates the parameter and moment tensors in place
     and returns them; ``metrics`` holds ``loss``, ``grad_norm`` and ``lr``
@@ -58,7 +77,14 @@ def make_train_step(mod, cfg: ModelConfig, tcfg: TrainConfig,
     With ``tcfg.microbatch`` below the batch, the batch is cut into ``B /
     microbatch`` slices whose float32 gradients are summed; the loss and
     the gradients are the means over the slices.  The remat policy is
-    threaded through ``rt.remat``."""
+    threaded through ``rt.remat``.  With ``rt.mesh`` set, the MoE layers
+    run tensor-parallel on it, and their partial gradients meet in the
+    mesh's reductions.  ``grad_shardings`` (a tree of ``NamedSharding``
+    matching the parameters) is, in the reference, a layout hint that
+    pins each microbatch's gradients to the ZeRO layout; every rank of
+    the port's mesh shares one device, so here it is checked against the
+    parameters at the first step (:func:`check_grad_shardings`) and
+    places nothing."""
     rt = rt or Runtime()
     rt.remat = tcfg.remat if tcfg.remat != "none" else rt.remat
     salt0 = rt._salt
@@ -70,7 +96,12 @@ def make_train_step(mod, cfg: ModelConfig, tcfg: TrainConfig,
         return loss, [torch.zeros_like(p) if g is None else g
                       for (_, p), g in zip(tree_paths(params), grads)]
 
+    checked = []
+
     def train_step(params, opt_state: OptState, batch):
+        if grad_shardings is not None and not checked:
+            check_grad_shardings(grad_shardings, params)
+            checked.append(True)
         # A batch of numpy arrays (``data.batches``) goes to the params'.
         dev = tree_paths(params)[0][1].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -146,8 +177,9 @@ class Trainer:
             self.ckpt.save(self.step, self.state(), blocking=blocking,
                            extra={"step": self.step})
 
-    def restore(self, step: Optional[int] = None):
-        tree = self.ckpt.restore(self.state(), step=step)
+    def restore(self, step: Optional[int] = None, shardings=None):
+        tree = self.ckpt.restore(self.state(), step=step,
+                                 shardings=shardings)
         self.params = tree["params"]
         self.opt_state = OptState(**tree["opt"])
         self.step = int(self.opt_state.count)

@@ -1877,6 +1877,96 @@ def test_expert_ec_on_card_matches_plain_twin(cuda_device, cap):
         assert rel(moe.expert_mm(p, x, off), torch.bmm(x, w)) <= 1e-5
 
 
+@pytest.mark.parametrize("msz", [2, 4])
+@pytest.mark.parametrize("layout", ["EDF", "EFD"])
+def test_tp_shard_views_launch_without_a_copy(cuda_device, layout, msz):
+    """Each rank's d_ff block of an (E, D, F) stack (its last dim: member
+    stride D F, row stride F) and of an (E, F, D) stack (its rows: member
+    stride F D) is a view that ``ec_group_rmatmul`` launches on as it is:
+    the view's first and last element lie in the stack's storage, the
+    call allocates no more than its output and workspace, one launch per
+    8 columns of a member, within 1e-5 of the plain twin."""
+    from repro_torch.distributed.sharding import NamedSharding, P, shard
+    from repro_torch.launch import make_mesh
+    # Images large enough that a copy of the two blocks would outgrow the
+    # launches' workspaces (~6.5 MB a launch on an H100).
+    e, d, f, cap = 4, 1024, 4096, 12
+    shape = (e, d, f) if layout == "EDF" else (e, f, d)
+    spec = P(None, None, "model") if layout == "EDF" else P(None, "model")
+    at, da = randn(shape, 160, cuda_device), randn(shape, 161, cuda_device)
+    grid = make_mesh((1, msz), ("data", "model"), cuda_device)
+    lo = at.data_ptr()
+    hi = lo + at.numel() * at.element_size()
+    for r, (av, dv) in enumerate(zip(shard(at, NamedSharding(grid, spec)),
+                                     shard(da, NamedSharding(grid, spec)))):
+        last = av.data_ptr() + sum((n - 1) * st for n, st in
+                                   zip(av.shape, av.stride())) * 4
+        assert lo <= av.data_ptr() and last < hi and not av.is_contiguous()
+        rows = av.shape[1]
+        y = randn((rows, e * cap), 162 + r, cuda_device)
+        yt = randn((rows, e * cap), 163 + r, cuda_device)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        got = kernels.ec_group_rmatmul(av, dv, y, yt)
+        torch.cuda.synchronize()
+        grew = torch.cuda.max_memory_allocated() - before
+        # The output and the launches' workspaces (the next launch's is
+        # allocated before the last one's is released); a copy of the two
+        # images would add 2 x the view's bytes.
+        ws = sum(kernels.rmatmul_layout(av, dv, min(8, cap - c0))
+                 .workspace_floats for c0 in range(0, cap, 8)) * 4
+        assert kernels.LAUNCHES["ec_group_rmatmul"] == -(-cap // 8)
+        assert grew <= got.numel() * 4 + ws + 2048 < 2 * av.numel() * 4, \
+            (grew, ws)
+        assert got.shape == (av.shape[2], e * cap)
+        assert rel(got, kernels.ec_group_rmatmul_plain(av, dv, y, yt)) <= 1e-5
+
+
+def test_moe_tensor_parallel_on_card_matches_plain(cuda_device, monkeypatch):
+    """``moe_apply`` on a 2 x 4 card mesh over a programmed tree: each
+    rank's three ``expert_mm`` run the kernels on views of its d_ff block
+    (3 ceil(cap / 8) ec_group_rmatmul + 3 stencil_denoise a rank, nothing
+    else), within 1e-5 of the same call through the plain twins; a 1 x 1
+    mesh equals the local call bit for bit."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RRAMBackendConfig
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.common import Runtime
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b").reduced(), d_model=256,
+                              d_ff=1024)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    tree = {}
+    for i, (name, shape) in enumerate((("router", (d, e)), ("wd", (e, f, d)),
+                                       ("wg", (e, d, f)), ("wu", (e, d, f)))):
+        w = randn(shape, 170 + i, cuda_device) / math.sqrt(shape[-2])
+        wt = w * (1 + 0.05 * randn(shape, 180 + i, cuda_device))
+        tree[name] = {"w": w, "w_tilde": wt, "dw": w - wt}
+    rcfg = RRAMBackendConfig(enabled=True, lam=1e-2, dw_dtype="float32")
+    x = randn((2, 24, d), 190, cuda_device)
+    grid = make_mesh((2, 4), ("data", "model"), cuda_device)
+    kernels.reset_launches()
+    got, aux = moe.moe_apply(tree, x, cfg, Runtime(rram=rcfg, key=6,
+                                                   mesh=grid))
+    torch.cuda.synchronize()
+    cap = moe._capacity(24, cfg)
+    assert dict(kernels.LAUNCHES) == {
+        **{k: 0 for k in kernels.LAUNCHES},
+        "ec_group_rmatmul": 8 * 3 * -(-cap // 8), "stencil_denoise": 8 * 3}
+    one = make_mesh((1, 1), ("data", "model"), cuda_device)
+    assert torch.equal(
+        moe.moe_apply(tree, x, cfg, Runtime(rram=rcfg, key=6, mesh=one))[0],
+        moe.moe_apply(tree, x, cfg, Runtime(rram=rcfg, key=6))[0])
+    monkeypatch.setattr(moe, "expert_mm", moe.expert_mm_plain)
+    want, want_aux = moe.moe_apply(tree, x, cfg, Runtime(rram=rcfg, key=6,
+                                                         mesh=grid))
+    assert rel(got, want) <= 1e-5 and torch.equal(aux, want_aux)
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "whisper-tiny",
                                   "llama-3.2-vision-11b"])
 def test_family_decode_step_launch_count_on_card(cuda_device, arch):
